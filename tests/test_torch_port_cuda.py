@@ -1,0 +1,66 @@
+"""The port's CUDA kernels on the card.
+
+These tests need an NVIDIA GPU and ``nvcc``; elsewhere they skip.  The
+file imports no jax (the GPU machine has none), so run it there without
+the suite's conftest:
+
+    python -m pytest --noconftest tests/test_torch_port_cuda.py -m cuda -q
+"""
+
+import pytest
+import torch
+
+from ganspace_tpu_torch.ops.modconv import (
+    demodulation, modconv3x3, modconv3x3_plain, modulated_conv2d)
+from ganspace_tpu_torch.ops.moments import centered_gram, centered_gram_plain
+from ganspace_tpu_torch.ops.precision import ieee_f32
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card with -m cuda)")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("n,d,explicit_mu", [(4096, 512, False), (1000, 300, False),
+                                             (77, 515, False), (256, 128, True)])
+def test_centered_gram_on_card(gen, n, d, explicit_mu):
+    x = torch.randn(n, d, generator=gen, device="cuda") + 1.0
+    mu = torch.randn(d, generator=gen, device="cuda") if explicit_mu else None
+    launches = centered_gram.launches
+    with ieee_f32():
+        got, ref = centered_gram(x, mu), centered_gram_plain(x, mu)
+    assert centered_gram.launches == launches + 1
+    assert torch.equal(got, got.T)                     # mirrored tiles
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max()) + 1e-4
+
+
+@pytest.mark.parametrize("b,c,co,h,w", [(2, 512, 512, 4, 4), (2, 40, 48, 19, 33),
+                                        (1, 32, 32, 64, 64), (3, 64, 3, 16, 16)])
+def test_modconv3x3_on_card(gen, b, c, co, h, w):
+    x = torch.randn(b, c, h, w, generator=gen, device="cuda")
+    wt = torch.randn(co, c, 3, 3, generator=gen, device="cuda") / (9 * c) ** 0.5
+    s = 1.0 + 0.5 * torch.randn(b, c, generator=gen, device="cuda")
+    launches = modconv3x3.launches
+    with ieee_f32():
+        for d in (demodulation(wt, s), None):
+            got, ref = modconv3x3(x, wt, s, d), modconv3x3_plain(x, wt, s, d)
+            assert float((got - ref).abs().max() / ref.abs().max()) < 1e-5
+    assert modconv3x3.launches == launches + 2
+
+
+def test_cuda_operands_never_fall_back(gen):
+    """On the card a wrapper launches its kernel or raises."""
+    x = torch.randn(64, 32, generator=gen, device="cuda", dtype=torch.float64)
+    with pytest.raises(TypeError):
+        centered_gram(x)
+    xc = torch.randn(1, 8, 8, 8, generator=gen, device="cuda")
+    w = torch.randn(8, 8, 3, 3, generator=gen, device="cuda")
+    with pytest.raises(TypeError):
+        modconv3x3(xc, w, torch.ones(1, 8, dtype=torch.float64, device="cuda"), None)
+    launches = modconv3x3.launches
+    modulated_conv2d(xc, w, torch.ones(1, 8, device="cuda"))
+    assert modconv3x3.launches == launches + 1
