@@ -7,15 +7,29 @@ Phases, each of which raises on failure:
 
 1. device: require CUDA and print the card's name and power limit;
 2. build: compile the CUDA kernels from ``ganspace_tpu_torch/csrc``;
-3. kernel A (centered Gram) against its plain PyTorch version, on the card;
-4. kernel B (modulated 3x3 conv) against its plain version, at the nine
-   plain-3x3 shapes of 1024-px StyleGAN2 synthesis plus a ragged one;
-5. the main path: ``visualize --model StyleGAN2 --class ffhq --use_w
+3. the 3xTF32 tensor-core step of ``csrc/tf32x3.cuh`` on one 16x8x8 tile;
+4. kernel A (centered Gram) against its plain PyTorch version, on the card,
+   with a wide-range case and a determinism check;
+5. kernel B (modulated 3x3 conv) against its plain version, at the nine
+   plain-3x3 shapes of 1024-px StyleGAN2 synthesis at the render's batch of
+   5 (and at a batch of 2, for comparison with earlier runs), plus a ragged and a wide-range case and a
+   determinism check;
+6. the main path: ``visualize --model StyleGAN2 --class ffhq --use_w
    --layer style --est ipca -c 80 -n 40960`` on the full-width FFHQ-1024
    generator (seeded random weights), with its launch counts, its cache and
    its grids checked;
-6. one 1024-px image through the card (kernels) against the same model on
+7. one 1024-px image through the card (kernels) against the same model on
    the CPU (plain versions).
+
+Kernel times are medians over launches by CUDA events, each launch after a
+write of a 128 MB buffer that evicts the 50 MB L2 (in the render each
+layer's weight is read once per forward, cold).  Beside each kernel stand
+its plain version, the one PyTorch call that computes the same function
+(``library_ms``, timed here only; the port never calls it) and its bound:
+the larger of its FLOP over the 3xTF32 peak (495 / 3 = 165 TFLOP/s; the
+kernels compute float32 products as 3xTF32) and its bytes (each input read
+once, each output written once) over 3.35 TB/s, the H100 SXM's published
+peaks at 700 W.  The FFMA bound (67 TFLOP/s) is printed beside it.
 
 The last lines are a JSON summary of the kernels, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -38,22 +52,36 @@ import torch
 MAIN_ARGS = ["--model", "StyleGAN2", "--class", "ffhq", "--use_w", "--layer",
              "style", "--est", "ipca", "-c", "80", "-n", "40960"]
 N_FIT_BLOCKS = 10                      # 40960 samples in blocks of 4096
+N_CONV_LAUNCHES = 9 * 168              # 9 plain 3x3 convs per strip, 168 strips
 NPZ_KEYS = {"act_comp", "act_mean", "act_stdev", "lat_comp", "lat_mean",
             "lat_stdev", "var_ratio", "random_stdevs", "_meta"}
 # (N, D, explicit mu): the main path's block, then tests/test_pallas_moments.py's
 GRAM_CASES = [(4096, 512, False), (300, 130, False), (77, 515, False),
               (256, 128, True)]
-# (B, C, Co, H, W): conv1 and convs.1, 3, ..., 15 of 1024-px synthesis at
-# B = 2, then a ragged map with channel counts off the 32-channel tile
-CONV_CASES = [(2, c, c, r, r) for c, r in ((512, 4), (512, 8), (512, 16),
-                                           (512, 32), (512, 64), (256, 128),
-                                           (128, 256), (64, 512), (32, 1024))]
+# (C, resolution): conv1 and convs.1, 3, ..., 15 of 1024-px synthesis
+SYNTH_SHAPES = ((512, 4), (512, 8), (512, 16), (512, 32), (512, 64),
+                (256, 128), (128, 256), (64, 512), (32, 1024))
+RENDER_BATCH = 5                        # one strip of 5 frames per forward
+# (B, C, Co, H, W): the render's shapes, the same at B = 2, then a ragged
+# case: Co off the 64-channel tile, a map off the power-of-two pixel tiles
+CONV_CASES = [(RENDER_BATCH, c, c, r, r) for c, r in SYNTH_SHAPES]
+CONV_CASES_B2 = [(2, c, c, r, r) for c, r in SYNTH_SHAPES]
 CONV_RAGGED = (2, 48, 40, 37, 23)
-# A float32 FFMA sum against cuDNN's / cuBLAS's own float32 sum: rounding
-# order differs, nothing else.
+# wide-range cases: X = 1e3 randn + 1e2 for A, s spanning 1e-2..1e2 for B
+GRAM_WIDE = (4096, 512)
+CONV_WIDE = [(RENDER_BATCH, 512, 512, 8, 8), (RENDER_BATCH, 512, 512, 64, 64)]
+# 3xTF32 tensor-core sums against cuDNN's / cuBLAS's IEEE float32 sums: as
+# accurate, in another order (tests/test_torch_port_tf32x3.py).
 GRAM_ABS, GRAM_REL = 1e-4, 1e-5         # max|d| <= 1e-5 max|ref| + 1e-4
 CONV_REL = 1e-5                         # max|d| / max|ref|
+TILE_REL = 1e-6                         # one 16x8x8 step against float64
 IMAGE_REL = 1e-3                        # 1024 px, 18 layers deep (fullres bar)
+# H100 SXM published peaks at 700 W (NVIDIA H100 datasheet)
+PEAK_3XTF32 = 495e12 / 3                # TF32 tensor cores, three passes
+PEAK_FFMA = 67e12                       # float32 outside the tensor cores
+PEAK_BYTES = 3.35e12
+FLUSH_BYTES = 128 << 20                 # > the 50 MB L2
+SLEEP_CYCLES = 200_000                  # ~0.1 ms at the H100's clock
 
 
 def log(msg: str) -> None:
@@ -67,12 +95,23 @@ def gpu_line() -> str:
     return out.strip().splitlines()[0]
 
 
+_flush: torch.Tensor | None = None
+
+
 def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn`` over ``reps`` launches (CUDA events)."""
+    """Median device time of ``fn`` over ``reps`` launches (CUDA events),
+    each after a write that evicts the L2 and a ~0.1 ms device sleep, both
+    outside the timed events: the sleep keeps the card busy while the host
+    enqueues ``fn``, so the time is the device's and not the host's."""
+    global _flush
+    if _flush is None:
+        _flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
+        _flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -81,6 +120,19 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(flop: float, nbytes: float) -> dict:
+    """The least time for the work (3xTF32 FLOP or bytes), and the FFMA one."""
+    t_flop, t_bytes = flop / PEAK_3XTF32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_flop, t_bytes),
+            "bound_by": "operations" if t_flop >= t_bytes else "bytes",
+            "bound_ffma_ms": max(flop / PEAK_FFMA * 1e3, t_bytes)}
+
+
+def timed(ms: float, plain_ms: float, library_ms: float, bnd: dict) -> dict:
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bnd,
+            "bound_share": bnd["bound_ms"] / ms}
 
 
 def build():
@@ -93,59 +145,147 @@ def build():
     return lib
 
 
+def check_tile(gen: torch.Generator) -> None:
+    """The 3xTF32 step alone: fragment layouts and the split."""
+    from ganspace_tpu_torch.ops.tf32x3 import tile_3xtf32
+    a = torch.randn(16, 8, generator=gen, device="cuda")
+    b = torch.randn(8, 8, generator=gen, device="cuda")
+    got = tile_3xtf32(a, b).double()
+    ref = a.double() @ b.double().T
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    log(f"tf32x3 tile 16x8x8 against float64: rel {rel:.3e} (bar {TILE_REL:.0e})")
+    if not rel < TILE_REL:
+        raise AssertionError(f"3xTF32 tile: rel err {rel} >= {TILE_REL}")
+
+
+def gram_bar(ref: torch.Tensor) -> float:
+    return GRAM_REL * float(ref.abs().max()) + GRAM_ABS
+
+
 def check_centered_gram(gen: torch.Generator) -> dict:
     from ganspace_tpu_torch.ops.moments import centered_gram, centered_gram_plain
-    worst, timing = 0.0, None
-    for n, d, explicit in GRAM_CASES:
-        x = torch.randn(n, d, generator=gen, device="cuda") * 2.0 + 0.5
+    timing = None
+    cases = [(n, d, explicit, False) for n, d, explicit in GRAM_CASES]
+    cases.append((*GRAM_WIDE, False, True))
+    for n, d, explicit, wide in cases:
+        x = torch.randn(n, d, generator=gen, device="cuda")
+        x = x * 1e3 + 1e2 if wide else x * 2.0 + 0.5
         mu = torch.randn(d, generator=gen, device="cuda") if explicit else None
         got = centered_gram(x, mu)
         ref = centered_gram_plain(x, mu)
         torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        bar = GRAM_REL * float(ref.abs().max()) + GRAM_ABS
-        ms = median_ms(lambda: centered_gram(x, mu))
-        plain_ms = median_ms(lambda: centered_gram_plain(x, mu))
-        log(f"centered_gram N={n} D={d} mu={'given' if explicit else 'mean'}: "
-            f"max|d|={err:.3e} (bar {bar:.3e}) kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms")
+        err, bar = float((got - ref).abs().max()), gram_bar(ref)
+        log(f"centered_gram N={n} D={d} mu={'given' if explicit else 'mean'}"
+            f"{' wide-range' if wide else ''}: max|d|={err:.3e} (bar {bar:.3e})")
         if not err <= bar:
             raise AssertionError(f"centered_gram {n}x{d}: max|d| {err} > {bar}")
-        worst = max(worst, err)
         if timing is None:                      # the main path's shape
-            timing = (ms, plain_ms)
-    return {"max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
+            if not torch.equal(got, centered_gram(x, mu)):
+                raise AssertionError("centered_gram: two launches differ")
+            # the main path passes the block mean (estimators/ipca.py)
+            mean = x.mean(dim=0)
+            xc = x - mean
+            timing = timed(median_ms(lambda: centered_gram(x, mean)),
+                           median_ms(lambda: centered_gram_plain(x, mean)),
+                           median_ms(lambda: xc.T @ xc),
+                           bound(n * d * (d + 1), 4 * (n * d + d + d * d)))
+            timing["max_abs_err"] = err
+            log(f"  determinism: two launches bit-identical; kernel "
+                f"{timing['ms']:.4f} ms, plain {timing['plain_ms']:.4f} ms, "
+                f"cuBLAS xc.T @ xc {timing['library_ms']:.4f} ms, bound "
+                f"{timing['bound_ms']:.4f} ms ({timing['bound_by']}; FFMA "
+                f"{timing['bound_ffma_ms']:.4f} ms), share "
+                f"{timing['bound_share']:.3f}")
+    return timing
+
+
+def conv_inputs(gen: torch.Generator, case, wide: bool = False):
+    from ganspace_tpu_torch.ops.modconv import demodulation
+    b, c, co, h, w = case
+    x = torch.randn(b, c, h, w, generator=gen, device="cuda")
+    wt = torch.randn(co, c, 3, 3, generator=gen, device="cuda") / (9 * c) ** 0.5
+    if wide:                                    # |s| from 1e-2 to 1e2
+        s = 10.0 ** (4.0 * torch.rand(b, c, generator=gen, device="cuda") - 2.0)
+    else:
+        s = 1.0 + 0.5 * torch.randn(b, c, generator=gen, device="cuda")
+    return x, wt, s, demodulation(wt, s)
+
+
+def conv_err(got: torch.Tensor, ref: torch.Tensor, case, what: str):
+    """(max|d|, max|d| / max|ref|); raises above the bar."""
+    err = float((got - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    if not rel < CONV_REL:
+        raise AssertionError(f"modconv3x3 {case}{what}: rel err {rel} >= {CONV_REL}")
+    return err, rel
+
+
+def conv_bound(case) -> dict:
+    b, c, co, h, w = case
+    return bound(2.0 * b * h * w * co * 9 * c,
+                 4.0 * (b * c * h * w + co * c * 9 + b * c + b * co + b * co * h * w))
 
 
 def check_modconv3x3(gen: torch.Generator) -> dict:
-    from ganspace_tpu_torch.ops.modconv import (
-        demodulation, modconv3x3, modconv3x3_plain)
-    worst, total_ms, total_plain = 0.0, 0.0, 0.0
+    import torch.nn.functional as F
+    from ganspace_tpu_torch.ops.modconv import modconv3x3, modconv3x3_plain
+    worst, worst_rel = 0.0, 0.0
+    total = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
+                           "bound_ffma_ms", "flop_ms"), 0.0)
     for case in CONV_CASES + [CONV_RAGGED]:
-        b, c, co, h, w = case
-        x = torch.randn(b, c, h, w, generator=gen, device="cuda")
-        wt = torch.randn(co, c, 3, 3, generator=gen, device="cuda") / (9 * c) ** 0.5
-        s = 1.0 + 0.5 * torch.randn(b, c, generator=gen, device="cuda")
-        d = demodulation(wt, s)
+        x, wt, s, d = conv_inputs(gen, case)
         got = modconv3x3(x, wt, s, d)
         ref = modconv3x3_plain(x, wt, s, d)
         torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        rel = err / float(ref.abs().max())
+        err, rel = conv_err(got, ref, case, "")
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        b, c, co, h, w = case
+        line = f"modconv3x3 B={b} C={c} Co={co} {h}x{w}: rel={rel:.3e} (bar {CONV_REL:.0e})"
+        if case != CONV_RAGGED:
+            xs = x * s[:, :, None, None]
+            row = timed(median_ms(lambda: modconv3x3(x, wt, s, d)),
+                        median_ms(lambda: modconv3x3_plain(x, wt, s, d)),
+                        median_ms(lambda: F.conv2d(xs, wt, padding=1)),
+                        conv_bound(case))
+            for k in total:
+                if k != "flop_ms":
+                    total[k] += row[k]
+            if row["bound_by"] == "operations":
+                total["flop_ms"] += row["bound_ms"]
+            line += (f" kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms,"
+                     f" cuDNN {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
+                     f" ms ({row['bound_by']}; FFMA {row['bound_ffma_ms']:.4f} ms),"
+                     f" share {row['bound_share']:.3f}")
+            del xs
+        log(line)
+        del x, got, ref
+    for case in CONV_WIDE:
+        x, wt, s, d = conv_inputs(gen, case, wide=True)
+        got = modconv3x3(x, wt, s, d)
+        err, rel = conv_err(got, modconv3x3_plain(x, wt, s, d), case, " wide-range")
+        if not torch.equal(got, modconv3x3(x, wt, s, d)):
+            raise AssertionError(f"modconv3x3 {case}: two launches differ")
+        log(f"modconv3x3 {case} s in [1e-2, 1e2]: rel={rel:.3e}; two launches "
+            f"bit-identical")
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        del x, got
+    for case in CONV_CASES_B2:                  # for comparison with earlier runs
+        x, wt, s, d = conv_inputs(gen, case)
         ms = median_ms(lambda: modconv3x3(x, wt, s, d))
         plain_ms = median_ms(lambda: modconv3x3_plain(x, wt, s, d))
-        log(f"modconv3x3 B={b} C={c} Co={co} {h}x{w}: rel={rel:.3e} "
-            f"(bar {CONV_REL:.0e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        if not rel < CONV_REL:
-            raise AssertionError(f"modconv3x3 {case}: rel err {rel} >= {CONV_REL}")
-        worst = max(worst, err)
-        if case != CONV_RAGGED:
-            total_ms += ms
-            total_plain += plain_ms
-        del x, got, ref
-    log(f"modconv3x3, the nine synthesis shapes at B=2: kernel {total_ms:.4f} "
-        f"ms, plain {total_plain:.4f} ms")
-    return {"max_abs_err": worst, "ms": total_ms, "plain_ms": total_plain}
+        log(f"modconv3x3 B=2 C={case[1]} {case[3]}x{case[4]}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms")
+        del x
+    flop_ms = total.pop("flop_ms")
+    bytes_ms = total["bound_ms"] - flop_ms
+    result = {"max_abs_err": worst, "max_rel_err": worst_rel, **total,
+              "bound_by": "operations" if flop_ms >= bytes_ms else "bytes",
+              "bound_share": total["bound_ms"] / total["ms"]}
+    log(f"modconv3x3, the nine synthesis shapes at B={RENDER_BATCH}: kernel "
+        f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, cuDNN "
+        f"{total['library_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms (FFMA "
+        f"{total['bound_ffma_ms']:.4f} ms), share {result['bound_share']:.3f}")
+    return result
 
 
 def run_main_path(gpu: str) -> dict:
@@ -164,8 +304,9 @@ def run_main_path(gpu: str) -> dict:
         if launches["centered_gram"] != N_FIT_BLOCKS:
             raise AssertionError(f"centered_gram launched {launches['centered_gram']} "
                                  f"times, expected one per fit block ({N_FIT_BLOCKS})")
-        if launches["modconv3x3"] <= 0:
-            raise AssertionError("modconv3x3 never launched on the main path")
+        if launches["modconv3x3"] != N_CONV_LAUNCHES:
+            raise AssertionError(f"modconv3x3 launched {launches['modconv3x3']} "
+                                 f"times, expected 9 per strip ({N_CONV_LAUNCHES})")
 
         with np.load(result.cache, allow_pickle=False) as data:
             if set(data.files) != NPZ_KEYS:
@@ -235,6 +376,7 @@ def main() -> int:
     build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     with ieee_f32():
+        check_tile(gen)
         gram = check_centered_gram(gen)
         conv = check_modconv3x3(gen)
     t0 = time.perf_counter()

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, which is loaded through
-``ctypes``.  The library lands in ``build/ganspace_tpu_torch/`` at the root
-of the checkout and is keyed by a hash of the sources and flags, so an edit
-to any kernel rebuilds it and an unchanged tree reuses it.  Nothing here
+Each source is compiled with ``nvcc`` for Hopper (``sm_90a``), all of them
+at once, and the objects are linked into one shared library with a plain C
+interface, which is loaded through ``ctypes``.  The library lands in
+``build/ganspace_tpu_torch/`` at the root of the checkout and is keyed by a
+hash of the sources, headers and flags, so an edit to any kernel rebuilds
+it and an unchanged tree reuses it.  Nothing here
 runs at import time: the first call of a kernel wrapper on a CUDA tensor
 builds and loads the library.
 
@@ -26,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ganspace_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,6 +35,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "ganspace_centered_gram": [_P, _P, _P, _I, _I, _P],
     "ganspace_modconv3x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ganspace_tf32x3_tile": [_P, _P, _P, _P],
 }
 
 
@@ -81,6 +83,36 @@ def _digest(sources) -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds) -> str:
+    """Run the commands side by side; raise on the first that fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    logs, failed = [], None
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        logs.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}"
+    if failed:
+        raise RuntimeError(failed)
+    return "".join(logs)
+
+
+def _compile_and_link(sources, lib_path: Path) -> str:
+    """One nvcc per source, all started together, then one link."""
+    tag = f"{lib_path.stem}.{os.getpid()}"
+    objs = [lib_path.with_name(f"{tag}.{src.stem}.o") for src in sources]
+    log = _run([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objs)])
+    tmp = lib_path.with_name(f"{tag}.tmp.so")
+    _run([[_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]])
+    for obj in objs:
+        obj.unlink()
+    os.replace(tmp, lib_path)
+    return log
+
+
 def load_kernels() -> KernelLibrary:
     """Build the library if needed and load it (once per process)."""
     global _loaded
@@ -88,23 +120,16 @@ def load_kernels() -> KernelLibrary:
         if _loaded is not None:
             return _loaded
         sources = sorted(CSRC.glob("*.cu"))
-        digest = _digest(sources)
+        digest = _digest(sorted(CSRC.glob("*.cu*")))
         lib_path = BUILD_DIR / f"libganspace_kernels_{digest}.so"
         log_path = lib_path.with_suffix(".log")
         seconds = 0.0
         if not lib_path.is_file():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log = _compile_and_link(sources, lib_path)
             seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                    f"{proc.stdout}\n{proc.stderr}")
-            log_path.write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, lib_path)
+            log_path.write_text(log)
         log = log_path.read_text() if log_path.is_file() else ""
         _loaded = KernelLibrary(ctypes.CDLL(str(lib_path)), lib_path, seconds,
                                 log)

@@ -9,8 +9,10 @@ channel and demodulation per (sample, output channel), so
 runs as one shared batched convolution, with no per-sample weights.
 
 * The plain 3x3 path (every non-upsampling StyledConv) goes through the
-  CUDA kernel ``csrc/modconv3x3.cu`` (:func:`modconv3x3`), which applies
-  the style scale on its input load and ``d`` in its epilogue.  It
+  CUDA kernel ``csrc/modconv3x3.cu`` (:func:`modconv3x3`), an implicit GEMM
+  on the tensor cores in 3xTF32 that reads the weight in its OIHW layout,
+  applies the style scale as it forms its input fragments and ``d`` in its
+  epilogue.  It
   replaces the TPU kernel ``ops/pallas/blockconv.py::conv3x3_blocks_pallas``
   with the scale and demodulation around it (``ops/s2d.py:244-261``).
 * The upsampling path (transposed conv, then FIR blur) and the 1x1
@@ -67,7 +69,7 @@ def modconv3x3(x: torch.Tensor, w_scaled: torch.Tensor, s: torch.Tensor,
         raise ValueError("modconv3x3: tensor too large for the kernel's int sizes")
     x = x.contiguous()
     s = s.contiguous()
-    wt = w_scaled.permute(1, 2, 3, 0).contiguous()       # [C, 3, 3, Co]
+    wt = w_scaled.contiguous()
     if d is not None:
         d = d.contiguous()
     y = torch.empty((b, co, h, w), dtype=torch.float32, device=x.device)

@@ -1,8 +1,9 @@
 """Centered Gram ``(X - mu)^T (X - mu)``: CUDA kernel and plain version.
 
 Counterpart of ``ganspace_tpu/ops/pallas/moments.py::centered_gram``.  The
-kernel (``csrc/centered_gram.cu``) centers on the load into shared memory,
-so no centered copy of X is written.  A CPU tensor takes the plain
+kernel (``csrc/centered_gram.cu``) runs on the tensor cores in 3xTF32 and
+centers X on its way from shared memory to the fragments, so no centered
+copy of X is written.  A CPU tensor takes the plain
 PyTorch version; a CUDA tensor launches the kernel or raises.
 """
 

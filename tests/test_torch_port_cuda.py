@@ -38,8 +38,20 @@ def test_centered_gram_on_card(gen, n, d, explicit_mu):
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max()) + 1e-4
 
 
+# the nine plain 3x3 convs of a 1024-px forward at the render's batch of 5
+# (4-32 px take the cluster split of K)
+RENDER_SHAPES = [(5, c, c, r, r) for c, r in [
+    (512, 4), (512, 8), (512, 16), (512, 32), (512, 64), (256, 128), (128, 256),
+    (64, 512), (32, 1024)]]
+# channel counts off the 8-channel stage and the 64-channel tile, maps off
+# the power-of-two pixel tiles, C % 4 != 0 (4-byte weight copies)
+RAGGED_SHAPES = [(2, 48, 40, 37, 23), (3, 24, 36, 5, 7), (1, 520, 72, 6, 6),
+                 (4, 17, 33, 9, 2)]
+
+
 @pytest.mark.parametrize("b,c,co,h,w", [(2, 512, 512, 4, 4), (2, 40, 48, 19, 33),
-                                        (1, 32, 32, 64, 64), (3, 64, 3, 16, 16)])
+                                        (1, 32, 32, 64, 64), (3, 64, 3, 16, 16)]
+                         + RENDER_SHAPES + RAGGED_SHAPES)
 def test_modconv3x3_on_card(gen, b, c, co, h, w):
     x = torch.randn(b, c, h, w, generator=gen, device="cuda")
     wt = torch.randn(co, c, 3, 3, generator=gen, device="cuda") / (9 * c) ** 0.5
@@ -64,3 +76,37 @@ def test_cuda_operands_never_fall_back(gen):
     launches = modconv3x3.launches
     modulated_conv2d(xc, w, torch.ones(1, 8, device="cuda"))
     assert modconv3x3.launches == launches + 1
+
+
+# -- the 3xTF32 tensor-core kernels ------------------------------------------
+
+def test_tf32x3_tile_on_card(gen):
+    from ganspace_tpu_torch.ops.tf32x3 import tile_3xtf32
+    a = torch.randn(16, 8, generator=gen, device="cuda")
+    b = torch.randn(8, 8, generator=gen, device="cuda")
+    ref = a.double() @ b.double().T
+    got = tile_3xtf32(a, b).double()
+    assert float((got - ref).abs().max() / ref.abs().max()) < 1e-6
+
+
+@pytest.mark.parametrize("res", [8, 64])
+def test_modconv3x3_wide_range_and_deterministic_on_card(gen, res):
+    """|s| from 1e-2 to 1e2; 8 px takes the cluster split of K."""
+    x = torch.randn(5, 512, res, res, generator=gen, device="cuda")
+    wt = torch.randn(512, 512, 3, 3, generator=gen, device="cuda") / (9 * 512) ** 0.5
+    s = 10.0 ** (4.0 * torch.rand(5, 512, generator=gen, device="cuda") - 2.0)
+    with ieee_f32():
+        d = demodulation(wt, s)
+        got, ref = modconv3x3(x, wt, s, d), modconv3x3_plain(x, wt, s, d)
+    assert float((got - ref).abs().max() / ref.abs().max()) < 1e-5
+    assert torch.equal(got, modconv3x3(x, wt, s, d))   # no atomics
+
+
+@pytest.mark.parametrize("n,d", [(4096, 512), (300, 130), (77, 515), (5000, 64)])
+def test_centered_gram_wide_range_and_deterministic_on_card(gen, n, d):
+    """1e3 randn + 1e2; N split across a cluster where the grid is small."""
+    x = torch.randn(n, d, generator=gen, device="cuda") * 1e3 + 1e2
+    with ieee_f32():
+        got, ref = centered_gram(x), centered_gram_plain(x)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max()) + 1e-4
+    assert torch.equal(got, centered_gram(x))

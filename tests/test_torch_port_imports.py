@@ -17,6 +17,7 @@ MODULES = [
     "ganspace_tpu_torch.ops.modconv",
     "ganspace_tpu_torch.ops.linear",
     "ganspace_tpu_torch.ops.upfirdn",
+    "ganspace_tpu_torch.ops.tf32x3",
     "ganspace_tpu_torch.estimators",
     "ganspace_tpu_torch.estimators.utils",
     "ganspace_tpu_torch.estimators.ipca",
