@@ -12,14 +12,28 @@ Phases, each of which raises on failure:
    with a wide-range case and a determinism check;
 5. kernel B (modulated 3x3 conv) against its plain version, at the nine
    plain-3x3 shapes of 1024-px StyleGAN2 synthesis at the render's batch of
-   5 (and at a batch of 2, for comparison with earlier runs), plus a ragged and a wide-range case and a
-   determinism check;
-6. the main path: ``visualize --model StyleGAN2 --class ffhq --use_w
+   5 (and at a batch of 2, for comparison with earlier runs), at the conv-tap
+   path's two shapes (batch 128 at 4 and 8 px), plus a ragged and a
+   wide-range case and a determinism check;
+6. the W path: ``visualize --model StyleGAN2 --class ffhq --use_w
    --layer style --est ipca -c 80 -n 40960`` on the full-width FFHQ-1024
    generator (seeded random weights), with its launch counts, its cache and
    its grids checked;
-7. one 1024-px image through the card (kernels) against the same model on
-   the CPU (plain versions).
+7. the conv-tap path: ``visualize --model StyleGAN2 --class ffhq --layer
+   convs.2 --est ipca -c 80 -n 20000`` in Z space (D = 512 * 16 * 16 =
+   131072, the Nystrom sketch tier with its refine sweep, the regression
+   sweep, activation- and latent-mode grids), with its exact kernel-B launch
+   count, its phase times, its cache and its grids checked;
+8. one fit block of the conv-tap path under ``torch.profiler`` (device time
+   by kernel), then the sketch tier on the card against exact PCA: a
+   rank-2048 stream at D = 131072 with a slowly decaying spectrum, whose
+   exact sample PCA is a 2048-dimensional float64 problem; the single-pass
+   sketch must miss the bar there and the refined one pass it;
+9. the sketch tier on the card against the same stream and Omega on the CPU
+   (D = 32768);
+10. one 1024-px image, one batch of ``convs.2`` activations and the latent
+   regression (``linreg_lstsq`` on the conv-tap run's components) through
+   the card (kernels) against the same model on the CPU (plain versions).
 
 Kernel times are medians over launches by CUDA events, each launch after a
 write of a 128 MB buffer that evicts the 50 MB L2 (in the render each
@@ -53,6 +67,29 @@ MAIN_ARGS = ["--model", "StyleGAN2", "--class", "ffhq", "--use_w", "--layer",
              "style", "--est", "ipca", "-c", "80", "-n", "40960"]
 N_FIT_BLOCKS = 10                      # 40960 samples in blocks of 4096
 N_CONV_LAUNCHES = 9 * 168              # 9 plain 3x3 convs per strip, 168 strips
+# The conv-tap path.  n is cut from the JAX package's bench (50 000) to keep
+# the smoke run short.  Its shape arithmetic, from decomposition._compute:
+CONV_N = 20000
+CONV_ARGS = ["--model", "StyleGAN2", "--class", "ffhq", "--layer", "convs.2",
+             "--est", "ipca", "-c", "80", "-n", str(CONV_N)]
+CONV_BATCH = 128          # heuristic batch at convs.2: 256 MiB / (131072 * 16 B)
+CONV_NB = 2000            # max(batch, 2000, 3c)
+CONV_N_TOTAL = CONV_N // CONV_BATCH * CONV_BATCH
+CONV_BLOCKS = -(-CONV_N_TOTAL // CONV_NB)                      # 10
+CONV_FWD_PER_BLOCK = -(-CONV_NB // CONV_BATCH)                 # 16
+CONV_FWD_REGRESSION = max(10_000, CONV_N) // CONV_BATCH        # 156
+CONV_ACT_SHAPE = (80, 1, 512, 16, 16)
+CONV_STRIPS = 12 * 14     # per edit mode: 12 grids of 14 rows
+# kernel B per partial forward to convs.2 (conv1 at 4 px, convs.1 at 8 px)
+# and per full forward (conv1 and convs.1, 3, ..., 15)
+B_PER_TAP_FORWARD, B_PER_FORWARD = 2, 9
+# the sketch gates: streams (g * spec) @ Q, Q [2048, D] with orthonormal
+# rows, spec = 0.993^i: rank 6.4 l with a slow tail, where one sketch pass
+# leaves the top 80 unresolved (min |cos| ~0.05-0.4 at a small D) and the
+# refine pass resolves them (~1 - 1e-5)
+GATE_D, GATE_CPU_D, GATE_RANK, GATE_DECAY, GATE_C = 131072, 32768, 2048, 0.993, 80
+GATE_NB, GATE_BLOCKS, GATE_CPU_BLOCKS = 2000, 10, 4
+GATE_COS, GATE_CPU_COS, TAP_REL, REG_COS = 0.999, 0.9999, 1e-4, 0.9999
 NPZ_KEYS = {"act_comp", "act_mean", "act_stdev", "lat_comp", "lat_mean",
             "lat_stdev", "var_ratio", "random_stdevs", "_meta"}
 # (N, D, explicit mu): the main path's block, then tests/test_pallas_moments.py's
@@ -67,6 +104,8 @@ RENDER_BATCH = 5                        # one strip of 5 frames per forward
 CONV_CASES = [(RENDER_BATCH, c, c, r, r) for c, r in SYNTH_SHAPES]
 CONV_CASES_B2 = [(2, c, c, r, r) for c, r in SYNTH_SHAPES]
 CONV_RAGGED = (2, 48, 40, 37, 23)
+# the conv-tap path's shapes: conv1 (4 px) and convs.1 (8 px) at its batch
+CONV_TAP_CASES = [(CONV_BATCH, 512, 512, 4, 4), (CONV_BATCH, 512, 512, 8, 8)]
 # wide-range cases: X = 1e3 randn + 1e2 for A, s spanning 1e-2..1e2 for B
 GRAM_WIDE = (4096, 512)
 CONV_WIDE = [(RENDER_BATCH, 512, 512, 8, 8), (RENDER_BATCH, 512, 512, 64, 64)]
@@ -226,8 +265,22 @@ def conv_bound(case) -> dict:
                  4.0 * (b * c * h * w + co * c * 9 + b * c + b * co + b * co * h * w))
 
 
-def check_modconv3x3(gen: torch.Generator) -> dict:
+def conv_row(case, x, wt, s, d) -> tuple[dict, str]:
+    """Kernel, plain and cuDNN times of one shape beside its bound."""
     import torch.nn.functional as F
+    from ganspace_tpu_torch.ops.modconv import modconv3x3, modconv3x3_plain
+    xs = x * s[:, :, None, None]
+    row = timed(median_ms(lambda: modconv3x3(x, wt, s, d)),
+                median_ms(lambda: modconv3x3_plain(x, wt, s, d)),
+                median_ms(lambda: F.conv2d(xs, wt, padding=1)),
+                conv_bound(case))
+    return row, (f" kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms,"
+                 f" cuDNN {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
+                 f" ms ({row['bound_by']}; FFMA {row['bound_ffma_ms']:.4f} ms),"
+                 f" share {row['bound_share']:.3f}")
+
+
+def check_modconv3x3(gen: torch.Generator) -> dict:
     from ganspace_tpu_torch.ops.modconv import modconv3x3, modconv3x3_plain
     worst, worst_rel = 0.0, 0.0
     total = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
@@ -242,23 +295,28 @@ def check_modconv3x3(gen: torch.Generator) -> dict:
         b, c, co, h, w = case
         line = f"modconv3x3 B={b} C={c} Co={co} {h}x{w}: rel={rel:.3e} (bar {CONV_REL:.0e})"
         if case != CONV_RAGGED:
-            xs = x * s[:, :, None, None]
-            row = timed(median_ms(lambda: modconv3x3(x, wt, s, d)),
-                        median_ms(lambda: modconv3x3_plain(x, wt, s, d)),
-                        median_ms(lambda: F.conv2d(xs, wt, padding=1)),
-                        conv_bound(case))
+            row, times = conv_row(case, x, wt, s, d)
             for k in total:
                 if k != "flop_ms":
                     total[k] += row[k]
             if row["bound_by"] == "operations":
                 total["flop_ms"] += row["bound_ms"]
-            line += (f" kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms,"
-                     f" cuDNN {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
-                     f" ms ({row['bound_by']}; FFMA {row['bound_ffma_ms']:.4f} ms),"
-                     f" share {row['bound_share']:.3f}")
-            del xs
+            line += times
         log(line)
         del x, got, ref
+    tap = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+    for case in CONV_TAP_CASES:
+        x, wt, s, d = conv_inputs(gen, case)
+        got = modconv3x3(x, wt, s, d)
+        err, rel = conv_err(got, modconv3x3_plain(x, wt, s, d), case, "")
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        row, times = conv_row(case, x, wt, s, d)
+        for k in tap:
+            tap[k] += row[k]
+        b, c, co, h, w = case
+        log(f"modconv3x3 B={b} C={c} Co={co} {h}x{w} (conv-tap path): "
+            f"rel={rel:.3e} (bar {CONV_REL:.0e}){times}")
+        del x, got
     for case in CONV_WIDE:
         x, wt, s, d = conv_inputs(gen, case, wide=True)
         got = modconv3x3(x, wt, s, d)
@@ -280,12 +338,28 @@ def check_modconv3x3(gen: torch.Generator) -> dict:
     bytes_ms = total["bound_ms"] - flop_ms
     result = {"max_abs_err": worst, "max_rel_err": worst_rel, **total,
               "bound_by": "operations" if flop_ms >= bytes_ms else "bytes",
-              "bound_share": total["bound_ms"] / total["ms"]}
+              "bound_share": total["bound_ms"] / total["ms"],
+              "conv_tap_shapes": tap}
     log(f"modconv3x3, the nine synthesis shapes at B={RENDER_BATCH}: kernel "
         f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, cuDNN "
         f"{total['library_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms (FFMA "
         f"{total['bound_ffma_ms']:.4f} ms), share {result['bound_share']:.3f}")
+    log(f"modconv3x3, the two conv-tap shapes at B={CONV_BATCH}: kernel "
+        f"{tap['ms']:.4f} ms, plain {tap['plain_ms']:.4f} ms, cuDNN "
+        f"{tap['library_ms']:.4f} ms, bound {tap['bound_ms']:.4f} ms")
     return result
+
+
+def conv_tap_launches(refined: bool) -> int:
+    """Kernel-B launches of the conv-tap CLI run: the shape annotation and
+    the probe (one tap forward each), the fit sweep, the refine sweep when
+    it ran, the regression sweep, then per activation-mode strip one tap
+    forward (the centering) and one full forward, per latent-mode strip one
+    full forward."""
+    tap_forwards = (2 + CONV_BLOCKS * CONV_FWD_PER_BLOCK * (2 if refined else 1)
+                    + CONV_FWD_REGRESSION)
+    return (B_PER_TAP_FORWARD * (tap_forwards + CONV_STRIPS)
+            + 2 * B_PER_FORWARD * CONV_STRIPS)
 
 
 def run_main_path(gpu: str) -> dict:
@@ -342,8 +416,212 @@ def run_main_path(gpu: str) -> dict:
     return launches
 
 
-def check_image_vs_cpu(gen_seed: int = 7) -> None:
-    """One W through the full-width generator on the card and on the CPU."""
+def run_conv_tap_path(gpu: str) -> tuple[dict, dict]:
+    """The conv-tap CLI run: (its launch counts, its npz arrays)."""
+    from ganspace_tpu_torch.apps import visualize
+    from ganspace_tpu_torch.ops.moments import centered_gram
+    from ganspace_tpu_torch.ops.modconv import modconv3x3
+
+    log(f"conv-tap path: -n {CONV_N} (cut from the JAX package's bench, "
+        f"50000, to keep the smoke run short)")
+    with tempfile.TemporaryDirectory() as out:
+        os.environ["GANSPACE_OUTPUT_DIR"] = out
+        centered_gram.launches = 0
+        modconv3x3.launches = 0
+        result = visualize.main(list(CONV_ARGS))
+        launches = {"centered_gram": centered_gram.launches,
+                    "modconv3x3": modconv3x3.launches}
+        log(f"conv-tap path launches: {launches}")
+
+        with np.load(result.cache, allow_pickle=False) as data:
+            if set(data.files) != NPZ_KEYS:
+                raise AssertionError(f"npz keys {sorted(data.files)}")
+            arrays = {k: data[k] for k in NPZ_KEYS - {"_meta"}}
+            meta = json.loads(bytes(data["_meta"].item()).decode())
+        log(f"_meta: refine_skipped={meta['refine_skipped']} "
+            f"refine_stats={meta['refine_stats']}")
+        if meta.get("refine_skipped") not in (True, False):
+            raise AssertionError(f"_meta {meta}: no refine decision")
+        expected = conv_tap_launches(refined=not meta["refine_skipped"])
+        if launches["modconv3x3"] != expected:
+            raise AssertionError(f"modconv3x3 launched {launches['modconv3x3']} "
+                                 f"times on the conv-tap path, expected {expected}")
+        if launches["centered_gram"] != 0:
+            raise AssertionError("centered_gram is not on the conv-tap path")
+        for k, a in arrays.items():
+            if not np.isfinite(a).all():
+                raise AssertionError(f"npz {k} is not finite")
+        if arrays["act_comp"].shape != CONV_ACT_SHAPE:
+            raise AssertionError(f"act_comp shape {arrays['act_comp'].shape}")
+        comp = arrays["act_comp"].reshape(80, -1)
+        gram_err = float(np.abs(comp @ comp.T - np.eye(80)).max())
+        if gram_err > 1e-4:
+            raise AssertionError(f"act_comp rows not orthonormal: {gram_err}")
+        lat = arrays["lat_comp"].reshape(80, -1)
+        if np.abs(np.linalg.norm(lat, axis=1) - 1.0).max() > 1e-5:
+            raise AssertionError("lat_comp rows are not unit rows")
+        summ = Path(out, "out", "StyleGAN2-ffhq", "convs.2", "ipca", "summ")
+        grids = sorted(p.name for p in summ.glob("*.jpg"))
+        names = ["components", "random_dirs"] + [f"samp{i}_real" for i in range(10)]
+        if grids != sorted(f"{n}_{m}.jpg" for n in names for m in ("ACT", "Z")):
+            raise AssertionError(f"summ grids {grids}")
+        log(f"conv-tap npz ok: keys, finite, act_comp {CONV_ACT_SHAPE}, "
+            f"|C C^T - I| = {gram_err:.2e}; {len(grids)} grids")
+    phases = ", ".join(f"{k} {v:.3f} s" for k, v in result.phases.items())
+    log(f"conv-tap fit: {result.fit_seconds:.3f} s, "
+        f"{CONV_N / result.fit_seconds:.1f} samples/s; phases: {phases} [{gpu}]")
+    log(f"conv-tap render: {result.images} images at 1024 px in "
+        f"{result.render_seconds:.3f} s, "
+        f"{result.images / result.render_seconds:.2f} images/s [{gpu}]")
+    return launches, arrays
+
+
+def _device_us(event) -> float:
+    return (getattr(event, "self_device_time_total", 0)
+            or getattr(event, "self_cuda_time_total", 0))
+
+
+def profile_conv_tap_block(gpu: str) -> None:
+    """Device time by kernel over one fit block of the conv-tap path (16 tap
+    forwards at batch 128, their concatenation, one sketch update), and the
+    device's busy share of the block's wall time (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+    from ganspace_tpu_torch.estimators.ipca import (
+        NystromState, nystrom_update, sketch_test_matrix)
+    from ganspace_tpu_torch.models import get_instrumented_model
+    inst = get_instrumented_model("StyleGAN2", "ffhq", "convs.2", torch.device("cuda"))
+    model = inst.model
+    inst.retain_layer("convs.2")
+    zs = [model.sample_latent(CONV_BATCH, seed=s) for s in range(CONV_FWD_PER_BLOCK)]
+    d, l = 512 * 16 * 16, 4 * 80
+    omega = sketch_test_matrix(d, l).cuda()
+    state = NystromState(0.0, torch.zeros(d, device="cuda"),
+                         torch.zeros((), device="cuda"),
+                         torch.zeros(d, l, device="cuda"))
+
+    def block():
+        chunks = []
+        for z in zs:
+            model.partial_forward(z, "convs.2")
+            chunks.append(inst.retained_features()["convs.2"].reshape(CONV_BATCH, -1))
+        return nystrom_update(state, torch.cat(chunks)[:CONV_NB], omega)
+
+    block()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        block()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if _device_us(e) > 0 and "CUDA" in str(getattr(e, "device_type", ""))]
+    busy_ms = sum(_device_us(e) for e in rows) / 1e3
+    if not rows:
+        log("conv-tap block profile: the profiler reported no device time")
+        return
+    log(f"conv-tap block profile (one NB={CONV_NB} block): wall {wall_ms:.1f} ms, "
+        f"device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}) [{gpu}]")
+    for e in sorted(rows, key=_device_us, reverse=True)[:12]:
+        log(f"  {_device_us(e) / 1e3:8.3f} ms {_device_us(e) / 1e3 / busy_ms:6.1%}"
+            f"  x{e.count:<4d} {e.key[:90]}")
+
+
+def _decay_stream(d: int, seed: int):
+    """(Q [rank, D] with orthonormal rows, blocks of g * spec [NB, rank]) on
+    the card, spec = 0.993^i: the stream is block @ Q."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.linalg.qr(torch.randn(d, GATE_RANK, generator=gen, device="cuda",
+                                    dtype=torch.float64))[0]
+    q = q.T.contiguous().float()
+    spec = GATE_DECAY ** torch.arange(GATE_RANK, device="cuda", dtype=torch.float32)
+    blocks = [torch.randn(GATE_NB, GATE_RANK, generator=gen, device="cuda") * spec
+              for _ in range(GATE_BLOCKS)]
+    return q, blocks
+
+
+def _sketch_fit(xs, device: str):
+    """The decomposition's sweep order with refine forced: pass, refine,
+    pass.  Returns the first-pass and the refined components."""
+    from ganspace_tpu_torch.estimators.ipca import IPCAEstimator
+    est = IPCAEstimator(GATE_C, refine="always")
+    for x in xs():
+        est.fit_partial(x.to(device))
+    if est._nystrom is None:
+        raise AssertionError("the stream did not take the sketch tier")
+    first = est.get_components(device=True)[0]
+    if not (est.should_refine() and est.begin_refine()):
+        raise AssertionError("the sketch tier did not arm its refine pass")
+    for x in xs():
+        est.fit_partial(x.to(device))
+    return first, est.get_components(device=True)[0]
+
+
+def _min_abs_cos(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    cos = (a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1))
+    return float(cos.abs().min())
+
+
+def check_sketch_gate(gpu: str) -> None:
+    """The rank-2048 stream at D = 131072 on the card: the single-pass and
+    the refined components against the exact sample PCA (a 2048 x 2048
+    float64 eigh).  The single pass must miss the bar, or the stream could
+    not tell a working refine from a broken one."""
+    from ganspace_tpu_torch.estimators.ipca import NystromState, nystrom_update
+    q, blocks = _decay_stream(GATE_D, seed=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, comp = _sketch_fit(lambda: (g @ q for g in blocks), "cuda")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    g = torch.cat(blocks).double()
+    g -= g.mean(0)
+    evecs = torch.linalg.eigh((g.T @ g).cpu())[1]
+    exact = evecs[:, -GATE_C:].flip(1).T.cuda() @ q.double()
+    cos_first, cos = _min_abs_cos(first, exact), _min_abs_cos(comp, exact)
+    del g, exact
+    # one sketch update alone at this shape: x @ Omega and x^T (x Omega)
+    x = blocks[0] @ q
+    omega = torch.randn(GATE_D, 4 * GATE_C, device="cuda")
+    state = NystromState(0.0, torch.zeros(GATE_D, device="cuda"),
+                         torch.zeros((), device="cuda"),
+                         torch.zeros(GATE_D, 4 * GATE_C, device="cuda"))
+    upd_ms = median_ms(lambda: nystrom_update(state, x, omega), reps=10)
+    flop = 2 * 2.0 * GATE_NB * GATE_D * 4 * GATE_C
+    log(f"sketch gate: rank {GATE_RANK}, stdev {GATE_DECAY}^i, at D={GATE_D}, "
+        f"{GATE_BLOCKS} blocks of {GATE_NB}, c={GATE_C}, two passes {fit_s:.3f} s: "
+        f"min |cos| vs exact PCA single pass {cos_first:.6f} (must miss the bar), "
+        f"refined {cos:.6f} (bar {GATE_COS}); one sketch update {upd_ms:.3f} ms "
+        f"({flop / upd_ms / 1e9:.1f} TFLOP/s IEEE f32) [{gpu}]")
+    if not cos > GATE_COS:
+        raise AssertionError(f"sketch tier on the card: min |cos| {cos} <= {GATE_COS}")
+    if not cos_first < GATE_COS:
+        raise AssertionError(f"single-pass sketch already at {cos_first}: the "
+                             f"stream cannot show what the refine pass does")
+
+
+def check_sketch_vs_cpu() -> None:
+    """The same rank-2048 stream and Omega at D = 32768 through the sketch
+    tier with refine on the card and on the CPU."""
+    q, blocks = _decay_stream(GATE_CPU_D, seed=2)
+    xs = [g @ q for g in blocks[:GATE_CPU_BLOCKS]]
+    xs_cpu = [x.cpu() for x in xs]
+    comp_gpu = _sketch_fit(lambda: iter(xs), "cuda")[1]
+    comp_cpu = _sketch_fit(lambda: iter(xs_cpu), "cpu")[1]
+    cos = _min_abs_cos(comp_gpu, comp_cpu)
+    log(f"sketch tier card vs CPU at D={GATE_CPU_D}, {GATE_CPU_BLOCKS} blocks: "
+        f"min |cos| {cos:.7f} (bar {GATE_CPU_COS})")
+    if not cos > GATE_CPU_COS:
+        raise AssertionError(f"sketch tier card vs CPU: min |cos| {cos}")
+
+
+def check_vs_cpu(conv_npz: dict, gen_seed: int = 7) -> None:
+    """One W through the full-width generator on the card and on the CPU,
+    then a batch of Z to the ``convs.2`` tap, then the latent regression of
+    the conv-tap run's components."""
+    from types import SimpleNamespace
+    from ganspace_tpu_torch.decomposition import linreg_lstsq
+    from ganspace_tpu_torch.models.base import InstrumentedModel
     from ganspace_tpu_torch.models.stylegan2 import SG2Config, StyleGAN2, init_params
     params = init_params(SG2Config(), seed=0)
     gpu_model = StyleGAN2("ffhq", use_w=True, params=params, device="cuda")
@@ -360,6 +638,40 @@ def check_image_vs_cpu(gen_seed: int = 7) -> None:
         f"(bar {IMAGE_REL:.0e})")
     if not (w_err < 1e-4 and rel < IMAGE_REL):
         raise AssertionError("card and CPU disagree on the 1024 px image")
+
+    z = cpu_model.sample_latent(CONV_BATCH, seed=gen_seed + 1)
+    taps, insts = [], []
+    for model in (gpu_model, cpu_model):
+        model.use_z()
+        inst = InstrumentedModel(model)
+        inst.retain_layer("convs.2")
+        model.partial_forward(z.to(model.device), "convs.2")
+        taps.append(inst.retained_features()["convs.2"].cpu())
+        insts.append(inst)
+    tap_rel = float((taps[0] - taps[1]).abs().max() / taps[1].abs().max())
+    log(f"convs.2 activation {tuple(taps[1].shape)}, card vs CPU: rel "
+        f"{tap_rel:.3e} (bar {TAP_REL:.0e})")
+    if not tap_rel < TAP_REL:
+        raise AssertionError("card and CPU disagree on the convs.2 activation")
+
+    # the regression sweep's least 10000 samples (n = 0), at the path's batch
+    config = SimpleNamespace(batch_size=CONV_BATCH, layer="convs.2", n=0)
+    comp = conv_npz["act_comp"].reshape(GATE_C, -1)
+    mean, stdev = conv_npz["act_mean"].reshape(1, -1), conv_npz["act_stdev"]
+    regs, secs = [], []
+    for inst in insts:
+        t0 = time.perf_counter()
+        regs.append(linreg_lstsq(comp, mean, stdev, inst, config))
+        secs.append(time.perf_counter() - t0)
+    (zc_gpu, zm_gpu), (zc_cpu, zm_cpu) = regs
+    cos = _min_abs_cos(torch.from_numpy(zc_gpu), torch.from_numpy(zc_cpu))
+    mean_err = float(np.abs(zm_gpu - zm_cpu).max())
+    log(f"linreg_lstsq of the conv-tap components ({10_000 // CONV_BATCH * CONV_BATCH} "
+        f"samples, batch {CONV_BATCH}), card vs CPU: lat_comp min |cos| "
+        f"{cos:.7f} (bar {REG_COS}), lat_mean max|d| {mean_err:.2e}; card "
+        f"{secs[0]:.2f} s, CPU {secs[1]:.2f} s")
+    if not (cos > REG_COS and mean_err < 1e-5):
+        raise AssertionError("card and CPU disagree on the latent regression")
 
 
 def main() -> int:
@@ -380,20 +692,30 @@ def main() -> int:
         gram = check_centered_gram(gen)
         conv = check_modconv3x3(gen)
     t0 = time.perf_counter()
-    launches = run_main_path(gpu)
-    log(f"main path wall time: {time.perf_counter() - t0:.1f} s")
+    launches = {"w_style": run_main_path(gpu)}
+    log(f"W path wall time: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["convs2"], conv_npz = run_conv_tap_path(gpu)
+    log(f"conv-tap path wall time: {time.perf_counter() - t0:.1f} s")
     with ieee_f32():
-        check_image_vs_cpu()
+        profile_conv_tap_block(gpu)
+        check_sketch_gate(gpu)
+        check_sketch_vs_cpu()
+        check_vs_cpu(conv_npz)
+
+    def counts(name):
+        by_path = {path: n[name] for path, n in launches.items()}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     kernels = [
         dict(name="centered_gram", route="cuda",
              source="ganspace_tpu_torch/csrc/centered_gram.cu",
              replaces="ganspace_tpu/ops/pallas/moments.py:58",
-             launches=launches["centered_gram"], **gram),
+             **counts("centered_gram"), **gram),
         dict(name="modconv3x3", route="cuda",
              source="ganspace_tpu_torch/csrc/modconv3x3.cu",
              replaces="ganspace_tpu/ops/pallas/blockconv.py:178",
-             launches=launches["modconv3x3"], **conv),
+             **counts("modconv3x3"), **conv),
     ]
     print(json.dumps({"kernels": kernels}))
     print(gpu)

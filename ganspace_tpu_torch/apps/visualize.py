@@ -10,6 +10,11 @@ not ported yet (ROADMAP.md).
 Usage:
     python -m ganspace_tpu_torch.apps.visualize --model StyleGAN2 --class ffhq \
         --layer style --use_w --est ipca -c 80 -n 300000 [--device cuda]
+    python -m ganspace_tpu_torch.apps.visualize --model StyleGAN2 --class ffhq \
+        --layer convs.2 --est ipca -c 80 -n 50000 [--device cuda]
+
+A conv tap renders activation-mode grids (``*_ACT.jpg``) beside the
+latent-mode ones (``*_Z.jpg`` or ``*_W.jpg``).
 """
 
 from __future__ import annotations
@@ -74,8 +79,9 @@ def load_components(path) -> SimpleNamespace:
 
 
 def main(args=None):
-    """Run the CLI; returns the cache path and the phase timings
-    (``fit_seconds``, ``render_seconds``, ``images`` rendered)."""
+    """Run the CLI; returns the cache path and the timings: ``fit_seconds``,
+    ``render_seconds``, ``images`` rendered and, when the components were
+    computed, the fit's ``phases`` (seconds by phase)."""
     args = args if isinstance(args, Config) else Config().from_args(args)
     if args.make_video:
         raise NotImplementedError("--video is not ported yet (ROADMAP.md)")
@@ -104,7 +110,8 @@ def main(args=None):
     sample_shape[sample_shape == 0] = 1
 
     t_fit = time.perf_counter()
-    dump_name = get_or_compute(args, inst)
+    phases = {}
+    dump_name = get_or_compute(args, inst, phases=phases)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     fit_seconds = time.perf_counter() - t_fit
@@ -184,7 +191,8 @@ def main(args=None):
     render_seconds = time.perf_counter() - t_render
     print("Done in", datetime.datetime.now() - t_start)
     return SimpleNamespace(cache=dump_name, fit_seconds=fit_seconds,
-                           render_seconds=render_seconds, images=n_images)
+                           render_seconds=render_seconds, images=n_images,
+                           phases=phases)
 
 
 if __name__ == "__main__":

@@ -240,6 +240,7 @@ class StyleGAN2(BaseGenerator):
                     f"[{', '.join(CONFIGS)}]")
             cfg = SG2Config(resolution=CONFIGS[self.outclass])
         self.cfg = cfg
+        self.resolution = cfg.resolution
         self.truncation = truncation
         self.w_primary = use_w
         self.name = f"StyleGAN2-{self.outclass}"

@@ -110,3 +110,28 @@ def test_centered_gram_wide_range_and_deterministic_on_card(gen, n, d):
         got, ref = centered_gram(x), centered_gram_plain(x)
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max()) + 1e-4
     assert torch.equal(got, centered_gram(x))
+
+
+# -- the sketch tier of the IPCA estimator (plain cuBLAS GEMMs) ---------------
+
+def test_sketch_tier_on_card_matches_cpu(gen):
+    """The same blocks and Omega through the sketch tier with its refine pass
+    on the card and on the CPU; numpy blocks follow the state to the card."""
+    import numpy as np
+    from ganspace_tpu_torch.estimators.ipca import IPCAEstimator
+    rs = np.random.RandomState(0)
+    spec = (0.97 ** np.arange(4096)).astype(np.float32)
+    blocks = [rs.randn(1000, 4096).astype(np.float32) * spec + 0.5 for _ in range(4)]
+    comps = []
+    for first in (torch.from_numpy(blocks[0]).cuda(), blocks[0]):
+        est = IPCAEstimator(16, mode="nystrom", refine="always")
+        with ieee_f32():
+            for b in [first] + blocks[1:]:
+                assert est.fit_partial(b)
+            assert est.should_refine() and est.begin_refine()
+            for b in blocks:
+                assert est.fit_partial(b)
+            comps.append(est.get_components(device=True)[0])
+    assert comps[0].device.type == "cuda" and comps[1].device.type == "cpu"
+    cos = (comps[0].cpu() * comps[1]).sum(1).abs()
+    assert float(cos.min()) > 0.9999

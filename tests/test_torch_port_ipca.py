@@ -7,7 +7,7 @@ import torch
 from ganspace_tpu.estimators.ipca import IPCAEstimator as JaxIPCA
 
 from ganspace_tpu_torch.estimators import get_estimator
-from ganspace_tpu_torch.estimators.ipca import IPCAEstimator
+from ganspace_tpu_torch.estimators.ipca import IPCAEstimator, proj_variance
 from ganspace_tpu_torch.estimators.utils import svd_flip_vt
 
 
@@ -38,7 +38,7 @@ def test_moments_tier_matches_jax(c):
     gcomp, gstats = got.finish_latent_bundle()
     np.testing.assert_allclose(gstats, rstats[:3], rtol=1e-4)
     dirs = np.random.RandomState(1).randn(3, 48).astype(np.float32)
-    np.testing.assert_allclose(got.projected_variance(dirs),
+    np.testing.assert_allclose(proj_variance(got._moments, torch.from_numpy(dirs)),
                                ref.projected_variance(dirs), rtol=1e-4)
     assert got.get_param_str() == ref.get_param_str() == f"ipca_c{c}"
 
@@ -65,8 +65,10 @@ def test_refusals():
     est.fit_partial(bad)
     with pytest.raises(FloatingPointError):
         est.finish_latent_bundle()
-    with pytest.raises(NotImplementedError, match="Nystrom"):
-        IPCAEstimator(4).fit_partial(np.zeros((8, 8193), np.float32))
+    # past MOMENTS_MAX_D the sketch tier takes the stream (no refusal)
+    big = IPCAEstimator(4)
+    assert big.fit_partial(np.zeros((8, 8193), np.float32))
+    assert big._moments is None and big._nystrom is not None
     with pytest.raises(NotImplementedError):
         get_estimator("pca", 4)
 
