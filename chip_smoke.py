@@ -9,31 +9,49 @@ Phases, each of which raises on failure:
 2. build: compile the CUDA kernels from ``ganspace_tpu_torch/csrc``;
 3. the 3xTF32 tensor-core step of ``csrc/tf32x3.cuh`` on one 16x8x8 tile;
 4. kernel A (centered Gram) against its plain PyTorch version, on the card,
-   with a wide-range case and a determinism check;
+   with a wide-range case and a determinism check, and at the fused W
+   stream's block shapes (5120 and 65536 rows of 512);
 5. kernel B (modulated 3x3 conv) against its plain version, at the nine
    plain-3x3 shapes of 1024-px StyleGAN2 synthesis at the render's batch of
    5 (and at a batch of 2, for comparison with earlier runs), at the conv-tap
    path's two shapes (batch 128 at 4 and 8 px), plus a ragged and a
    wide-range case and a determinism check;
-6. the W path: ``visualize --model StyleGAN2 --class ffhq --use_w
-   --layer style --est ipca -c 80 -n 40960`` on the full-width FFHQ-1024
-   generator (seeded random weights), with its launch counts, its cache and
-   its grids checked;
-7. the conv-tap path: ``visualize --model StyleGAN2 --class ffhq --layer
-   convs.2 --est ipca -c 80 -n 20000`` in Z space (D = 512 * 16 * 16 =
-   131072, the Nystrom sketch tier with its refine sweep, the regression
-   sweep, activation- and latent-mode grids), with its exact kernel-B launch
-   count, its phase times, its cache and its grids checked;
-8. one fit block of the conv-tap path under ``torch.profiler`` (device time
-   by kernel), then the sketch tier on the card against exact PCA: a
-   rank-2048 stream at D = 131072 with a slowly decaying spectrum, whose
-   exact sample PCA is a 2048-dimensional float64 problem; the single-pass
-   sketch must miss the bar there and the refined one pass it;
-9. the sketch tier on the card against the same stream and Omega on the CPU
-   (D = 32768);
-10. one 1024-px image, one batch of ``convs.2`` activations and the latent
-   regression (``linreg_lstsq`` on the conv-tap run's components) through
-   the card (kernels) against the same model on the CPU (plain versions).
+6. the W path in the default environment (device RNG, the fused W stream):
+   ``visualize --model StyleGAN2 --class ffhq --use_w --layer style --est
+   ipca -c 80 -n 40960`` on the full-width FFHQ-1024 generator (seeded
+   random weights), with its launch counts, its cache and its grids checked;
+7. the W fit alone at ``-n 1000000`` (15 blocks of 65536 and 4 of 4096);
+8. the host-RNG W fit (``GANSPACE_DEVICE_RNG=0``) at ``-n 40960``, under
+   seed 1 and seed 7: the statistical gate holds the device stream's
+   components against the host stream's, judged by the host seed-1-vs-7
+   control;
+9. the conv-tap path in the default environment: ``visualize --model
+   StyleGAN2 --class ffhq --layer convs.2 --est ipca -c 80 -n 50000`` in Z
+   space (D = 512 * 16 * 16 = 131072; the fused activation stream of 390
+   blocks of 128 with the sketch tier's refine pass, the regression's and
+   the baselines' moments riding it; activation- and latent-mode grids),
+   with its exact kernel-B launch count, its phase times, its cache and its
+   grids checked; then the fused-regression gate: the same 390 blocks
+   regenerated, the explicit normal equations solved against the run's
+   components; then the upsampling convolution's repeatability and its
+   time under cuDNN's deterministic algorithms;
+10. the conv-tap fit alone at ``-n 20000``: the pre-sampled device stream
+   with the regression sweep, the fused activation stream forced below its
+   threshold (``GANSPACE_FUSED_ACTS=1``, timed against it), then the
+   host-RNG one under seed 1 and seed 7, with the fused stream's
+   components beside the seed control (reported, not gated);
+11. one fit block of the pre-sampled conv-tap path and 16 blocks of the
+   fused activation stream under ``torch.profiler`` (device time by kernel,
+   busy share of the wall time), then the sketch tier on the card against exact
+   PCA: a rank-2048 stream at D = 131072 with a slowly decaying spectrum,
+   whose exact sample PCA is a 2048-dimensional float64 problem; the
+   single-pass sketch must miss the bar there and the refined one pass it;
+12. the sketch tier on the card against the same stream and Omega on the
+   CPU (D = 32768);
+13. one 1024-px image, one batch of ``convs.2`` activations and the latent
+   regression (``linreg_lstsq`` on the host-RNG conv-tap fit's components)
+   through the card (kernels) against the same model on the CPU (plain
+   versions).
 
 Kernel times are medians over launches by CUDA events, each launch after a
 write of a 128 MB buffer that evicts the 50 MB L2 (in the render each
@@ -51,6 +69,7 @@ The last lines are a JSON summary of the kernels, the nvidia-smi line and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -65,17 +84,44 @@ import torch
 
 MAIN_ARGS = ["--model", "StyleGAN2", "--class", "ffhq", "--use_w", "--layer",
              "style", "--est", "ipca", "-c", "80", "-n", "40960"]
-N_FIT_BLOCKS = 10                      # 40960 samples in blocks of 4096
+W_N, W_N_1M = 40960, 1_000_000
+# The fused W stream's blocks, from decomposition._compute: nb_w =
+# min(65536, max(NB, n_total // 8)), whole nb_w blocks, then the remainder in
+# NB = 4096 blocks.  At n = 40960: 8 blocks of 5120.  At n = 1M: n_total =
+# 999424, 15 blocks of 65536 and 4 of 4096.
+N_W_STREAM_BLOCKS, N_W_1M_BLOCKS = 8, 15 + 4
+N_FIT_BLOCKS = 10                      # host stream: 40960 samples in blocks of 4096
 N_CONV_LAUNCHES = 9 * 168              # 9 plain 3x3 convs per strip, 168 strips
-# The conv-tap path.  n is cut from the JAX package's bench (50 000) to keep
-# the smoke run short.  Its shape arithmetic, from decomposition._compute:
-CONV_N = 20000
+# The statistical gate of the device stream: errors of the device-vs-host
+# pair over errors of the host seed-1-vs-seed-7 control, each ratio under
+# its bar.  ``cut_*``: 1 - the least principal-angle cosine between the
+# top-m subspaces, at every m where the host spectrum has a relative gap of
+# at least GATE_GAP (so near-degenerate eigenspaces are compared as
+# wholes), their mean and their worst; ``median_cos``: the median over all
+# components of 1 - |cos|; ``var_ratio``: the largest |difference|.  The
+# bars were set before the first chip run, with room over the ratios of
+# fits under other seeds on the CPU.  ``tests/test_torch_port_device_rng.py``
+# prints those readings and plants a fault, a stream that repeats one block:
+# it misses the three subspace bars by 2.3-4.1x on the W stream and by
+# 2.1-6.3x at a conv tap (``var_ratio`` alone misses it on the W stream).
+GATE_GAP = 0.05
+GATE_RATIOS = {"cut_mean": 2.0, "cut_max": 3.0, "median_cos": 2.5, "var_ratio": 4.0}
+# The conv-tap path at the JAX package's bench size (bench.py:119-182), on
+# the fused activation stream: n_total = 49920, 390 blocks of one batch.
+CONV50_N = 50000
 CONV_ARGS = ["--model", "StyleGAN2", "--class", "ffhq", "--layer", "convs.2",
-             "--est", "ipca", "-c", "80", "-n", str(CONV_N)]
+             "--est", "ipca", "-c", "80", "-n", str(CONV50_N)]
 CONV_BATCH = 128          # heuristic batch at convs.2: 256 MiB / (131072 * 16 B)
+CONV50_BLOCKS = CONV50_N // CONV_BATCH                         # 390
+FUSED_REG_COS = 0.999
+REGEN_REL = 1e-6          # a regenerated block's activations, max|d| / max|ref|
+# The conv-tap fit at n = 20000, under the fused stream's 20000-sample
+# threshold: the pre-sampled stream, from decomposition._compute:
+CONV_N = 20000
 CONV_NB = 2000            # max(batch, 2000, 3c)
 CONV_N_TOTAL = CONV_N // CONV_BATCH * CONV_BATCH
 CONV_BLOCKS = -(-CONV_N_TOTAL // CONV_NB)                      # 10
+CONV20_FUSED_BLOCKS = CONV_N_TOTAL // CONV_BATCH               # 156, GANSPACE_FUSED_ACTS=1
 CONV_FWD_PER_BLOCK = -(-CONV_NB // CONV_BATCH)                 # 16
 CONV_FWD_REGRESSION = max(10_000, CONV_N) // CONV_BATCH        # 156
 CONV_ACT_SHAPE = (80, 1, 512, 16, 16)
@@ -95,6 +141,8 @@ NPZ_KEYS = {"act_comp", "act_mean", "act_stdev", "lat_comp", "lat_mean",
 # (N, D, explicit mu): the main path's block, then tests/test_pallas_moments.py's
 GRAM_CASES = [(4096, 512, False), (300, 130, False), (77, 515, False),
               (256, 128, True)]
+# the fused W stream's blocks at n = 40960 and n = 1M
+GRAM_STREAM_SHAPES = [(5120, 512), (65536, 512)]
 # (C, resolution): conv1 and convs.1, 3, ..., 15 of 1024-px synthesis
 SYNTH_SHAPES = ((512, 4), (512, 8), (512, 16), (512, 32), (512, 64),
                 (256, 128), (128, 256), (64, 512), (32, 1024))
@@ -218,24 +266,51 @@ def check_centered_gram(gen: torch.Generator) -> dict:
             f"{' wide-range' if wide else ''}: max|d|={err:.3e} (bar {bar:.3e})")
         if not err <= bar:
             raise AssertionError(f"centered_gram {n}x{d}: max|d| {err} > {bar}")
-        if timing is None:                      # the main path's shape
+        if timing is None:                      # the host stream's block
             if not torch.equal(got, centered_gram(x, mu)):
                 raise AssertionError("centered_gram: two launches differ")
-            # the main path passes the block mean (estimators/ipca.py)
-            mean = x.mean(dim=0)
-            xc = x - mean
-            timing = timed(median_ms(lambda: centered_gram(x, mean)),
-                           median_ms(lambda: centered_gram_plain(x, mean)),
-                           median_ms(lambda: xc.T @ xc),
-                           bound(n * d * (d + 1), 4 * (n * d + d + d * d)))
-            timing["max_abs_err"] = err
-            log(f"  determinism: two launches bit-identical; kernel "
-                f"{timing['ms']:.4f} ms, plain {timing['plain_ms']:.4f} ms, "
-                f"cuBLAS xc.T @ xc {timing['library_ms']:.4f} ms, bound "
-                f"{timing['bound_ms']:.4f} ms ({timing['bound_by']}; FFMA "
-                f"{timing['bound_ffma_ms']:.4f} ms), share "
-                f"{timing['bound_share']:.3f}")
+            timing = gram_timing(x, err)
+    # the fused W stream's blocks; the wrapper launches the kernel at every
+    # shape (no plain fallback on the card)
+    shapes = {}
+    for n, d in GRAM_STREAM_SHAPES:
+        x = torch.randn(n, d, generator=gen, device="cuda") * 2.0 + 0.5
+        launches = centered_gram.launches
+        got = centered_gram(x, x.mean(dim=0))
+        if centered_gram.launches != launches + 1:
+            raise AssertionError(f"centered_gram {n}x{d}: the kernel did not launch")
+        ref = centered_gram_plain(x, x.mean(dim=0))
+        torch.cuda.synchronize()
+        err, bar = float((got - ref).abs().max()), gram_bar(ref)
+        log(f"centered_gram N={n} D={d} (fused W stream block): max|d|={err:.3e} "
+            f"(bar {bar:.3e})")
+        if not err <= bar:
+            raise AssertionError(f"centered_gram {n}x{d}: max|d| {err} > {bar}")
+        if not torch.equal(got, centered_gram(x, x.mean(dim=0))):
+            raise AssertionError(f"centered_gram {n}x{d}: two launches differ")
+        shapes[f"{n}x{d}"] = gram_timing(x, err)
+        del x, got, ref
+    timing["shapes"] = shapes
     return timing
+
+
+def gram_timing(x: torch.Tensor, err: float) -> dict:
+    """Kernel A, its plain version and cuBLAS at one shape, beside the bound;
+    the main path passes the block mean (estimators/ipca.py)."""
+    from ganspace_tpu_torch.ops.moments import centered_gram, centered_gram_plain
+    n, d = x.shape
+    mean = x.mean(dim=0)
+    xc = x - mean
+    row = timed(median_ms(lambda: centered_gram(x, mean)),
+                median_ms(lambda: centered_gram_plain(x, mean)),
+                median_ms(lambda: xc.T @ xc),
+                bound(n * d * (d + 1), 4 * (n * d + d + d * d)))
+    row["max_abs_err"] = err
+    log(f"  N={n} D={d}: two launches bit-identical; kernel {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f} ms, cuBLAS xc.T @ xc {row['library_ms']:.4f} "
+        f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; FFMA "
+        f"{row['bound_ffma_ms']:.4f} ms), share {row['bound_share']:.3f}")
+    return row
 
 
 def conv_inputs(gen: torch.Generator, case, wide: bool = False):
@@ -350,113 +425,261 @@ def check_modconv3x3(gen: torch.Generator) -> dict:
     return result
 
 
-def conv_tap_launches(refined: bool) -> int:
-    """Kernel-B launches of the conv-tap CLI run: the shape annotation and
-    the probe (one tap forward each), the fit sweep, the refine sweep when
-    it ran, the regression sweep, then per activation-mode strip one tap
-    forward (the centering) and one full forward, per latent-mode strip one
-    full forward."""
-    tap_forwards = (2 + CONV_BLOCKS * CONV_FWD_PER_BLOCK * (2 if refined else 1)
-                    + CONV_FWD_REGRESSION)
-    return (B_PER_TAP_FORWARD * (tap_forwards + CONV_STRIPS)
-            + 2 * B_PER_FORWARD * CONV_STRIPS)
+def conv_tap_launches(refined: bool, fused_blocks: int, cli: bool) -> int:
+    """Kernel-B launches of a conv-tap run: the shape annotation (a CLI run
+    builds its model) and the probe, one tap forward each; the fit pass and
+    the refine pass when it ran (one tap forward per block of the fused
+    stream of ``fused_blocks`` blocks, 16 per NB block of the pre-sampled
+    one when ``fused_blocks`` is 0); the regression sweep unless the
+    regression rode the stream; then, in a CLI run, per activation-mode
+    strip one tap forward (the centering) and one full forward, per
+    latent-mode strip one full forward."""
+    if fused_blocks:
+        fit_fwd, reg_fwd = fused_blocks, 0
+    else:
+        fit_fwd, reg_fwd = CONV_BLOCKS * CONV_FWD_PER_BLOCK, CONV_FWD_REGRESSION
+    strips = CONV_STRIPS if cli else 0
+    tap_forwards = (1 + int(cli) + fit_fwd * (2 if refined else 1) + reg_fwd
+                    + strips)
+    return B_PER_TAP_FORWARD * tap_forwards + 2 * B_PER_FORWARD * strips
 
 
-def run_main_path(gpu: str) -> dict:
-    from ganspace_tpu_torch.apps import visualize
-    from ganspace_tpu_torch.ops.moments import centered_gram
+@contextlib.contextmanager
+def environ(**kw):
+    """Set environment variables for a region, then restore them."""
+    old = {k: os.environ.get(k) for k in kw}
+    os.environ.update({k: str(v) for k, v in kw.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def reset_launches() -> None:
     from ganspace_tpu_torch.ops.modconv import modconv3x3
+    from ganspace_tpu_torch.ops.moments import centered_gram
+    centered_gram.launches = 0
+    modconv3x3.launches = 0
 
-    with tempfile.TemporaryDirectory() as out:
-        os.environ["GANSPACE_OUTPUT_DIR"] = out
-        centered_gram.launches = 0
-        modconv3x3.launches = 0
+
+def read_launches() -> dict:
+    from ganspace_tpu_torch.ops.modconv import modconv3x3
+    from ganspace_tpu_torch.ops.moments import centered_gram
+    return {"centered_gram": centered_gram.launches,
+            "modconv3x3": modconv3x3.launches}
+
+
+def load_cache(path) -> tuple[dict, dict]:
+    """(arrays, _meta) of a component cache, its keys, finiteness and
+    orthonormal ``act_comp`` rows checked."""
+    with np.load(path, allow_pickle=False) as data:
+        if set(data.files) != NPZ_KEYS:
+            raise AssertionError(f"npz keys {sorted(data.files)}")
+        arrays = {k: data[k] for k in NPZ_KEYS - {"_meta"}}
+        meta = json.loads(bytes(data["_meta"].item()).decode())
+    for k, a in arrays.items():
+        if not np.isfinite(a).all():
+            raise AssertionError(f"npz {k} is not finite")
+    comp = arrays["act_comp"].reshape(80, -1)
+    gram_err = float(np.abs(comp @ comp.T - np.eye(80)).max())
+    if gram_err > 1e-4:
+        raise AssertionError(f"act_comp rows not orthonormal: {gram_err}")
+    arrays["gram_err"] = gram_err
+    return arrays, meta
+
+
+def expect_meta(meta: dict, what: str, **want) -> None:
+    got = {k: meta.get(k) for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: _meta {got}, expected {want}")
+
+
+def fit_only(inst, layer: str, n: int, seed: int = 0, **env) -> dict:
+    """``get_or_compute`` alone (no render) on ``inst``'s model, its launch
+    counts, cache, wall seconds (device drained) and phase seconds."""
+    from ganspace_tpu_torch.config import Config
+    from ganspace_tpu_torch.decomposition import get_or_compute
+    use_w = inst.model.latent_space_name() == "W"
+    config = Config(model="StyleGAN2", output_class="ffhq", layer=layer,
+                    estimator="ipca", components=80, n=n, use_w=use_w,
+                    seed=seed or None, device="cuda")
+    with tempfile.TemporaryDirectory() as out, environ(GANSPACE_OUTPUT_DIR=out, **env):
+        phases = {}
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        path = get_or_compute(config, inst, phases=phases)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        arrays, meta = load_cache(path)
+    return {"launches": launches, "arrays": arrays, "meta": meta,
+            "seconds": seconds, "phases": phases}
+
+
+def fmt_phases(phases: dict) -> str:
+    return ", ".join(f"{k} {v:.3f} s" for k, v in phases.items())
+
+
+def run_main_path(gpu: str) -> tuple[dict, dict]:
+    """The W CLI run in the default environment: (its launch counts, its
+    npz arrays)."""
+    from ganspace_tpu_torch.apps import visualize
+
+    with tempfile.TemporaryDirectory() as out, environ(GANSPACE_OUTPUT_DIR=out):
+        reset_launches()
         result = visualize.main(list(MAIN_ARGS))
-        launches = {"centered_gram": centered_gram.launches,
-                    "modconv3x3": modconv3x3.launches}
+        launches = read_launches()
         log(f"main path launches: {launches}")
-        if launches["centered_gram"] != N_FIT_BLOCKS:
+        if launches["centered_gram"] != N_W_STREAM_BLOCKS:
             raise AssertionError(f"centered_gram launched {launches['centered_gram']} "
-                                 f"times, expected one per fit block ({N_FIT_BLOCKS})")
+                                 f"times, expected one per fused W block "
+                                 f"({N_W_STREAM_BLOCKS})")
         if launches["modconv3x3"] != N_CONV_LAUNCHES:
             raise AssertionError(f"modconv3x3 launched {launches['modconv3x3']} "
                                  f"times, expected 9 per strip ({N_CONV_LAUNCHES})")
-
-        with np.load(result.cache, allow_pickle=False) as data:
-            if set(data.files) != NPZ_KEYS:
-                raise AssertionError(f"npz keys {sorted(data.files)}")
-            arrays = {k: data[k] for k in NPZ_KEYS - {"_meta"}}
-            meta = json.loads(bytes(data["_meta"].item()).decode())
-        for k, a in arrays.items():
-            if not np.isfinite(a).all():
-                raise AssertionError(f"npz {k} is not finite")
-        comp = arrays["act_comp"].reshape(80, -1)
-        if comp.shape != (80, 512):
+        arrays, meta = load_cache(result.cache)
+        if arrays["act_comp"].reshape(80, -1).shape != (80, 512):
             raise AssertionError(f"act_comp shape {arrays['act_comp'].shape}")
-        gram_err = float(np.abs(comp @ comp.T - np.eye(80)).max())
-        if gram_err > 1e-4:
-            raise AssertionError(f"act_comp rows not orthonormal: {gram_err}")
         if not (np.diff(arrays["var_ratio"]) <= 1e-7).all():
             raise AssertionError("var_ratio is not descending")
-        if meta.get("device_rng") is not False:
-            raise AssertionError(f"_meta {meta}")
+        expect_meta(meta, "W path", device_rng=True, fused_linreg=False)
+        # the four rows of the finish bundle: stdev, var_ratio, lat_stdev and
+        # the random baselines from the moments that rode the stream
+        for k in ("act_stdev", "var_ratio", "lat_stdev", "random_stdevs"):
+            if arrays[k].shape != (80,) or not (arrays[k] > 0).all():
+                raise AssertionError(f"{k}: not 80 positive values")
         summ = Path(out, "out", "StyleGAN2-ffhq", "style", "ipca", "summ")
         grids = sorted(p.name for p in summ.glob("*.jpg"))
         expected = (["components_W.jpg", "random_dirs_W.jpg"]
                     + [f"samp{i}_real_W.jpg" for i in range(10)])
         if grids != sorted(expected):
             raise AssertionError(f"summ grids {grids}")
-        log(f"npz ok: keys, finite, |C C^T - I| = {gram_err:.2e}; "
-            f"{len(grids)} grids")
-    fit_rate = 40960 / result.fit_seconds
+        log(f"npz ok: keys, finite, |C C^T - I| = {arrays['gram_err']:.2e}, "
+            f"_meta device_rng true, four baseline rows; {len(grids)} grids")
+    fit_rate = W_N / result.fit_seconds
     render_rate = result.images / result.render_seconds
-    log(f"fit: {result.fit_seconds:.3f} s, {fit_rate:.1f} samples/s [{gpu}]")
+    log(f"fit: {result.fit_seconds:.3f} s, {fit_rate:.1f} samples/s; phases: "
+        f"{fmt_phases(result.phases)} [{gpu}]")
     log(f"render: {result.images} images at 1024 px in "
         f"{result.render_seconds:.3f} s, {render_rate:.2f} images/s [{gpu}]")
-    return launches
+    return launches, arrays
+
+
+def run_w_fit_1m(gpu: str, inst) -> dict:
+    """The W fit alone at n = 1M on the fused W stream."""
+    run = fit_only(inst, "style", W_N_1M)
+    log(f"W fit at n = {W_N_1M}: launches {run['launches']}")
+    if run["launches"]["centered_gram"] != N_W_1M_BLOCKS:
+        raise AssertionError(f"centered_gram launched {run['launches']['centered_gram']} "
+                             f"times at n = 1M, expected {N_W_1M_BLOCKS}")
+    expect_meta(run["meta"], "W fit at 1M", device_rng=True)
+    n_total = W_N_1M // 4096 * 4096
+    log(f"W fit at n = {W_N_1M} (n_total {n_total}): {run['seconds']:.3f} s, "
+        f"{W_N_1M / run['seconds']:.1f} samples/s; phases: "
+        f"{fmt_phases(run['phases'])} [{gpu}]")
+    return run["launches"]
+
+
+def min_angle_err(a: np.ndarray, b: np.ndarray, m: int) -> float:
+    """1 - the least principal-angle cosine between the spans of the first
+    ``m`` rows of ``a`` and of ``b``."""
+    s = np.linalg.svd(a[:m].astype(np.float64) @ b[:m].astype(np.float64).T,
+                      compute_uv=False)
+    return float(1.0 - s.min())
+
+
+def stream_gate(pair, control, stdev) -> tuple[list, dict, dict, dict]:
+    """(cuts, errors of ``pair``, errors of ``control``, their ratios): each
+    pair is two caches' arrays fitted on the same weights and n; the cuts m
+    fall where ``stdev``'s spectrum has a relative gap >= GATE_GAP."""
+    lam = np.asarray(stdev, np.float64) ** 2
+    c = len(lam)
+    cuts = [m for m in range(1, c) if (lam[m - 1] - lam[m]) / lam[m - 1] >= GATE_GAP]
+    if not cuts:
+        raise AssertionError("stream gate: the spectrum has no resolved cut")
+
+    def errors(a, b):
+        ca, cb = a["act_comp"].reshape(c, -1), b["act_comp"].reshape(c, -1)
+        cut = [min_angle_err(ca, cb, m) for m in cuts]
+        cos = np.abs(np.sum(ca.astype(np.float64) * cb, axis=1))
+        return {"cut_mean": float(np.mean(cut)), "cut_max": float(np.max(cut)),
+                "median_cos": float(np.median(1.0 - cos)),
+                "var_ratio": float(np.abs(a["var_ratio"] - b["var_ratio"]).max())}
+    err, ctrl = errors(*pair), errors(*control)
+    ratios = {k: err[k] / max(ctrl[k], 1e-12) for k in err}
+    return cuts, err, ctrl, ratios
+
+
+def check_w_stream_gate(gpu: str, inst, device_arrays: dict) -> tuple[dict, dict]:
+    """The host-RNG W fit (seed 1, the earlier path) and its seed-7 control,
+    then the device stream's components against the host stream's."""
+    runs = {}
+    for seed in (0, 7):
+        run = fit_only(inst, "style", W_N, seed=seed, GANSPACE_DEVICE_RNG=0)
+        if run["launches"]["centered_gram"] != N_FIT_BLOCKS:
+            raise AssertionError(f"centered_gram launched {run['launches']['centered_gram']} "
+                                 f"times on the host W path, expected {N_FIT_BLOCKS}")
+        expect_meta(run["meta"], "host W fit", device_rng=False)
+        log(f"host-RNG W fit, seed {seed or 1}: {run['seconds']:.3f} s, "
+            f"{W_N / run['seconds']:.1f} samples/s; launches {run['launches']}; "
+            f"phases: {fmt_phases(run['phases'])} [{gpu}]")
+        runs[seed] = run
+    host, ctrl = runs[0]["arrays"], runs[7]["arrays"]
+    cuts, err, ctrl_err, ratios = stream_gate((host, device_arrays), (host, ctrl),
+                                              host["act_stdev"])
+    log(f"W stream gate (n = {W_N}, c = 80, {len(cuts)} cuts at a relative gap "
+        f">= {GATE_GAP}: {cuts}): device vs host "
+        + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+        + "; host seed 1 vs 7 " + ", ".join(f"{k} {v:.3e}" for k, v in ctrl_err.items())
+        + "; ratios " + ", ".join(f"{k} {v:.3f} (bar {GATE_RATIOS[k]})"
+                                  for k, v in ratios.items()))
+    bad = [k for k, v in ratios.items() if not v <= GATE_RATIOS[k]]
+    if bad:
+        raise AssertionError(f"device W stream misses the control's bar on {bad}")
+    return runs[0]["launches"], runs[7]["launches"]
 
 
 def run_conv_tap_path(gpu: str) -> tuple[dict, dict]:
-    """The conv-tap CLI run: (its launch counts, its npz arrays)."""
+    """The conv-tap CLI run at n = 50000 on the fused activation stream:
+    (its launch counts, its npz arrays).  The regression must ride the
+    stream: the separate sweep is replaced by a function that raises."""
+    from ganspace_tpu_torch import decomposition
     from ganspace_tpu_torch.apps import visualize
-    from ganspace_tpu_torch.ops.moments import centered_gram
-    from ganspace_tpu_torch.ops.modconv import modconv3x3
 
-    log(f"conv-tap path: -n {CONV_N} (cut from the JAX package's bench, "
-        f"50000, to keep the smoke run short)")
-    with tempfile.TemporaryDirectory() as out:
-        os.environ["GANSPACE_OUTPUT_DIR"] = out
-        centered_gram.launches = 0
-        modconv3x3.launches = 0
-        result = visualize.main(list(CONV_ARGS))
-        launches = {"centered_gram": centered_gram.launches,
-                    "modconv3x3": modconv3x3.launches}
+    def no_sweep(*args, **kwargs):
+        raise AssertionError("the regression sweep ran on the fused stream")
+
+    log(f"conv-tap path: -n {CONV50_N}, the JAX package's bench size")
+    sweep = decomposition.regression
+    with tempfile.TemporaryDirectory() as out, environ(GANSPACE_OUTPUT_DIR=out):
+        decomposition.regression = no_sweep
+        try:
+            reset_launches()
+            result = visualize.main(list(CONV_ARGS))
+            launches = read_launches()
+        finally:
+            decomposition.regression = sweep
         log(f"conv-tap path launches: {launches}")
-
-        with np.load(result.cache, allow_pickle=False) as data:
-            if set(data.files) != NPZ_KEYS:
-                raise AssertionError(f"npz keys {sorted(data.files)}")
-            arrays = {k: data[k] for k in NPZ_KEYS - {"_meta"}}
-            meta = json.loads(bytes(data["_meta"].item()).decode())
+        arrays, meta = load_cache(result.cache)
         log(f"_meta: refine_skipped={meta['refine_skipped']} "
             f"refine_stats={meta['refine_stats']}")
+        expect_meta(meta, "conv-tap path", device_rng=True, fused_linreg=True)
         if meta.get("refine_skipped") not in (True, False):
             raise AssertionError(f"_meta {meta}: no refine decision")
-        expected = conv_tap_launches(refined=not meta["refine_skipped"])
+        expected = conv_tap_launches(refined=not meta["refine_skipped"],
+                                     fused_blocks=CONV50_BLOCKS, cli=True)
         if launches["modconv3x3"] != expected:
             raise AssertionError(f"modconv3x3 launched {launches['modconv3x3']} "
                                  f"times on the conv-tap path, expected {expected}")
         if launches["centered_gram"] != 0:
             raise AssertionError("centered_gram is not on the conv-tap path")
-        for k, a in arrays.items():
-            if not np.isfinite(a).all():
-                raise AssertionError(f"npz {k} is not finite")
         if arrays["act_comp"].shape != CONV_ACT_SHAPE:
             raise AssertionError(f"act_comp shape {arrays['act_comp'].shape}")
-        comp = arrays["act_comp"].reshape(80, -1)
-        gram_err = float(np.abs(comp @ comp.T - np.eye(80)).max())
-        if gram_err > 1e-4:
-            raise AssertionError(f"act_comp rows not orthonormal: {gram_err}")
         lat = arrays["lat_comp"].reshape(80, -1)
         if np.abs(np.linalg.norm(lat, axis=1) - 1.0).max() > 1e-5:
             raise AssertionError("lat_comp rows are not unit rows")
@@ -466,14 +689,132 @@ def run_conv_tap_path(gpu: str) -> tuple[dict, dict]:
         if grids != sorted(f"{n}_{m}.jpg" for n in names for m in ("ACT", "Z")):
             raise AssertionError(f"summ grids {grids}")
         log(f"conv-tap npz ok: keys, finite, act_comp {CONV_ACT_SHAPE}, "
-            f"|C C^T - I| = {gram_err:.2e}; {len(grids)} grids")
-    phases = ", ".join(f"{k} {v:.3f} s" for k, v in result.phases.items())
+            f"|C C^T - I| = {arrays['gram_err']:.2e}, _meta device_rng and "
+            f"fused_linreg true, no regression sweep; {len(grids)} grids")
     log(f"conv-tap fit: {result.fit_seconds:.3f} s, "
-        f"{CONV_N / result.fit_seconds:.1f} samples/s; phases: {phases} [{gpu}]")
+        f"{CONV50_N / result.fit_seconds:.1f} samples/s; phases: "
+        f"{fmt_phases(result.phases)} [{gpu}]")
     log(f"conv-tap render: {result.images} images at 1024 px in "
         f"{result.render_seconds:.3f} s, "
         f"{result.images / result.render_seconds:.2f} images/s [{gpu}]")
     return launches, arrays
+
+
+def check_fused_regression(gpu: str, model, arrays: dict) -> None:
+    """The fused stream's 390 blocks regenerated from their per-block
+    generators: the explicit normal equations G = sum a^T a, R = sum a^T z
+    over them (a the stdev-scaled coordinates against the run's own
+    components, float64) solved exactly, against ``lat_comp`` from
+    ``regression_from_moments``.  Block 0 drawn again at the end must repeat
+    its latents bit for bit (the per-block generator) and its activations to
+    REGEN_REL: cuDNN's transposed convolution, the tap forward's upsampling,
+    sums in no fixed order."""
+    from ganspace_tpu_torch.decomposition import acts_stream_block
+    from ganspace_tpu_torch.sampling import SEED_SAMPLING
+    comp = torch.from_numpy(arrays["act_comp"].reshape(80, -1)).cuda()
+    mean = torch.from_numpy(arrays["act_mean"].reshape(1, -1)).cuda()
+    stdev = torch.from_numpy(arrays["act_stdev"]).cuda()
+    block = acts_stream_block(model, "convs.2", CONV_BATCH, SEED_SAMPLING)
+    t0 = time.perf_counter()
+    first = block(0)
+    g = torch.zeros((80, 80), dtype=torch.float64, device="cuda")
+    r = torch.zeros((80, 512), dtype=torch.float64, device="cuda")
+    for i in range(CONV50_BLOCKS):
+        acts, z = first if i == 0 else block(i)
+        coords = (((acts - mean) @ comp.T) / stdev).double()
+        g += coords.T @ coords
+        r += coords.T @ z.double()
+    again = block(0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    same = torch.equal(again[1], first[1])
+    acts_rel = float((again[0] - first[0]).abs().max() / first[0].abs().max())
+    exact = torch.linalg.solve(g, r).cpu().numpy()
+    cos = _min_abs_cos(torch.from_numpy(arrays["lat_comp"].reshape(80, -1)),
+                       torch.from_numpy(exact))
+    log(f"fused regression vs the explicit solve over the same {CONV50_BLOCKS} "
+        f"regenerated blocks: lat_comp min |cos| {cos:.7f} (bar {FUSED_REG_COS}); "
+        f"block 0 regenerated: latents bit for bit {same}, activations rel "
+        f"{acts_rel:.3e} (bar {REGEN_REL:.0e}); {seconds:.2f} s [{gpu}]")
+    if not (cos > FUSED_REG_COS and same and acts_rel <= REGEN_REL):
+        raise AssertionError("the fused regression or the block regeneration failed")
+
+
+def check_upsample_determinism(gpu: str) -> None:
+    """The tap forward's two upsampling convolutions (cuDNN transposed convs
+    at batch 128, 512 channels, 4 -> 9 and 8 -> 17 px): how many of four
+    repeats match the first launch bit for bit, and their time with cuDNN's
+    deterministic algorithms forced, the price of a bit-reproducible
+    stream.  Reported, not gated."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for res in (4, 8):
+        x = torch.randn(CONV_BATCH, 512, res, res, generator=gen, device="cuda")
+        w = torch.randn(512, 512, 3, 3, generator=gen, device="cuda") / (9 * 512) ** 0.5
+
+        def up():
+            return F.conv_transpose2d(x, w, stride=2)
+        y = up()
+        repeats = sum(torch.equal(y, up()) for _ in range(4))
+        ms = median_ms(up)
+        old = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            det_ms = median_ms(up)
+            det_same = torch.equal(up(), up())
+        finally:
+            torch.backends.cudnn.deterministic = old
+        log(f"upsampling conv B={CONV_BATCH} C=512 {res} px: {repeats}/4 repeats "
+            f"bit-identical, {ms:.4f} ms; cuDNN deterministic {det_ms:.4f} ms, "
+            f"repeats bit-identical {det_same} [{gpu}]")
+
+
+def run_conv_fit(gpu: str, inst, device_rng: bool, fused: bool = False,
+                 seed: int = 0) -> dict:
+    """The conv-tap fit alone at n = 20000: the pre-sampled stream (device
+    or host draws) with the refine and regression sweeps, or with ``fused``
+    the fused activation stream below its threshold
+    (``GANSPACE_FUSED_ACTS=1``: 156 blocks of 128, no regression sweep)."""
+    env = {"GANSPACE_DEVICE_RNG": int(device_rng)}
+    if fused:
+        env["GANSPACE_FUSED_ACTS"] = 1
+    run = fit_only(inst, "convs.2", CONV_N, seed=seed, **env)
+    meta = run["meta"]
+    what = (f"conv-tap fit at n = {CONV_N}, "
+            + ("fused stream" if fused else "device RNG" if device_rng else "host RNG")
+            + (f", seed {seed}" if seed else ""))
+    expect_meta(meta, what, device_rng=device_rng, fused_linreg=fused)
+    expected = conv_tap_launches(refined=not meta["refine_skipped"],
+                                 fused_blocks=CONV20_FUSED_BLOCKS if fused else 0,
+                                 cli=False)
+    if run["launches"]["modconv3x3"] != expected:
+        raise AssertionError(f"{what}: modconv3x3 launched "
+                             f"{run['launches']['modconv3x3']} times, expected {expected}")
+    log(f"{what}: {run['seconds']:.3f} s, {CONV_N / run['seconds']:.1f} samples/s; "
+        f"launches {run['launches']}; refine_skipped {meta['refine_skipped']}; "
+        f"phases: {fmt_phases(run['phases'])} [{gpu}]")
+    return run
+
+
+def report_conv_stream_gate(gpu: str, fused: dict, host: dict, ctrl: dict) -> None:
+    """The fused activation stream's components at n = 20000 against the
+    host stream's, beside the host seed-1-vs-7 control: reported, not gated.
+    The bars were set on the W spectrum; the random-init ``convs.2``
+    spectrum is near-degenerate (few resolved cuts, so noisy ratios), and
+    the conv-tap stream is gated on the CPU against the JAX package
+    (``tests/test_torch_port_device_rng.py``)."""
+    try:
+        cuts, err, ctrl_err, ratios = stream_gate(
+            (host["arrays"], fused["arrays"]), (host["arrays"], ctrl["arrays"]),
+            host["arrays"]["act_stdev"])
+    except AssertionError as e:
+        log(f"conv-tap stream gate (reported): {e}")
+        return
+    log(f"conv-tap stream gate (n = {CONV_N}, reported, not gated; {len(cuts)} cuts "
+        f"{cuts}): fused vs host " + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+        + "; host seed 1 vs 7 " + ", ".join(f"{k} {v:.3e}" for k, v in ctrl_err.items())
+        + "; ratios " + ", ".join(f"{k} {v:.3f} (W bar {GATE_RATIOS[k]})"
+                                  for k, v in ratios.items()) + f" [{gpu}]")
 
 
 def _device_us(event) -> float:
@@ -481,20 +822,50 @@ def _device_us(event) -> float:
             or getattr(event, "self_cuda_time_total", 0))
 
 
-def profile_conv_tap_block(gpu: str) -> None:
-    """Device time by kernel over one fit block of the conv-tap path (16 tap
-    forwards at batch 128, their concatenation, one sketch update), and the
-    device's busy share of the block's wall time (``torch.profiler``)."""
+def profile_run(gpu: str, what: str, fn) -> None:
+    """Device time by kernel over one call of ``fn`` (after a warm-up call),
+    and the device's busy share of its wall time (``torch.profiler``)."""
     from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if _device_us(e) > 0 and "CUDA" in str(getattr(e, "device_type", ""))]
+    busy_ms = sum(_device_us(e) for e in rows) / 1e3
+    if not rows:
+        log(f"{what} profile: the profiler reported no device time")
+        return
+    log(f"{what} profile: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"({busy_ms / wall_ms:.1%}) [{gpu}]")
+    for e in sorted(rows, key=_device_us, reverse=True)[:12]:
+        log(f"  {_device_us(e) / 1e3:8.3f} ms {_device_us(e) / 1e3 / busy_ms:6.1%}"
+            f"  x{e.count:<4d} {e.key[:90]}")
+
+
+def profile_conv_tap_blocks(gpu: str) -> None:
+    """One fit block of the pre-sampled conv-tap path (16 tap forwards at
+    batch 128, their concatenation, one sketch update), then 16 blocks of
+    the fused activation stream (each one tap forward and the sketch,
+    regression and random-projection updates of ``fit_stream``)."""
+    from ganspace_tpu_torch.decomposition import acts_stream_block
     from ganspace_tpu_torch.estimators.ipca import (
-        NystromState, nystrom_update, sketch_test_matrix)
+        IPCAEstimator, NystromState, nystrom_update, sketch_test_matrix)
     from ganspace_tpu_torch.models import get_instrumented_model
+    from ganspace_tpu_torch.sampling import SEED_SAMPLING, random_directions_device
     inst = get_instrumented_model("StyleGAN2", "ffhq", "convs.2", torch.device("cuda"))
     model = inst.model
     inst.retain_layer("convs.2")
     zs = [model.sample_latent(CONV_BATCH, seed=s) for s in range(CONV_FWD_PER_BLOCK)]
     d, l = 512 * 16 * 16, 4 * 80
+    t0 = time.perf_counter()
     omega = sketch_test_matrix(d, l).cuda()
+    torch.cuda.synchronize()
+    log(f"Omega [{d}, {l}] drawn on the host and uploaded (once per sketch-tier "
+        f"fit): {time.perf_counter() - t0:.3f} s [{gpu}]")
     state = NystromState(0.0, torch.zeros(d, device="cuda"),
                          torch.zeros((), device="cuda"),
                          torch.zeros(d, l, device="cuda"))
@@ -505,25 +876,18 @@ def profile_conv_tap_block(gpu: str) -> None:
             model.partial_forward(z, "convs.2")
             chunks.append(inst.retained_features()["convs.2"].reshape(CONV_BATCH, -1))
         return nystrom_update(state, torch.cat(chunks)[:CONV_NB], omega)
+    profile_run(gpu, f"conv-tap block (pre-sampled, one NB={CONV_NB} block)", block)
 
-    block()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        block()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [e for e in prof.key_averages()
-            if _device_us(e) > 0 and "CUDA" in str(getattr(e, "device_type", ""))]
-    busy_ms = sum(_device_us(e) for e in rows) / 1e3
-    if not rows:
-        log("conv-tap block profile: the profiler reported no device time")
-        return
-    log(f"conv-tap block profile (one NB={CONV_NB} block): wall {wall_ms:.1f} ms, "
-        f"device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}) [{gpu}]")
-    for e in sorted(rows, key=_device_us, reverse=True)[:12]:
-        log(f"  {_device_us(e) / 1e3:8.3f} ms {_device_us(e) / 1e3 / busy_ms:6.1%}"
-            f"  x{e.count:<4d} {e.key[:90]}")
+    acts = acts_stream_block(model, "convs.2", CONV_BATCH, SEED_SAMPLING)
+    dirs = random_directions_device(80, d, "cuda")
+    # one estimator: the warm-up call draws Omega and allocates the state,
+    # the profiled call streams blocks only
+    est = IPCAEstimator(80, refine="never")
+
+    def fused():
+        est.fit_stream(acts, CONV_FWD_PER_BLOCK, with_reg=True, rand_dirs=dirs)
+    profile_run(gpu, f"conv-tap fused stream ({CONV_FWD_PER_BLOCK} blocks of "
+                     f"{CONV_BATCH}, one pass)", fused)
 
 
 def _decay_stream(d: int, seed: int):
@@ -691,14 +1055,40 @@ def main() -> int:
         check_tile(gen)
         gram = check_centered_gram(gen)
         conv = check_modconv3x3(gen)
+    from ganspace_tpu_torch.models import get_instrumented_model
+    launches = {}
     t0 = time.perf_counter()
-    launches = {"w_style": run_main_path(gpu)}
+    launches["w_style_cli"], w_device = run_main_path(gpu)
     log(f"W path wall time: {time.perf_counter() - t0:.1f} s")
+    # one model per latent space for the fit-only runs (the CLI's weights)
+    w_inst = get_instrumented_model("StyleGAN2", "ffhq", "style", torch.device("cuda"),
+                                    use_w=True)
+    launches["w_fit_1m"] = run_w_fit_1m(gpu, w_inst)
+    launches["w_fit_host"], launches["w_fit_host_seed7"] = check_w_stream_gate(
+        gpu, w_inst, w_device)
+    del w_inst
     t0 = time.perf_counter()
-    launches["convs2"], conv_npz = run_conv_tap_path(gpu)
+    launches["convs2_cli"], conv50 = run_conv_tap_path(gpu)
     log(f"conv-tap path wall time: {time.perf_counter() - t0:.1f} s")
+    conv_inst = get_instrumented_model("StyleGAN2", "ffhq", "convs.2", torch.device("cuda"))
     with ieee_f32():
-        profile_conv_tap_block(gpu)
+        check_fused_regression(gpu, conv_inst.model, conv50)
+        check_upsample_determinism(gpu)
+    runs = {"convs2_fit_device": run_conv_fit(gpu, conv_inst, device_rng=True),
+            "convs2_fit_fused": run_conv_fit(gpu, conv_inst, device_rng=True, fused=True),
+            "convs2_fit_host": run_conv_fit(gpu, conv_inst, device_rng=False),
+            "convs2_fit_host_seed7": run_conv_fit(gpu, conv_inst, device_rng=False,
+                                                  seed=7)}
+    del conv_inst
+    launches.update({path: run["launches"] for path, run in runs.items()})
+    log(f"conv-tap fit at n = {CONV_N}: fused stream "
+        f"{runs['convs2_fit_fused']['seconds']:.3f} s against the device pre-sampled "
+        f"stream's {runs['convs2_fit_device']['seconds']:.3f} s [{gpu}]")
+    report_conv_stream_gate(gpu, runs["convs2_fit_fused"], runs["convs2_fit_host"],
+                            runs["convs2_fit_host_seed7"])
+    conv_npz = runs["convs2_fit_host"]["arrays"]
+    with ieee_f32():
+        profile_conv_tap_blocks(gpu)
         check_sketch_gate(gpu)
         check_sketch_vs_cpu()
         check_vs_cpu(conv_npz)

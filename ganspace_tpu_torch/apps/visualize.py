@@ -36,7 +36,8 @@ from ganspace_tpu_torch.decomposition import get_or_compute, read_meta
 from ganspace_tpu_torch.edit import create_strip_centered
 from ganspace_tpu_torch.imaging import pad_frames, to_uint8
 from ganspace_tpu_torch.models import get_instrumented_model
-from ganspace_tpu_torch.sampling import SEED_VISUALIZATION, random_directions
+from ganspace_tpu_torch.sampling import (
+    SEED_VISUALIZATION, random_directions, random_directions_device)
 
 #: frames per forward when ``-b`` is not given; a strip has 5 frames, so
 #: every strip renders as one batch
@@ -76,6 +77,19 @@ def load_components(path) -> SimpleNamespace:
             X_stdev=data["act_stdev"], Z_comp=data["lat_comp"],
             Z_global_mean=data["lat_mean"], Z_stdev=data["lat_stdev"],
             var_ratio=data["var_ratio"], meta=read_meta(data))
+
+
+def baseline_directions(meta, device):
+    """``dirs(components, dims)`` for the random-direction grids: the
+    device stream's when the cache records ``device_rng`` true, the host
+    stream's when false; ``GANSPACE_DEVICE_RNG`` decides for a cache without
+    the record (``ganspace_tpu/apps/visualize.py:202-217``)."""
+    cached = meta.get("device_rng") if meta else None
+    use_device = (cached if cached is not None
+                  else os.environ.get("GANSPACE_DEVICE_RNG", "1") == "1")
+    if use_device:
+        return lambda c, d: random_directions_device(c, d, device)
+    return random_directions
 
 
 def main(args=None):
@@ -168,15 +182,10 @@ def main(args=None):
         grid(edit_mode, t.Z_global_mean, t.Z_comp, t.X_comp, "components")
 
     # Summary grid, random directions with the PC stdevs (visualize.py:268-279),
-    # from the host stream the decomposition's random_stdevs used.
-    if t.meta and t.meta.get("device_rng"):
-        print("Note: the cache was fit on the device RNG stream; its random "
-              "directions cannot be redrawn here, so the baseline grid uses "
-              "the host stream's directions")
-    rand_act = random_directions(n_comp, int(np.prod(sample_shape))).reshape(
-        -1, *sample_shape)
-    rand_z = random_directions(n_comp, int(np.prod(inst.input_shape))).reshape(
-        -1, *latent_shape)
+    # from the stream the decomposition's random_stdevs used.
+    dirs = baseline_directions(t.meta, device)
+    rand_act = dirs(n_comp, int(np.prod(sample_shape))).reshape(-1, *sample_shape)
+    rand_z = dirs(n_comp, int(np.prod(inst.input_shape))).reshape(-1, *latent_shape)
     for edit_mode in edit_modes:
         grid(edit_mode, t.Z_global_mean, rand_z, rand_act, "random_dirs")
 

@@ -1,18 +1,32 @@
 """Decomposition pipeline (``ganspace_tpu/decomposition.py``).
 
-Sample latents on the host -> run the generator to the tap on the device ->
-stream NB-sample blocks through the IPCA estimator -> regress the components
-back to latent space -> write the ``.npz`` cache whose keys, ``_meta`` fields
-and filename scheme match the JAX package's (and the reference's,
-``decomposition.py:332-341, 384-394``).
+Sample latents -> run the generator to the tap -> stream blocks through the
+IPCA estimator -> regress the components back to latent space -> write the
+``.npz`` cache whose keys, ``_meta`` fields and filename scheme match the
+JAX package's (and the reference's, ``decomposition.py:332-341, 384-394``).
 
-This is the path the JAX package takes under ``GANSPACE_DEVICE_RNG=0``: host
-numpy RNG (pre-sampled latents), one ``fit_partial`` per block, the sketch
-tier's adaptive refine sweep, and a separate least-squares regression sweep
-on fresh ``SEED_LINREG`` latents.  Samples-are-latents runs (``--use_w
---layer style``) fit the W latents themselves and need no regression.  Not
-ported: the fused device-RNG streams, block grouping (a TPU dispatch lever)
-and the XLA memory-analysis batch autotune.
+The path is chosen as the JAX package's ``_compute`` chooses it
+(``decomposition.py:755-830``):
+
+* **fused W stream** (samples-are-latents runs, ``--use_w --layer style``,
+  under ``GANSPACE_DEVICE_RNG=1``, the default): ``nb_w``-sample blocks of
+  latents drawn and mapped on the card, one moments update each, the
+  random-direction moments riding every block;
+* **fused activation stream** (a tap, ``GANSPACE_FUSED_ACTS`` ``auto``
+  and at least ``GANSPACE_FUSED_ACTS_MIN_N`` samples, or ``1``): one batch
+  per block, drawn on the card and synthesized to the tap, with the
+  regression's cross-moments and the random moments riding each block; the
+  sketch tier's refine pass regenerates the same blocks;
+* otherwise the **pre-sampled stream**: every latent drawn up front (on the
+  card, or on the host under ``GANSPACE_DEVICE_RNG=0`` or above
+  ``GANSPACE_LATENT_HBM_BUDGET``), NB-sample blocks of partial forwards
+  through ``fit_partial``, the refine sweep, and a separate regression
+  sweep.
+
+``GANSPACE_DEVICE_RNG=0`` is the JAX package's bit-exact host path.  Not
+ported: the fused-acts sentinel registry (``auto`` is the sample-count rule
+alone), the bf16 first pass, block grouping (a TPU dispatch lever), the
+XLA memory-analysis batch autotune and ``_stream_npz``.
 """
 
 from __future__ import annotations
@@ -34,10 +48,26 @@ from ganspace_tpu_torch.estimators import get_estimator
 from ganspace_tpu_torch.models import get_instrumented_model
 from ganspace_tpu_torch.models.base import InstrumentedModel
 from ganspace_tpu_torch.ops.precision import ieee_f32
-from ganspace_tpu_torch.sampling import SEED_LINREG, SEED_SAMPLING, random_directions
+from ganspace_tpu_torch.sampling import (
+    SEED_LINREG, SEED_SAMPLING, STREAM_LINREG, STREAM_MAIN, STREAM_W_TAIL,
+    block_generator, random_directions, random_directions_device)
 
 #: latent stream block size when ``-b`` is not given (the JAX package's W path)
 W_BATCH = 4096
+
+
+def _env_on(name: str) -> bool:
+    """A ``1``-defaulted switch of the JAX package (``GANSPACE_DEVICE_RNG``,
+    ``GANSPACE_FUSED_LINREG``, ``GANSPACE_FUSED_RAND``)."""
+    return os.environ.get(name, "1") == "1"
+
+
+def _fused_wanted(n: int) -> bool:
+    """``GANSPACE_FUSED_ACTS``: ``1`` on, ``0`` off, ``auto`` (the default)
+    on from ``GANSPACE_FUSED_ACTS_MIN_N`` samples (20000)."""
+    env = os.environ.get("GANSPACE_FUSED_ACTS", "auto")
+    return env == "1" or (env == "auto" and n >= int(
+        os.environ.get("GANSPACE_FUSED_ACTS_MIN_N", 20_000)))
 
 
 def get_max_batch_size(inst: InstrumentedModel, layer_name=None) -> int:
@@ -57,6 +87,24 @@ def get_max_batch_size(inst: InstrumentedModel, layer_name=None) -> int:
     return 1 << (b.bit_length() - 1)
 
 
+def acts_stream_block(model, layer: str, batch: int, seed: int, stream: int = STREAM_MAIN,
+                      with_latents: bool = True):
+    """``block(i)``: block ``i`` of the fused activation stream, ``batch``
+    latents drawn on the model's device from block ``i`` of ``stream`` under
+    ``seed`` and synthesized to the tap; ``(acts [batch, D], latents
+    [batch, zdim])``, or the activations alone.  None when the model has no
+    device sampler or no pure tap function."""
+    lat_fn, acts_fn = model.device_latents_fn(), model.pure_acts_fn(layer)
+    if lat_fn is None or acts_fn is None:
+        return None
+
+    def block(i):
+        lat = lat_fn(block_generator(seed, stream, i, model.device), batch)
+        acts = acts_fn(lat)
+        return (acts, lat.reshape(batch, -1)) if with_latents else acts
+    return block
+
+
 # ---------------------------------------------------------------------------
 # Latent regression (reference decomposition.py:77-148)
 # ---------------------------------------------------------------------------
@@ -65,7 +113,11 @@ def linreg_lstsq(comp, mean, stdev, inst: InstrumentedModel, config):
     """Solve min_M ||M A - Z|| where A are the stdev-scaled PCA coordinates
     of fresh ``SEED_LINREG`` samples: the normal equations G = sum A^T A
     (c x c) and R = sum A^T Z accumulate on the device batch by batch, then
-    one float32 solve with a 1e-10 tr(G)/c ridge."""
+    one float32 solve with a 1e-10 tr(G)/c ridge.
+
+    The samples come from the regression's device stream when the fused
+    stream is wanted for ``n_samp`` samples and ``GANSPACE_DEVICE_RNG=1``
+    (``decomposition.py:356-414``), else from the host stream."""
     print("Performing least squares regression", flush=True)
     model = inst.model
     model.seed_host_rng(SEED_LINREG)
@@ -82,16 +134,24 @@ def linreg_lstsq(comp, mean, stdev, inst: InstrumentedModel, config):
     n_comp = comp.shape[0]
     latent_dims = model.get_latent_dims()
 
+    device_block = None
+    if _fused_wanted(n_samp) and _env_on("GANSPACE_DEVICE_RNG"):
+        device_block = acts_stream_block(model, config.layer, batch, SEED_LINREG,
+                                         STREAM_LINREG)
+
+    def host_block(_):
+        z = model.sample_latent(batch)
+        model.partial_forward(z, config.layer)
+        return inst.retained_features()[config.layer].reshape(batch, -1), z
+
     comp_flat = comp.reshape(n_comp, -1)
     # zero-stdev components carry no direction: divide by 1 instead of 0
     safe = torch.where(stdev > 0, stdev, torch.ones_like(stdev))[None, :]
     g = torch.zeros((n_comp, n_comp), dtype=torch.float32, device=device)
     r = torch.zeros((n_comp, latent_dims), dtype=torch.float32, device=device)
     z_sum = torch.zeros((latent_dims,), dtype=torch.float32, device=device)
-    for _ in range(n_samp // batch):
-        z = model.sample_latent(batch)
-        model.partial_forward(z, config.layer)
-        act = inst.retained_features()[config.layer].reshape(batch, -1)
+    for i in range(n_samp // batch):
+        act, z = (device_block or host_block)(i)
         coords = ((act - mean) @ comp_flat.T) / safe
         zf = z.reshape(batch, -1)
         g += coords.T @ coords
@@ -107,12 +167,52 @@ def linreg_lstsq(comp, mean, stdev, inst: InstrumentedModel, config):
     return z_comp, z_mean
 
 
+def regression_from_moments(comp, mean, stdev, reg):
+    """Closed-form latent regression from the cross-moments that rode the
+    fit stream (``IPCAEstimator.fit_stream(with_reg=True)``): no extra
+    synthesis (``decomposition.py:489-520``).
+
+    The normal equations are ``G M = R`` with ``coords_i = diag(1/sigma)
+    C (a_i - mu)``.  ``R`` follows exactly from the raw moments, ``R =
+    diag(1/sigma) C (sum a z^T - mu sum z^T)``; ``G`` is the estimator's own
+    model, ``(n - 1) I``: exact on the moments tier, consistent to the
+    sketch's accuracy on the sketch tier.  It holds only if the moments come
+    from the pass the components were fitted on, which ``begin_refine``
+    ensures by restarting them.  The caller row-normalizes the result, so
+    only off-diagonal mixing separates it from the explicit solve."""
+    xz, z_sum, n_reg = reg
+    print(f"Regression from fused cross-moments ({n_reg} samples, "
+          f"no extra sweep)", flush=True)
+    device = xz.device
+    comp = torch.as_tensor(comp, dtype=torch.float32).to(device)
+    comp = comp.reshape(comp.shape[0], -1)
+    mean = torch.as_tensor(mean, dtype=torch.float32).to(device).reshape(-1)
+    stdev = torch.as_tensor(stdev, dtype=torch.float32).to(device)
+    r, gram = _reg_solve(comp, mean, stdev, xz, z_sum)
+    z_comp = r.cpu().numpy() / max(float(n_reg) - 1.0, 1.0)
+    z_mean = z_sum.cpu().numpy()[None, :] / max(float(n_reg), 1.0)
+    _warn_if_not_orthonormal_gram(gram.cpu().numpy())
+    return z_comp, z_mean
+
+
+def _reg_solve(comp, mean, stdev, xz, z_sum):
+    """``(R [c, zdim], C C^T)``: the right-hand side from the raw moments,
+    and the Gram for the orthonormality check."""
+    # zero-stdev components carry no direction: divide by 1 instead of 0
+    safe = torch.where(stdev > 0, stdev, torch.ones_like(stdev))
+    r = (comp @ xz - torch.outer(comp @ mean, z_sum)) / safe[:, None]
+    return r, comp @ comp.T
+
+
 def _warn_if_not_orthonormal(comp) -> None:
     """Reference ``decomposition.py:141-148``'s sanity check, contracted on
     the components' device."""
     c = torch.as_tensor(comp, dtype=torch.float32)
     c = c.reshape(c.shape[0], -1)
-    m = (c @ c.T).cpu().numpy()
+    _warn_if_not_orthonormal_gram((c @ c.T).cpu().numpy())
+
+
+def _warn_if_not_orthonormal_gram(m: np.ndarray) -> None:
     if not np.allclose(m, np.identity(m.shape[0]), atol=1e-3):
         print(f"WARNING: Computed basis is not orthonormal "
               f"(determinant={np.linalg.det(m)})")
@@ -222,17 +322,45 @@ def _compute(config, dump_name: Path,
     # Must not depend on the chosen batch size (reproducibility)
     nb = max(batch, max(2_000, 3 * n_components))
 
-    # Pre-sample every latent up front, so the fit stream is independent of
-    # later RNG use (reference decomposition.py:229-236).  The batches stay
-    # on the device.
-    model.seed_host_rng(config.seed or SEED_SAMPLING)
+    # -- the path (decomposition.py:751-830) --------------------------------
+    seed0 = config.seed or SEED_SAMPLING
+    model.seed_host_rng(seed0)
     n_lat = ((n_total + nb - 1) // batch + 1) * batch
-    latent_chunks = model.sample_latents_prefetched(n_lat // batch, batch)
+    on_device = n_lat * int(np.prod(input_shape[1:])) * 4 < int(
+        os.environ.get("GANSPACE_LATENT_HBM_BUDGET", 8 * 1024 ** 3))
+    device_rng = _env_on("GANSPACE_DEVICE_RNG")
+    lat_fn = model.device_latents_fn()
+    streamable = (transformer._use_moments(sample_dims)
+                  or transformer._use_nystrom(sample_dims))
+    fused = (samples_are_latents and device_rng and lat_fn is not None
+             and transformer._use_moments(sample_dims))
+    want_reg = _env_on("GANSPACE_FUSED_LINREG")
+    acts_block = (None if samples_are_latents
+                  else acts_stream_block(model, layer_key, batch, seed0,
+                                         with_latents=want_reg))
+    fused_acts = (_fused_wanted(n_total) and acts_block is not None and device_rng
+                  and streamable and batch >= n_components)
+    rand_dirs = (random_directions_device(n_components, sample_dims, device)
+                 if (fused or fused_acts) and _env_on("GANSPACE_FUSED_RAND") else None)
+    # Which stream actually produced the samples (the _meta record): the
+    # pre-sampled path draws on the host above the latent budget or for a
+    # model without a device sampler.
+    device_rng_used = fused or fused_acts
+    latent_chunks = []
+    if not device_rng_used:
+        latent_chunks = (model.sample_latents_device(n_lat // batch, batch, seed0)
+                         if on_device and device_rng else None)
+        device_rng_used = latent_chunks is not None
+        if latent_chunks is None:
+            # above the budget the latents wait on the host, one batch at a
+            # time on the device
+            latent_chunks = model.sample_latents_prefetched(
+                n_lat // batch, batch, keep_on=None if on_device else "cpu")
 
     def latent_slice(start, stop):
         i0, i1 = start // batch, -(-stop // batch)
         block = torch.cat(latent_chunks[i0:i1], dim=0)
-        return block[start - i0 * batch:stop - i0 * batch]
+        return block[start - i0 * batch:stop - i0 * batch].to(device)
 
     n_blocks = max(1, -(-n_total // nb))
 
@@ -264,22 +392,74 @@ def _compute(config, dump_name: Path,
         print()
         return xb
 
-    canceled = False
-    x_block = None   # the zeros fallback below covers an interrupted sweep
-    try:
-        x_block = run_sweep("Fitting")
-    except KeyboardInterrupt:
+    def interrupted():
+        nonlocal dump_name
         n_fitted = transformer.n_samples_seen_
         dump_name = _partial_dump_name(dump_name, config.n, n_fitted)
         print(f'Saving current state to "{dump_name.name}" before exiting')
-        canceled = True
+        return True
+
+    canceled = False
+    x_block = None   # the zeros fallback below covers an interrupted sweep
+    if fused:
+        # Large blocks (a W block is one mapping, ~ms of GEMMs); small runs
+        # keep >= 8 blocks.  Whole nb_w blocks, then the remainder in NB
+        # blocks on the tail stream: the overshoot stays under one NB block.
+        nb_w = min(int(os.environ.get("GANSPACE_W_STREAM_NB", 65536)),
+                   max(nb, n_total // 8))
+        n_stream_blocks = n_total // nb_w
+        rem = n_total - n_stream_blocks * nb_w
+        n_tail_blocks = -(-rem // nb) if rem else 0
+        print(f"Fitting fused latent stream: {n_stream_blocks} blocks of {nb_w}"
+              + (f" + {n_tail_blocks} of {nb}" if n_tail_blocks else "")
+              + (" (+rand moments)" if rand_dirs is not None else ""), flush=True)
+
+        def w_stream(stream, n):
+            return lambda i: lat_fn(block_generator(seed0, stream, i, device),
+                                    n).reshape(n, -1)
+        try:
+            for stream, n, count in ((STREAM_MAIN, nb_w, n_stream_blocks),
+                                     (STREAM_W_TAIL, nb, n_tail_blocks)):
+                if not transformer.fit_stream(w_stream(stream, n), count,
+                                              rand_dirs=rand_dirs):
+                    raise RuntimeError("fused latent stream unavailable for this "
+                                       "estimator")
+            if transformer.rand_moments() is None:
+                x_block = w_stream(STREAM_MAIN, nb_w)(0)
+        except KeyboardInterrupt:
+            canceled = interrupted()
+            x_block = None
+    elif fused_acts:
+        n_stream_blocks = -(-n_total // batch)
+        print(f"Fitting fused activation stream: {n_stream_blocks} blocks of "
+              f"{batch}" + (" (+regression moments)" if want_reg else ""), flush=True)
+        try:
+            if not transformer.fit_stream(acts_block, n_stream_blocks,
+                                          with_reg=want_reg, rand_dirs=rand_dirs):
+                raise RuntimeError("fused activation stream unavailable for "
+                                   "this estimator")
+            if transformer.rand_moments() is None:
+                x_block = acts_block(0)
+                x_block = x_block[0] if want_reg else x_block
+        except KeyboardInterrupt:
+            # fit_stream refines inside: an interrupt in its second pass falls
+            # back to the completed first pass and its accumulators.
+            transformer.abort_refine()
+            canceled = interrupted()
+            x_block = None
+    else:
+        try:
+            x_block = run_sweep("Fitting")
+        except KeyboardInterrupt:
+            canceled = interrupted()
     stamp("pass1")
 
-    # Sketch-tier refine pass: the latents are kept, so one more sweep buys
+    # Sketch-tier refine sweep of the pre-sampled stream (the fused streams
+    # refine inside fit_stream): the latents are kept, so one more sweep buys
     # a power iteration on the scatter, unless the adaptive policy finds the
     # first-pass sketch resolved (the moments tier never refines).
-    if (not canceled and transformer.should_refine()
-            and transformer.begin_refine()):
+    if (not canceled and not (fused or fused_acts)
+            and transformer.should_refine() and transformer.begin_refine()):
         try:
             run_sweep("Refine pass")
         except KeyboardInterrupt:
@@ -300,10 +480,12 @@ def _compute(config, dump_name: Path,
         x_block = torch.zeros((1, sample_dims), dtype=torch.float32, device=device)
 
     # The components stay on the device for the regression; samples-are-
-    # latents runs take the moments tier's bundle (lat_stdev included).
+    # latents runs take the moments tier's bundle (lat_stdev and the random
+    # baselines included).
+    rand_mom = transformer.rand_moments() if device_rng_used else None
     bundle_stats = None
     if samples_are_latents:
-        bundle = transformer.finish_latent_bundle()
+        bundle = transformer.finish_latent_bundle(rand_moments=rand_mom)
         if bundle is not None:
             x_comp, bundle_stats = bundle
             x_stdev, x_var_ratio = bundle_stats[0], bundle_stats[1]
@@ -316,26 +498,45 @@ def _compute(config, dump_name: Path,
     stamp("finish")
 
     # 'Activations' are latents in the W space: the components are unit
-    # rows there already.  Elsewhere, regress them back to latent space.
+    # rows there already.  Elsewhere, regress them back to latent space,
+    # from the fit stream's cross-moments when they rode it.
+    fused_linreg_used = False
     if samples_are_latents:
         z_comp = x_comp.cpu().numpy()
         z_global_mean = np.array(x_global_mean)
     else:
-        z_comp, z_global_mean = regression(x_comp, x_global_mean, x_stdev,
-                                           inst, config)
+        reg = transformer.reg_moments()
+        if reg is not None:
+            fused_linreg_used = True
+            z_comp, z_global_mean = regression_from_moments(
+                x_comp, x_global_mean, x_stdev, reg)
+        else:
+            z_comp, z_global_mean = regression(x_comp, x_global_mean, x_stdev,
+                                               inst, config)
     stamp("regression")
     z_comp = z_comp / np.maximum(
         np.linalg.norm(z_comp, axis=-1, keepdims=True), 1e-30)
 
-    # Random-direction stdev baselines (reference decomposition.py:310-316)
-    # over the first 5000 rows of the last block, centered by the global
-    # mean; only the [c] stdevs leave the device.
-    random_dirs = torch.as_tensor(random_directions(n_components, sample_dims),
-                                  device=device)
-    n_rand_samples = min(5000, x_block.shape[0])
-    x_data = x_block[:n_rand_samples] - torch.as_tensor(x_global_mean, device=device)
-    x_stdev_random = torch.std(random_dirs @ x_data.T, dim=1,
-                               correction=0).cpu().numpy()
+    # Random-direction stdev baselines (reference decomposition.py:310-316).
+    # From the moments that rode the stream (all n samples; variance is
+    # shift-invariant, so the global-mean centering falls out), else over
+    # the first 5000 rows of the last block, centered by the global mean,
+    # along directions from the stream the samples came from.
+    if bundle_stats is not None and rand_mom is not None:
+        x_stdev_random = bundle_stats[3]
+    elif rand_mom is not None:
+        _, pm2, n_r = rand_mom
+        x_stdev_random = torch.sqrt(torch.clamp(pm2 / n_r, min=0.0)).cpu().numpy()
+    else:
+        random_dirs = (random_directions_device(n_components, sample_dims, device)
+                       if device_rng_used else
+                       torch.as_tensor(random_directions(n_components, sample_dims),
+                                       device=device))
+        n_rand_samples = min(5000, x_block.shape[0])
+        x_data = (x_block[:n_rand_samples]
+                  - torch.as_tensor(x_global_mean, device=device))
+        x_stdev_random = torch.std(random_dirs @ x_data.T, dim=1,
+                                   correction=0).cpu().numpy()
 
     x_comp = x_comp.cpu().numpy().reshape(-1, *sample_shape)
     x_global_mean = np.array(x_global_mean).reshape(sample_shape)
@@ -345,7 +546,7 @@ def _compute(config, dump_name: Path,
     # Latent stdev: ones in Z.  In W, the moments tier's exact full-stream
     # projection stdev when the samples are the W latents, else the
     # reference's estimate over 5000 fresh W samples
-    # (decomposition.py:324-329), drawn after the regression sweep's.
+    # (decomposition.py:324-329) from the host stream.
     lat_stdev = np.ones_like(x_stdev)
     if config.use_w:
         if bundle_stats is not None:
@@ -365,12 +566,13 @@ def _compute(config, dump_name: Path,
               f'"{dump_name.name}" instead', file=sys.stderr)
     os.makedirs(dump_name.parent, exist_ok=True)
     # Provenance sidecar with the JAX package's fields: which RNG stream
-    # produced the samples and which estimator options shaped the result.
+    # produced the samples, whether the regression rode it, and which
+    # estimator options shaped the result.
     meta = json.dumps({
-        "device_rng": False,
+        "device_rng": device_rng_used,
         "dtype": "float32",
         "mesh": None,
-        "fused_linreg": False,
+        "fused_linreg": fused_linreg_used,
         "refine_skipped": getattr(transformer, "refine_skipped", None),
         "refine_stats": getattr(transformer, "refine_stats", None),
         "bf16_pass1": False,
@@ -391,7 +593,7 @@ def _compute(config, dump_name: Path,
           lat_mean=z_global_mean.astype(np.float32),
           lat_stdev=np.asarray(lat_stdev, np.float32),
           var_ratio=np.asarray(x_var_ratio, np.float32),
-          random_stdevs=x_stdev_random.astype(np.float32),
+          random_stdevs=np.asarray(x_stdev_random, np.float32),
           _meta=np.bytes_(meta.encode()))
     os.replace(tmp_name, dump_name)
     stamp("npz")
@@ -470,12 +672,18 @@ def read_meta(data) -> Optional[dict]:
 
 
 def _warn_on_provenance_mismatch(dump_path: Path) -> None:
-    """Flag a cache hit drawn from the device RNG (this port draws on the
-    host): statistically equivalent components, not bit-identical ones."""
+    """Flag a cache hit drawn from the other RNG stream than this run's
+    ``GANSPACE_DEVICE_RNG`` (``decomposition.py:1560-1585``): statistically
+    equivalent components, not bit-identical ones.  Caches without the
+    record (reference exports) are accepted as they are."""
     with np.load(dump_path, allow_pickle=False) as d:
         meta = read_meta(d)
-    if meta and meta.get("device_rng"):
-        print(f"WARNING: {dump_path.name} was computed with device-side RNG; "
-              f"this port draws on the host. Components are statistically "
+    cached = meta.get("device_rng") if meta else None
+    current = _env_on("GANSPACE_DEVICE_RNG")
+    if cached is not None and cached != current:
+        print(f"WARNING: {dump_path.name} was computed with "
+              f"{'device' if cached else 'host'}-side RNG but this run uses "
+              f"{'device' if current else 'host'}-side RNG "
+              f"(GANSPACE_DEVICE_RNG); components are statistically "
               f"equivalent, not bit-identical. Use a fresh output dir for a "
               f"like-for-like cache.")

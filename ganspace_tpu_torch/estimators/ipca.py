@@ -263,13 +263,42 @@ def moments_finish(state: MomentsState, n_components: int):
     return comp, torch.sqrt(evals[:n_components]), var_ratio
 
 
-def moments_finish_bundle(state: MomentsState, n_components: int):
-    """Components plus a [3, c] stats pack: stdev, var_ratio and lat_stdev
-    (the exact full-stream projection stdev of the unit-row components,
-    which in W space is the latent stdev)."""
+def moments_finish_bundle(state: MomentsState, n_components: int, rand=None):
+    """Components plus a [4, c] stats pack: stdev, var_ratio, lat_stdev (the
+    exact full-stream projection stdev of the unit-row components, which in
+    W space is the latent stdev) and the random-direction stdevs from the
+    ``rand`` moments ``(mean, M2, n)`` (zeros without them)."""
     comp, stdev, ratio = moments_finish(state, n_components)
     pv = proj_variance(state, comp)
-    return comp, torch.stack([stdev, ratio, torch.sqrt(torch.clamp(pv, min=0.0))])
+    rstd = (torch.zeros_like(stdev) if rand is None
+            else torch.sqrt(torch.clamp(rand[1] / max(float(rand[2]), 1.0), min=0.0)))
+    return comp, torch.stack([stdev, ratio, torch.sqrt(torch.clamp(pv, min=0.0)), rstd])
+
+
+def rand_update(rand, x: torch.Tensor, dirs: torch.Tensor):
+    """Chan merge of one block's projections ``x @ dirs^T`` into the
+    random-projection moments ``(mean [c], M2 [c], n)``: centered per block,
+    never the raw E[p^2] - E[p]^2."""
+    pm, pm2, cnt = rand
+    p = x @ dirs.T
+    nb = p.shape[0]
+    bm = torch.mean(p, dim=0)
+    bm2 = torch.sum(torch.square(p - bm), dim=0)
+    newc = cnt + nb
+    delta = bm - pm
+    return (pm + delta * (nb / newc),
+            pm2 + bm2 + torch.square(delta) * (cnt * nb / newc), newc)
+
+
+def reg_update_(reg, x: torch.Tensor, z: torch.Tensor):
+    """One block of the regression cross-moments ``(sum x^T z, sum z, n)``,
+    the sums updated in place (the [D, zdim] sum is 256 MB at a
+    full-width conv tap, and a copy of it per block would cost more than
+    its GEMM); returns the tuple with the new count."""
+    xz, zs, n = reg
+    xz.addmm_(x.T, z)
+    zs.add_(torch.sum(z, dim=0))
+    return xz, zs, n + x.shape[0]
 
 
 class IPCAEstimator:
@@ -310,6 +339,11 @@ class IPCAEstimator:
         self._sf_cache = None      # (the y it was computed from, factor)
         self._refined = False
         self._pre_refine = None    # first-pass snapshot while a refine runs
+        #: fit_stream accumulators: regression cross-moments (sum x^T z
+        #: [D, zdim], sum z [zdim], n) and random-projection moments
+        #: (mean [c], M2 [c], n), over the last pass's samples
+        self._reg = None
+        self._rand = None
         #: True when the policy (or an explicit never) skipped the second
         #: pass, False when one ran, None while undecided or off the sketch
         self.refine_skipped: Optional[bool] = None
@@ -406,23 +440,33 @@ class IPCAEstimator:
         if self.refine_skipped is None:
             self.refine_skipped = False   # direct callers bypass the policy
         d, l = self._nystrom.y.shape
-        self._pre_refine = (self._nystrom, self._omega, self.n_samples_seen_)
+        self._pre_refine = (self._nystrom, self._omega, self.n_samples_seen_,
+                            self._reg, self._rand)
         f, e, v, _ = self._sketch_factor_cached()
         self._omega = range_from_factor(f, e, v)
         # drop the whitened [D, l] factor before the second sweep runs
         self._sf_cache = None
         self._nystrom = self._empty_sketch(d, l)
+        # The refine pass re-streams the same samples: its cross-moments and
+        # random moments replace the first pass's instead of adding to them.
+        if self._reg is not None:
+            self._reg = (torch.zeros_like(self._reg[0]), torch.zeros_like(self._reg[1]), 0)
+        if self._rand is not None:
+            self._rand = (torch.zeros_like(self._rand[0]),
+                          torch.zeros_like(self._rand[1]), 0)
         self.n_samples_seen_ = 0
         self._refined = True
         return True
 
     def abort_refine(self) -> None:
         """Undo a refine pass in progress (an interrupt mid-sweep): restore
-        the completed first-pass sketch, which a partial second pass is
-        strictly worse than.  No-op unless ``begin_refine`` armed one."""
+        the completed first-pass sketch and its accumulators, which a partial
+        second pass is strictly worse than.  No-op unless ``begin_refine``
+        armed one."""
         if self._pre_refine is None:
             return
-        self._nystrom, self._omega, self.n_samples_seen_ = self._pre_refine
+        (self._nystrom, self._omega, self.n_samples_seen_, self._reg,
+         self._rand) = self._pre_refine
         self._pre_refine = None
         self._refined = False
         self.refine_skipped = None   # the armed pass never completed
@@ -508,6 +552,90 @@ class IPCAEstimator:
         self.n_samples_seen_ += k * n
         return True
 
+    def fit_stream(self, block_fn, n_blocks: int, *, with_reg: bool = False,
+                   rand_dirs=None) -> bool:
+        """Fit over a regenerable block stream (``ipca.py:780-897``).
+
+        ``block_fn(i)`` returns block ``i``: ``x [nb, D]``, or ``(x, z
+        [nb, zdim])`` with ``with_reg``.  It must depend on ``i`` alone, since
+        the sketch tier's refine pass calls it again.  ``with_reg`` also
+        accumulates the latent regression's raw cross-moments ``sum x^T z``
+        and ``sum z`` (read back by :meth:`reg_moments`); ``rand_dirs``
+        [c, D] the Chan moments of the projections ``x @ rand_dirs^T``
+        (:meth:`rand_moments`).  Only the moments and sketch tiers stream
+        (their updates are associative); the sklearn tier returns False.
+        Each block is one eager update; on the sketch tier the adaptive
+        refine pass follows the main pass."""
+        if n_blocks <= 0:
+            return True
+        first = block_fn(0)        # the shape probe, kept as block 0 of pass 1
+        x, z = first if with_reg else (first, None)
+        nb, d = x.shape
+        if nb < self.n_components:
+            print(f"\nIPCA error: n_samples={nb} < n_components={self.n_components}")
+            return False
+        self._maybe_init_tier(d, torch.as_tensor(x).device)
+        if self._moments is None and self._nystrom is None:
+            return False
+        dev = self._device
+        if with_reg and self._reg is None:
+            self._reg = (torch.zeros((d, z.shape[1]), dtype=torch.float32, device=dev),
+                         torch.zeros((z.shape[1],), dtype=torch.float32, device=dev), 0)
+        if rand_dirs is not None:
+            rand_dirs = torch.as_tensor(rand_dirs, dtype=torch.float32).to(dev)
+            if self._rand is None:
+                zc = torch.zeros((rand_dirs.shape[0],), dtype=torch.float32, device=dev)
+                self._rand = (zc, zc, 0)
+        self._run_stream(block_fn, n_blocks, with_reg, rand_dirs, first)
+        return True
+
+    def _run_stream(self, block_fn, n_blocks, with_reg, rand_dirs, first) -> None:
+        """The main pass, then on the sketch tier the adaptive refine pass
+        over the regenerated stream (``ipca.py:899-964``)."""
+        def on_device(a):
+            return torch.as_tensor(a, dtype=torch.float32).to(self._device)
+
+        def run_pass(first):
+            for i in range(n_blocks):
+                out = block_fn(i) if first is None else first
+                first = None
+                x, z = out if with_reg else (out, None)
+                x = on_device(x)
+                st = (moments_update(self._moments, x) if self._moments is not None
+                      else nystrom_update(self._nystrom, x, self._omega))
+                rand = (rand_update(self._rand, x, rand_dirs) if rand_dirs is not None
+                        else self._rand)
+                # a block lands whole: an interrupt between blocks leaves the
+                # tier, the accumulators and the count consistent.  The
+                # cross-moments update in place, last, right before the
+                # commit; ``begin_refine`` gives the refine pass fresh sums,
+                # so ``abort_refine``'s snapshot is never written.
+                reg = reg_update_(self._reg, x, on_device(z)) if with_reg else self._reg
+                if self._moments is not None:
+                    self._moments, self._reg, self._rand = st, reg, rand
+                else:
+                    self._nystrom, self._reg, self._rand = st, reg, rand
+                self.n_samples_seen_ += x.shape[0]
+
+        run_pass(first)
+        if self._nystrom is not None and self.should_refine() and self.begin_refine():
+            run_pass(None)
+            self._pre_refine = None   # completed: no abort may roll it back
+
+    def reg_moments(self):
+        """``(sum x^T z [D, zdim], sum z [zdim], n)`` over the last completed
+        pass of ``fit_stream(with_reg=True)``, or None."""
+        if self._reg is None or self._reg[2] == 0:
+            return None
+        return self._reg
+
+    def rand_moments(self):
+        """``(mean [c], M2 [c], n)`` of the projections onto ``rand_dirs``
+        over the last completed pass (Var = M2 / n), or None."""
+        if self._rand is None or self._rand[2] == 0:
+            return None
+        return self._rand
+
     def fit(self, x):
         x = np.asarray(x)
         for i in range(0, x.shape[0], self.batch_size):
@@ -553,15 +681,16 @@ class IPCAEstimator:
             raise RuntimeError("IPCAEstimator: no samples fitted yet")
         return (comp if device else comp.cpu().numpy()), stdev, var_ratio
 
-    def finish_latent_bundle(self):
+    def finish_latent_bundle(self, rand_moments=None):
         """Samples-are-latents finish on the moments tier: ``(components
-        [c, D] on the device, stats np [3, c])`` with rows (stdev, var_ratio,
-        lat_stdev); None off the moments tier."""
+        [c, D] on the device, stats np [4, c])`` with rows (stdev, var_ratio,
+        lat_stdev, random_stdevs, zeros unless ``rand_moments`` is given);
+        None off the moments tier."""
         if self._moments is None or self._moments.count == 0.0:
             return None
         self._pre_refine = None
         comp, stats = moments_finish_bundle(self._require_moments(),
-                                            self.n_components)
+                                            self.n_components, rand_moments)
         return comp, stats.cpu().numpy()
 
     def component_spectrum(self) -> Optional[np.ndarray]:

@@ -26,7 +26,8 @@ import torch
 from torch import nn
 
 from ganspace_tpu_torch.imaging import uint8_nhwc
-from ganspace_tpu_torch.sampling import SeedStream, gaussian_latents
+from ganspace_tpu_torch.sampling import (
+    STREAM_MAIN, SeedStream, block_generator, device_gaussian, gaussian_latents)
 
 
 def _match_rank(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -175,15 +176,47 @@ class BaseGenerator(nn.Module, ABC):
         return np.clip(img_np, 0.0, 1.0).squeeze()
 
     @torch.no_grad()
-    def sample_latents_prefetched(self, n_batches: int, batch_size: int):
+    def sample_latents_prefetched(self, n_batches: int, batch_size: int, keep_on=None):
         """``n_batches`` seedless ``sample_latent(batch_size)`` calls: all
         seeds are drawn from ``host_rng`` first, in the same order, so the
-        stream does not depend on later host draws."""
+        stream does not depend on later host draws.  Each batch is mapped on
+        the model's device and then kept on ``keep_on`` (default: there), so
+        with ``keep_on="cpu"`` the device holds one batch at a time."""
         dim = self._gaussian_latent_dim()
         seeds = [self.host_rng.next_seed() for _ in range(n_batches)]
         return [self._latents_from_gaussian(torch.from_numpy(
-                    gaussian_latents(batch_size, dim, s)).to(self.device))
+                    gaussian_latents(batch_size, dim, s)).to(self.device)).to(
+                        keep_on or self.device)
                 for s in seeds]
+
+    # -- device streams (ganspace_tpu/models/base.py:225-274, 313-334) ------
+    def device_latents_fn(self):
+        """``fn(gen, n) -> latents [n, ...]`` in the primary latent space: a
+        gaussian drawn on ``gen`` (a generator on the model's device), then
+        ``_latents_from_gaussian`` (the mapping in W mode).  None when the
+        model has no gaussian latent stream."""
+        dim = self._gaussian_latent_dim()
+        if dim is None:
+            return None
+        return lambda gen, n: self._latents_from_gaussian(device_gaussian(gen, n, dim))
+
+    @torch.no_grad()
+    def sample_latents_device(self, n_batches: int, batch_size: int, seed: int):
+        """The pre-sampled device stream: batch ``i`` is block ``i`` of the
+        main stream under ``seed``, drawn and mapped on the model's device
+        (zero host-to-device latent traffic).  None when the model has no
+        device sampler; the caller then draws on the host."""
+        fn = self.device_latents_fn()
+        if fn is None:
+            return None
+        return [fn(block_generator(seed, STREAM_MAIN, i, self.device), batch_size)
+                for i in range(n_batches)]
+
+    def pure_acts_fn(self, layer_name: str):
+        """``fn(latents) -> activations [n, -1]`` at the tap, with no
+        instrumentation and no edits (the fused activation stream's block),
+        or None when the model has no such path."""
+        return None
 
     # -- instrumentation plumbing ------------------------------------------
     def _instrumentation(self):

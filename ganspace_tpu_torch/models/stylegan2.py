@@ -405,3 +405,17 @@ class StyleGAN2(BaseGenerator):
     def partial_forward(self, x, layer_name: str):
         self._run(x, stop_at=self.resolve_tap(layer_name))
         return None
+
+    def pure_acts_fn(self, layer_name: str):
+        """``fn(latents [n, w_dim]) -> activations [n, -1]`` at the tap:
+        ``synthesize`` with a ``TapState`` that retains only the tap and
+        stops there (kernel B exactly as in ``partial_forward``)."""
+        tap = self.resolve_tap(layer_name)
+
+        @torch.no_grad()
+        def fn(lat):
+            ts = TapState((tap,), None, tap)
+            with ieee_f32():
+                self.synthesize([lat], ts, None)
+            return ts.retained[tap].reshape(lat.shape[0], -1)
+        return fn

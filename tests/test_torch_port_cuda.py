@@ -112,6 +112,66 @@ def test_centered_gram_wide_range_and_deterministic_on_card(gen, n, d):
     assert torch.equal(got, centered_gram(x))
 
 
+@pytest.mark.parametrize("n", [5120, 65536])
+def test_centered_gram_fused_w_blocks_on_card(gen, n):
+    """The fused W stream's blocks (n = 40960 and n = 1M runs): the wrapper
+    launches the kernel at both, and it meets the bar against the plain
+    version with the block mean given, as the moments update passes it."""
+    x = torch.randn(n, 512, generator=gen, device="cuda") * 2.0 + 0.5
+    mu = x.mean(dim=0)
+    launches = centered_gram.launches
+    with ieee_f32():
+        got, ref = centered_gram(x, mu), centered_gram_plain(x, mu)
+    assert centered_gram.launches == launches + 1
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max()) + 1e-4
+    assert torch.equal(got, centered_gram(x, mu))
+
+
+# -- the device streams (Philox on the card) ---------------------------------
+
+def test_philox_blocks_depend_on_their_index_alone(gen):
+    """Block i drawn alone equals block i drawn after blocks 0..i-1; the four
+    streams differ; the draws are standard normal; the baseline directions
+    are unit rows and repeat."""
+    from ganspace_tpu_torch import sampling
+
+    def draw(stream, i):
+        g = sampling.block_generator(1, stream, i, "cuda")
+        assert g.device.type == "cuda"
+        return sampling.device_gaussian(g, 1024, 512)
+    seq = [draw(sampling.STREAM_MAIN, i) for i in range(5)]
+    assert torch.equal(draw(sampling.STREAM_MAIN, 3), seq[3])
+    assert not torch.equal(seq[0], seq[1])
+    for stream in (sampling.STREAM_W_TAIL, sampling.STREAM_LINREG,
+                   sampling.STREAM_RAND_DIRS):
+        assert not torch.equal(draw(stream, 0), seq[0])
+    assert abs(float(seq[0].mean())) < 0.01 and abs(float(seq[0].std()) - 1.0) < 0.01
+    dirs = sampling.random_directions_device(80, 131072, "cuda")
+    assert dirs.device.type == "cuda"
+    assert torch.equal(dirs, sampling.random_directions_device(80, 131072, "cuda"))
+    assert float((dirs.norm(dim=1) - 1.0).abs().max()) < 1e-5
+
+
+def test_device_streams_agree_on_card(gen):
+    """On a small StyleGAN2 on the card, the pre-sampled device stream and
+    the fused activation stream draw the same latents for block i, whatever
+    the number of blocks asked for."""
+    from ganspace_tpu_torch.decomposition import acts_stream_block
+    from ganspace_tpu_torch.models import stylegan2 as sg2
+    cfg = sg2.SG2Config(resolution=32, channels=((4, 64), (8, 64), (16, 32), (32, 32)))
+    model = sg2.StyleGAN2("ffhq", cfg=cfg, params=sg2.init_params(cfg, seed=3),
+                          device="cuda")
+    long, short = (model.sample_latents_device(k, 16, seed=1) for k in (5, 3))
+    assert all(torch.equal(a, b) for a, b in zip(long, short))
+    assert long[0].device.type == "cuda"
+    acts, lat = acts_stream_block(model, "convs.1", 16, seed=1)(4)
+    assert torch.equal(lat, long[4]) and acts.shape[0] == 16
+    # cuDNN's transposed convolution sums in no fixed order: the activations
+    # of a regenerated block agree to rounding, the latents bit for bit
+    again = acts_stream_block(model, "convs.1", 16, seed=1)(4)[0]
+    assert float((again - acts).abs().max() / acts.abs().max()) < 1e-6
+
+
 # -- the sketch tier of the IPCA estimator (plain cuBLAS GEMMs) ---------------
 
 def test_sketch_tier_on_card_matches_cpu(gen):
