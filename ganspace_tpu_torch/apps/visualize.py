@@ -1,17 +1,25 @@
 """Batch visualizer CLI (``ganspace_tpu/apps/visualize.py``, reference ``visualize.py``).
 
 Loads or computes components, then renders per-component summary grids at
-+-sigma, random-direction baseline grids with the PC stdevs, and grids for
-10 random samples, into the reference's output tree
-``out/{model}/{layer}/{est}/{comp,inst,summ}`` under the same filenames as
-the JAX CLI.  Sweep videos (``--video``) and the lightbox gallery pages are
-not ported yet (ROADMAP.md).
++-sigma, random-direction baseline grids with the PC stdevs, grids for 10
+random samples and, with ``--video``, sweep videos (150 frames out and
+back, at sigma and 3 sigma: the first 15 components, and the first 5 for
+each random sample; MP4 through ffmpeg when it is on PATH, GIF otherwise)
+into the reference's output tree ``out/{model}/{layer}/{est}/{comp,inst,summ}``
+under the same filenames as the JAX CLI, with a ``+lightbox.html`` gallery
+page in each directory that holds images.
 
-Usage:
+Usage (the model is built on the card; ``--device cpu`` runs the plain
+PyTorch path):
+    python -m ganspace_tpu_torch.apps.visualize      # StyleGAN ffhq, g_mapping, ipca
+    python -m ganspace_tpu_torch.apps.visualize --model StyleGAN --class bedrooms \
+        --layer g_mapping --est ipca -c 1 --video
+    python -m ganspace_tpu_torch.apps.visualize --model StyleGAN --class ffhq \
+        --layer g_synthesis.blocks.16x16 --est ipca -c 80 -n 50000
     python -m ganspace_tpu_torch.apps.visualize --model StyleGAN2 --class ffhq \
-        --layer style --use_w --est ipca -c 80 -n 300000 [--device cuda]
+        --layer style --use_w --est ipca -c 80 -n 300000
     python -m ganspace_tpu_torch.apps.visualize --model StyleGAN2 --class ffhq \
-        --layer convs.2 --est ipca -c 80 -n 50000 [--device cuda]
+        --layer convs.2 --est ipca -c 80 -n 50000
 
 A conv tap renders activation-mode grids (``*_ACT.jpg``) beside the
 latent-mode ones (``*_Z.jpg`` or ``*_W.jpg``).
@@ -38,10 +46,15 @@ from ganspace_tpu_torch.imaging import pad_frames, to_uint8
 from ganspace_tpu_torch.models import get_instrumented_model
 from ganspace_tpu_torch.sampling import (
     SEED_VISUALIZATION, random_directions, random_directions_device)
+from ganspace_tpu_torch.tools.lightbox import write_lightbox
+from ganspace_tpu_torch.utils.video import make_mp4
 
 #: frames per forward when ``-b`` is not given; a strip has 5 frames, so
 #: every strip renders as one batch
 RENDER_MAX_BATCH = 16
+
+#: frames of one sweep video before it is mirrored (visualize.py:184-200)
+VIDEO_FRAMES = 150
 
 
 def make_grid(inst, layer_key, latent, lat_mean, lat_comp, lat_stdev, act_mean,
@@ -94,11 +107,10 @@ def baseline_directions(meta, device):
 
 def main(args=None):
     """Run the CLI; returns the cache path and the timings: ``fit_seconds``,
-    ``render_seconds``, ``images`` rendered and, when the components were
-    computed, the fit's ``phases`` (seconds by phase)."""
+    ``render_seconds``, ``images`` rendered (video frames included), the
+    ``videos`` written and, when the components were computed, the fit's
+    ``phases`` (seconds by phase)."""
     args = args if isinstance(args, Config) else Config().from_args(args)
-    if args.make_video:
-        raise NotImplementedError("--video is not ported yet (ROADMAP.md)")
     device = require_device(args.device)
     t_start = datetime.datetime.now()
     timestamp = lambda: datetime.datetime.now().strftime("%d.%m %H:%M")  # noqa: E731
@@ -177,9 +189,28 @@ def main(args=None):
         n_images += sum(len(r) for r in rows)
         save_grid_image(rows, outdir_summ / f"{name}_{get_edit_name(edit_mode)}.jpg")
 
+    videos = []
+
+    def video(edit_mode, latent, c, sigma, outpath):
+        """One sweep of component ``c``, out and back."""
+        nonlocal n_images
+        rows = make_grid(inst, layer_key, latent, t.Z_global_mean, t.Z_comp[c:c + 1],
+                         t.Z_stdev[c:c + 1], t.X_global_mean, t.X_comp[c:c + 1],
+                         t.X_stdev[c:c + 1], n_rows=1, n_cols=VIDEO_FRAMES, scale=sigma,
+                         edit_type=edit_mode, max_batch=max_batch)
+        n_images += len(rows[0])
+        videos.append(make_mp4(rows[0] + rows[0][::-1], 5, outpath))
+
     # Summary grid, real components
     for edit_mode in edit_modes:
         grid(edit_mode, t.Z_global_mean, t.Z_comp, t.X_comp, "components")
+
+    if args.make_video:
+        for sigma in [args.sigma, 3 * args.sigma]:
+            for c in range(min(15, n_comp)):
+                for edit_mode in edit_modes:
+                    video(edit_mode, t.Z_global_mean, c, sigma, outdir_comp /
+                          f"{get_edit_name(edit_mode)}_sigma{sigma}_comp{c}.mp4")
 
     # Summary grid, random directions with the PC stdevs (visualize.py:268-279),
     # from the stream the decomposition's random_stdevs used.
@@ -196,12 +227,24 @@ def main(args=None):
         z = latents[img_idx][None, ...]
         for edit_mode in edit_modes:
             grid(edit_mode, z, t.Z_comp, t.X_comp, f"samp{img_idx}_real")
+        if args.make_video:
+            for sigma in [args.sigma, 3 * args.sigma]:
+                for edit_mode in edit_modes:
+                    for c in range(min(5, n_comp)):
+                        video(edit_mode, z, c, sigma, outdir_inst /
+                              f"{get_edit_name(edit_mode)}_sigma{sigma}_"
+                              f"img{img_idx}_comp{c}.mp4")
+
+    # A browsable gallery page per output directory (visualize.py:258-264).
+    for d in (outdir_comp, outdir_inst, outdir_summ):
+        if any(p.suffix.lower() in (".jpg", ".png", ".gif") for p in d.iterdir()):
+            write_lightbox(d, title=f"{model.name}/{layer_key}/{est_id} {d.name}")
 
     render_seconds = time.perf_counter() - t_render
     print("Done in", datetime.datetime.now() - t_start)
     return SimpleNamespace(cache=dump_name, fit_seconds=fit_seconds,
                            render_seconds=render_seconds, images=n_images,
-                           phases=phases)
+                           videos=videos, phases=phases)
 
 
 if __name__ == "__main__":

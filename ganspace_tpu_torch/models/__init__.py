@@ -1,22 +1,26 @@
 """Model registry and instrumented-model factory
 (``ganspace_tpu/models/__init__.py``, reference ``models/wrappers.py:651-735``).
 
-StyleGAN2 is the only family ported so far; custom generators can be
-registered under any name.
+StyleGAN and StyleGAN2 are the families ported so far; custom generators
+can be registered under any name.  Every entry point builds its model on
+the card unless ``device`` names another device; it never falls back to
+the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ganspace_tpu_torch import require_device
 from ganspace_tpu_torch.config import Config
 from ganspace_tpu_torch.models.base import BaseGenerator, InstrumentedModel
+from ganspace_tpu_torch.models.stylegan import StyleGAN
 from ganspace_tpu_torch.models.stylegan2 import StyleGAN2
 
 #: user-registered model factories: name -> callable(output_class, device=, **kwargs)
 _CUSTOM_MODELS = {}
 
-_NOT_PORTED = ("StyleGAN", "ProGAN", "DCGAN")
+_NOT_PORTED = ("ProGAN", "DCGAN")
 
 
 def register_model(name: str, factory) -> None:
@@ -26,19 +30,28 @@ def register_model(name: str, factory) -> None:
     _CUSTOM_MODELS[name] = factory
 
 
-def get_model(name, output_class=None, device="cpu", **kwargs) -> BaseGenerator:
-    """Name -> generator on ``device`` (reference ``wrappers.py:652-684``).
-    A ``Config`` may be passed as the first argument."""
+def _only(kwargs, keys):
+    return {k: v for k, v in kwargs.items() if k in keys}
+
+
+def get_model(name, output_class=None, device="cuda", **kwargs) -> BaseGenerator:
+    """Name -> generator on ``device`` (reference ``wrappers.py:652-684``),
+    resolved by :func:`require_device`.  A ``Config`` may be passed as the
+    first argument."""
     if isinstance(name, Config):
         cfg = name
         kwargs.setdefault("use_w", cfg.use_w)
         return get_model(cfg.model, cfg.output_class, cfg.device, **kwargs)
+    device = require_device(device)
     if name in _CUSTOM_MODELS:
         return _CUSTOM_MODELS[name](output_class, device=device, **kwargs)
+    if name == "StyleGAN":
+        return StyleGAN(class_name=output_class, device=device,
+                        **_only(kwargs, ("truncation", "use_w", "cfg", "params", "init_seed")))
     if name == "StyleGAN2":
-        keys = ("truncation", "use_w", "cfg", "params", "latent_avg", "init_seed")
         return StyleGAN2(class_name=output_class, device=device,
-                         **{k: v for k, v in kwargs.items() if k in keys})
+                         **_only(kwargs, ("truncation", "use_w", "cfg", "params",
+                                          "latent_avg", "init_seed")))
     if name in _NOT_PORTED or "BigGAN" in name:
         raise NotImplementedError(
             f"model {name!r} is not ported yet (ROADMAP.md, queue 1: the other generator families)")
@@ -59,7 +72,7 @@ def annotate_model_shapes(inst: InstrumentedModel, layers) -> InstrumentedModel:
     return inst
 
 
-def get_instrumented_model(name, output_class=None, layers=None, device="cpu",
+def get_instrumented_model(name, output_class=None, layers=None, device="cuda",
                            **kwargs) -> InstrumentedModel:
     """Build, wrap, validate and shape-annotate (reference ``wrappers.py:693-735``)."""
     if isinstance(name, Config):
@@ -92,5 +105,6 @@ __all__ = [
     "annotate_model_shapes",
     "BaseGenerator",
     "InstrumentedModel",
+    "StyleGAN",
     "StyleGAN2",
 ]

@@ -14,8 +14,8 @@ The module tree follows the rosinality checkpoint layout, so its
 :meth:`StyleGAN2.params_from_jax` loads one without renaming.  Synthesis
 runs NCHW at every stage; the JAX package's space-to-depth tail
 (``ops/s2d.py``) exists only for TPU lanes and is not ported.  Every
-non-upsampling 3x3 StyledConv goes through the CUDA kernel of
-``ops/modconv.py``.
+non-upsampling 3x3 StyledConv goes through kernel B's modulated mode and
+every upsampling one through its stride-2 mode (``ops/modconv.py``).
 """
 
 from __future__ import annotations
@@ -28,9 +28,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from ganspace_tpu_torch import require_device
 from ganspace_tpu_torch.models.base import BaseGenerator, TapState
 from ganspace_tpu_torch.ops.linear import equal_linear, fused_leaky_relu, pixel_norm
-from ganspace_tpu_torch.ops.modconv import modulated_conv2d
+from ganspace_tpu_torch.ops.modconv import PhaseWeights, modulated_conv2d
 from ganspace_tpu_torch.ops.precision import ieee_f32
 from ganspace_tpu_torch.ops.upfirdn import make_fir_kernel, upsample2x
 from ganspace_tpu_torch.sampling import gaussian_latents
@@ -185,11 +186,13 @@ class StyledConv(nn.Module):
         self.noise = NoiseInjection()
         self.activate = FusedLeakyReLU(out_ch)
         self.upsample = upsample
+        self.phase_cache = PhaseWeights(self.conv.weight) if upsample else None
 
     def forward(self, name: str, x, w_lat, noise, blur_k, ts: TapState):
         s = self.conv.modulation(w_lat)
         x = modulated_conv2d(x, self.conv.weight, s, demodulate=True,
-                             upsample=self.upsample, blur_kernel=blur_k)
+                             upsample=self.upsample, blur_kernel=blur_k,
+                             phase_cache=self.phase_cache)
         x = ts.tap(f"{name}.conv", x)
         if ts.stopped:
             return x
@@ -225,14 +228,16 @@ class ConstantInput(nn.Module):
 
 class StyleGAN2(BaseGenerator):
     """Drop-in equivalent of the reference ``StyleGAN2`` wrapper
-    (``models/wrappers.py:97-267``) on one torch device."""
+    (``models/wrappers.py:97-267``) on one torch device, the card unless
+    ``device`` says otherwise."""
 
     def __init__(self, class_name: Optional[str] = None, truncation: float = 1.0,
                  use_w: bool = False, cfg: Optional[SG2Config] = None,
                  params: Optional[Dict[str, np.ndarray]] = None,
                  latent_avg: Optional[np.ndarray] = None, init_seed: int = 0,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__("StyleGAN2", class_name or "ffhq")
+        device = require_device(device)
         if cfg is None:
             if self.outclass not in CONFIGS:
                 raise ValueError(

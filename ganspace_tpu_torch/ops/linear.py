@@ -19,10 +19,12 @@ def pixel_norm(x: torch.Tensor) -> torch.Tensor:
 
 
 def equal_linear(x: torch.Tensor, weight: torch.Tensor,
-                 bias: torch.Tensor | None = None, *, lr_mul: float = 1.0) -> torch.Tensor:
-    """y = x @ (weight * lr_mul / sqrt(fan_in)).T + bias * lr_mul: StyleGAN2's
-    ``EqualLinear`` (the JAX package's ``equal_linear`` with ``gain=1``)."""
-    y = F.linear(x, weight * (lr_mul * weight.shape[1] ** -0.5))
+                 bias: torch.Tensor | None = None, *, lr_mul: float = 1.0,
+                 gain: float = 1.0) -> torch.Tensor:
+    """y = x @ (weight * gain * lr_mul / sqrt(fan_in)).T + bias * lr_mul: the
+    JAX package's ``equal_linear``; ``gain=1`` is StyleGAN2's ``EqualLinear``
+    and StyleGAN's StyleMod, ``sqrt(2)`` StyleGAN's mapping layers."""
+    y = F.linear(x, weight * (gain * weight.shape[1] ** -0.5 * lr_mul))
     if bias is not None:
         y = y + bias * lr_mul
     return y

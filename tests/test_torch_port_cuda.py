@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from ganspace_tpu_torch.ops.modconv import (
-    demodulation, modconv3x3, modconv3x3_plain, modulated_conv2d)
+    conv3x3, conv3x3_plain, demodulation, modconv3x3, modconv3x3_plain, modulated_conv2d,
+    upsample_conv, upsample_conv_plain)
 from ganspace_tpu_torch.ops.moments import centered_gram, centered_gram_plain
 from ganspace_tpu_torch.ops.precision import ieee_f32
 
@@ -62,6 +63,50 @@ def test_modconv3x3_on_card(gen, b, c, co, h, w):
             got, ref = modconv3x3(x, wt, s, d), modconv3x3_plain(x, wt, s, d)
             assert float((got - ref).abs().max() / ref.abs().max()) < 1e-5
     assert modconv3x3.launches == launches + 2
+
+
+# StyleGAN-1024's ten 3x3 shapes (4 px to 1024 px, 512 to 16 channels) at
+# batch 2, plus ragged ones: Co <= 16 takes the 16-channel tile
+SG1_SHAPES = [(2, c, co, r, r) for c, co, r in [
+    (512, 512, 4), (512, 512, 8), (512, 512, 16), (512, 512, 32), (512, 256, 64),
+    (256, 256, 64), (128, 128, 128), (64, 64, 256), (32, 32, 512), (16, 16, 1024)]]
+
+
+@pytest.mark.parametrize("b,c,co,h,w", SG1_SHAPES + [(3, 20, 16, 9, 13), (2, 16, 7, 5, 5)])
+def test_conv3x3_plain_mode_on_card(gen, b, c, co, h, w):
+    x = torch.randn(b, c, h, w, generator=gen, device="cuda")
+    wt = torch.randn(co, c, 3, 3, generator=gen, device="cuda") / (9 * c) ** 0.5
+    launches = conv3x3.launches
+    with ieee_f32():
+        got, ref = conv3x3(x, wt), conv3x3_plain(x, wt)
+        assert float((got - ref).abs().max() / ref.abs().max()) < 1e-5
+        assert torch.equal(got, conv3x3(x, wt))
+    assert conv3x3.launches == launches + 2
+
+
+# (b, c, co, h, w, k, pad): StyleGAN2's tap and render upsampling convs
+# (k = 3, pad 0), StyleGAN's fused conv0_up (k = 4, pad 1), and ragged ones
+UP_SHAPES = [(8, 512, 512, 4, 4, 3, 0), (8, 512, 512, 8, 8, 3, 0),
+             (2, 256, 128, 64, 64, 3, 0), (2, 64, 32, 256, 256, 3, 0),
+             (2, 256, 128, 64, 64, 4, 1), (2, 32, 16, 512, 512, 4, 1),
+             (3, 20, 24, 5, 7, 3, 0), (2, 12, 16, 6, 3, 4, 1), (1, 8, 3, 9, 9, 3, 0)]
+
+
+@pytest.mark.parametrize("b,c,co,h,w,k,pad", UP_SHAPES)
+def test_upsample_conv_on_card(gen, b, c, co, h, w, k, pad):
+    x = torch.randn(b, c, h, w, generator=gen, device="cuda")
+    wt = torch.randn(co, c, k, k, generator=gen, device="cuda") / (k * k * c) ** 0.5
+    s = 10.0 ** (2.0 * torch.rand(b, c, generator=gen, device="cuda") - 1.0)
+    launches = upsample_conv.launches
+    with ieee_f32():
+        for ss, d in ((s, demodulation(wt, s)), (None, None)):
+            got = upsample_conv(x, wt, ss, d, pad=pad)
+            ref = upsample_conv_plain(x, wt, ss, d, pad=pad)
+            assert got.shape == ref.shape == (b, co, 2 * h + k - 2 - 2 * pad,
+                                              2 * w + k - 2 - 2 * pad)
+            assert float((got - ref).abs().max() / ref.abs().max()) < 1e-5
+            assert torch.equal(got, upsample_conv(x, wt, ss, d, pad=pad))
+    assert upsample_conv.launches == launches + 4          # the four phases, one grid
 
 
 def test_cuda_operands_never_fall_back(gen):
@@ -166,10 +211,10 @@ def test_device_streams_agree_on_card(gen):
     assert long[0].device.type == "cuda"
     acts, lat = acts_stream_block(model, "convs.1", 16, seed=1)(4)
     assert torch.equal(lat, long[4]) and acts.shape[0] == 16
-    # cuDNN's transposed convolution sums in no fixed order: the activations
-    # of a regenerated block agree to rounding, the latents bit for bit
+    # every kernel of the tap forward sums in a fixed order: a regenerated
+    # block repeats its activations bit for bit
     again = acts_stream_block(model, "convs.1", 16, seed=1)(4)[0]
-    assert float((again - acts).abs().max() / acts.abs().max()) < 1e-6
+    assert torch.equal(again, acts)
 
 
 # -- the sketch tier of the IPCA estimator (plain cuBLAS GEMMs) ---------------

@@ -23,10 +23,15 @@ MODULES = [
     "ganspace_tpu_torch.estimators.ipca",
     "ganspace_tpu_torch.models",
     "ganspace_tpu_torch.models.base",
+    "ganspace_tpu_torch.models.stylegan",
     "ganspace_tpu_torch.models.stylegan2",
     "ganspace_tpu_torch.decomposition",
     "ganspace_tpu_torch.edit",
     "ganspace_tpu_torch.apps.visualize",
+    "ganspace_tpu_torch.utils",
+    "ganspace_tpu_torch.utils.video",
+    "ganspace_tpu_torch.tools",
+    "ganspace_tpu_torch.tools.lightbox",
 ]
 
 

@@ -163,7 +163,8 @@ def test_block_depends_on_its_index_alone():
     # the pre-sampled device stream and the fused stream draw the same
     # latents for block i, whatever the number of blocks asked for
     cfg = torch_sg2.SG2Config(resolution=32, channels=CHANNELS)
-    model = torch_sg2.StyleGAN2("ffhq", cfg=cfg, params=torch_sg2.init_params(cfg, seed=3))
+    model = torch_sg2.StyleGAN2("ffhq", cfg=cfg, params=torch_sg2.init_params(cfg, seed=3),
+                                device="cpu")
     long, short = (model.sample_latents_device(k, 16, seed=1) for k in (5, 3))
     assert all(torch.equal(a, b) for a, b in zip(long, short))
     _, lat = acts_stream_block(model, "convs.1", 16, seed=1)(4)
@@ -259,7 +260,7 @@ def test_fused_refine_interrupt_saves_the_first_pass_under_partial(tmp_path, mon
     def run(out, refine):
         monkeypatch.setenv("GANSPACE_OUTPUT_DIR", str(tmp_path / out))
         monkeypatch.setenv("GANSPACE_IPCA_REFINE", refine)
-        model = torch_sg2.StyleGAN2("ffhq", cfg=cfg, params=params)
+        model = torch_sg2.StyleGAN2("ffhq", cfg=cfg, params=params, device="cpu")
         with contextlib.redirect_stdout(io.StringIO()):
             return get_or_compute(Config(**kw), InstrumentedModel(model))
 

@@ -131,7 +131,7 @@ def test_truncation_toward_latent_avg():
     port = torch_sg2.StyleGAN2("ffhq", cfg=torch_sg2.SG2Config(resolution=64,
                                                               channels=CHANNELS),
                                params=params, truncation=0.6, latent_avg=avg,
-                               use_w=True)
+                               use_w=True, device="cpu")
     w = np.random.RandomState(25).randn(2, 512).astype(np.float32)
     ref = np.asarray(jax_model.forward(w))
     got = port.forward(torch.from_numpy(w)).numpy()
