@@ -21,18 +21,24 @@ Phases, each of which raises on failure:
    stride-2 mode at StyleGAN2's tap and render upsampling shapes and
    StyleGAN's fused ``conv0_up`` shapes at the render's and the video's
    batches, beside cuDNN's transposed convolution (default and
-   deterministic).  Every case repeats bit for bit.  The lists are built
+   deterministic), after its wgmma step alone on one 64 x N x 32 tile.  Every case repeats bit for bit.  The lists are built
    from the paths' own batches and configurations;
-6. the W path in the default environment (device RNG, the fused W stream):
+6. a full-width StyleGAN2-FFHQ-1024 checkpoint in the reference's rosinality
+   format, written from a seeded init into a temporary
+   ``$GANCONTROL_CHECKPOINT_DIR`` and built on the card through
+   ``get_instrumented_model``: the loaded weights equal the file's, and its
+   images equal bit for bit those of the same model built from the params
+   in memory;
+7. the W path in the default environment (device RNG, the fused W stream):
    ``visualize --model StyleGAN2 --class ffhq --use_w --layer style --est
    ipca -c 80 -n 40960`` on the full-width FFHQ-1024 generator (seeded
    random weights), with its launch counts, its cache and its grids checked;
-7. the W fit alone at ``-n 1000000`` (15 blocks of 65536 and 4 of 4096);
-8. the host-RNG W fit (``GANSPACE_DEVICE_RNG=0``) at ``-n 40960``, under
+8. the W fit alone at ``-n 1000000`` (15 blocks of 65536 and 4 of 4096);
+9. the host-RNG W fit (``GANSPACE_DEVICE_RNG=0``) at ``-n 40960``, under
    seed 1 and seed 7: the statistical gate holds the device stream's
    components against the host stream's, judged by the host seed-1-vs-7
    control;
-9. the conv-tap path in the default environment: ``visualize --model
+10. the conv-tap path in the default environment: ``visualize --model
    StyleGAN2 --class ffhq --layer convs.2 --est ipca -c 80 -n 50000`` in Z
    space (D = 512 * 16 * 16 = 131072; the fused activation stream of 390
    blocks of 128 with the sketch tier's refine pass, the regression's and
@@ -41,13 +47,13 @@ Phases, each of which raises on failure:
    its grids checked; then the fused-regression gate: the same 390 blocks
    regenerated, the explicit normal equations solved against the run's
    components, block 0 drawn again equal bit for bit;
-10. the conv-tap fit alone at ``-n 20000``: the pre-sampled device stream
+11. the conv-tap fit alone at ``-n 20000``: the pre-sampled device stream
    with the regression sweep, the fused activation stream forced below its
    threshold (``GANSPACE_FUSED_ACTS=1``, timed against it) twice, its two
    caches equal bit for bit, then the host-RNG one under seed 1 and seed 7,
    with the fused stream's components beside the seed control (reported,
    not gated);
-11. StyleGAN (v1), the CLI's default model, at full FFHQ-1024 width: the
+12. StyleGAN (v1), the CLI's default model, at full FFHQ-1024 width: the
    default command ``visualize --model StyleGAN --class ffhq --layer
    g_mapping --est ipca -c 80`` at the default n = 300000 (the fused
    activation stream into the moments tier; 24 grids through kernel B's
@@ -57,20 +63,20 @@ Phases, each of which raises on failure:
    ``g_synthesis.blocks.16x16`` at n = 50000 (the sketch tier); ``--video``
    on the real 256-px config (bedrooms) at -c 1, cut from 1024 px and 15
    components (~20k frames), through ffmpeg or, without it, GIF;
-12. one fit block of the pre-sampled conv-tap path and 16 blocks of the
+13. one fit block of the pre-sampled conv-tap path and 16 blocks of the
    fused activation stream under ``torch.profiler`` (device time by kernel,
    busy share of the wall time), then the sketch tier on the card against exact
    PCA: a rank-2048 stream at D = 131072 with a slowly decaying spectrum,
    whose exact sample PCA is a 2048-dimensional float64 problem; the
    single-pass sketch must miss the bar there and the refined one pass it;
-13. the sketch tier on the card against the same stream and Omega on the
+14. the sketch tier on the card against the same stream and Omega on the
    CPU (D = 32768);
-14. one 1024-px image, one batch of ``convs.2`` activations and the latent
+15. one 1024-px image, one batch of ``convs.2`` activations and the latent
    regression (``linreg_lstsq`` on the host-RNG conv-tap fit's components)
    through the card (kernels) against the same model on the CPU (plain
    versions); then one 1024-px StyleGAN image and one batch of
    ``blocks.16x16`` activations the same way;
-15. every kernel shape launched over the run (recorded in front of the
+16. every kernel shape launched over the run (recorded in front of the
    kernel library) that phase 5 did not cover, such as the fits' batch-1
    probes, held against its plain version by the same bars.
 
@@ -286,6 +292,8 @@ GRAM_ABS, GRAM_REL = 1e-4, 1e-5         # max|d| <= 1e-5 max|ref| + 1e-4
 CONV_REL = 1e-5                         # max|d| / max|ref|
 TILE_REL = 1e-6                         # one 16x8x8 step against float64
 IMAGE_REL = 1e-3                        # 1024 px, 18 layers deep (fullres bar)
+# the checkpoint phase: a seed other than the default init's, a small batch
+CKPT_SEED, CKPT_BATCH = 5, 4
 # H100 SXM published peaks at 700 W (NVIDIA H100 datasheet)
 PEAK_3XTF32 = 495e12 / 3                # TF32 tensor cores, three passes
 PEAK_FFMA = 67e12                       # float32 outside the tensor cores
@@ -366,6 +374,21 @@ def check_tile(gen: torch.Generator) -> None:
     log(f"tf32x3 tile 16x8x8 against float64: rel {rel:.3e} (bar {TILE_REL:.0e})")
     if not rel < TILE_REL:
         raise AssertionError(f"3xTF32 tile: rel err {rel} >= {TILE_REL}")
+
+
+def check_wgmma_tile(gen: torch.Generator) -> None:
+    """The stride-2 kernel's 3xTF32 wgmma step alone: A's register
+    fragments, B's swizzled image and descriptor, the accumulator layout."""
+    from ganspace_tpu_torch.ops.tf32x3 import wgmma_tile_3xtf32
+    for n in (144, 128):
+        a = torch.randn(64, 32, generator=gen, device="cuda")
+        b = torch.randn(n, 32, generator=gen, device="cuda")
+        got = wgmma_tile_3xtf32(a, b).double()
+        ref = a.double() @ b.double().T
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        log(f"wgmma 3xTF32 tile 64x{n}x32 against float64: rel {rel:.3e} (bar {TILE_REL:.0e})")
+        if not rel < TILE_REL:
+            raise AssertionError(f"wgmma tile n={n}: rel err {rel} >= {TILE_REL}")
 
 
 def gram_bar(ref: torch.Tensor) -> float:
@@ -591,12 +614,14 @@ def check_conv3x3(gen: torch.Generator) -> dict:
 
 
 def up_flop(case) -> float:
-    """2 * C * Co per tap that meets an input pixel, over the four phases."""
-    from ganspace_tpu_torch.ops.modconv import upsample_phases
+    """2 * C * Co per (input pixel, tap) whose output lands in the image: the
+    work the inputs need (the taps that cross the crop of padding 1 are not
+    counted, nor any zero-inserted or zero-padded input)."""
     b, c, co, h, w, k, pad, _ = case
-    taps = sum(len(uy) * len(ux) * oh * ow
-               for _, _, uy, ux, _, _, oh, ow in upsample_phases(k, pad, h, w))
-    return 2.0 * b * c * co * taps
+    def axis(n):
+        size = 2 * n + k - 2 - 2 * pad
+        return sum(0 <= 2 * i + u - pad < size for i in range(n) for u in range(k))
+    return 2.0 * b * c * co * axis(h) * axis(w)
 
 
 def up_inputs(gen: torch.Generator, case):
@@ -616,11 +641,11 @@ def check_upsample_conv(gen: torch.Generator) -> dict:
     conv on the scaled input) at every upsampling shape of the paths, each
     repeated bit for bit; beside it cuDNN's transposed conv, its default
     algorithm and its deterministic one (the price of repeatable bits
-    without this kernel).  The kernel is timed with its phase weights kept,
-    as a layer keeps them (``PhaseWeights``)."""
+    without this kernel).  The kernel is timed with its split weight kept,
+    as a layer keeps it (``UpsampleWeights``)."""
     import torch.nn.functional as F
     from ganspace_tpu_torch.ops.modconv import (
-        PhaseWeights, upsample_conv, upsample_conv_plain)
+        UpsampleWeights, upsample_conv, upsample_conv_plain)
     out, worst = {}, 0.0
     for group, cases in UP_CASES.items():
         rows = []
@@ -642,7 +667,7 @@ def check_upsample_conv(gen: torch.Generator) -> dict:
             ho = 2 * h + k - 2 - 2 * pad
             nbytes = 4.0 * (b * c * h * w + co * c * k * k + b * co * ho * ho
                             + ((b * c + b * co) if modulated else 0))
-            cache = PhaseWeights(wt)        # as a layer keeps its gathered taps
+            cache = UpsampleWeights(wt)     # as a layer keeps its split weight
             row = timed(median_ms(lambda: upsample_conv(x, wt, s, d, pad=pad, cache=cache)),
                         median_ms(lambda: upsample_conv_plain(x, wt, s, d, pad=pad)),
                         median_ms(cudnn), bound(up_flop(case), nbytes))
@@ -666,8 +691,8 @@ def check_upsample_conv(gen: torch.Generator) -> dict:
             f"{t['plain_ms']:.4f} ms, cuDNN {t['library_ms']:.4f} ms, cuDNN deterministic "
             f"{t['library_det_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
             f"share {t['bound_share']:.3f}")
-    # the JSON row: this slice's main path, StyleGAN's four fused shapes
-    return {"max_abs_err": worst, **out["sg1_fused"], "groups": out}
+    # the JSON row: the conv-tap path's shapes, where the mode spends most
+    return {"max_abs_err": worst, **out["sg2_tap"], "groups": out}
 
 
 def conv_tap_launches(refined: bool, fused_blocks: int, cli: bool,
@@ -732,13 +757,12 @@ class LaunchRecorder:
         self.seen.add(("modconv3x3" if s else "conv3x3", b, c, co, h, w, dmod is not None))
         return self.lib.ganspace_modconv3x3(x, wt, s, dmod, y, b, c, h, w, co, stream)
 
-    def ganspace_upsample_conv(self, x, wt, s, dmod, y, table, n, b, c, h, w, co, yh, yw,
+    def ganspace_upsample_conv(self, x, wimg, s, dmod, y, tiling, b, c, h, w, co, k, pad,
                                stream):
-        k, pad = (3, 0) if yh == 2 * h + 1 else (4, 1)
         self.seen.add(("upsample_conv", b, c, co, h, w, k, pad, s is not None,
                        dmod is not None))
-        return self.lib.ganspace_upsample_conv(x, wt, s, dmod, y, table, n, b, c, h, w, co,
-                                               yh, yw, stream)
+        return self.lib.ganspace_upsample_conv(x, wimg, s, dmod, y, tiling, b, c, h, w, co, k,
+                                               pad, stream)
 
 
 def record_launches() -> LaunchRecorder:
@@ -1498,6 +1522,62 @@ def check_sketch_vs_cpu() -> None:
         raise AssertionError(f"sketch tier card vs CPU: min |cos| {cos}")
 
 
+def check_checkpoint_load(gpu: str) -> dict:
+    """A full-width StyleGAN2-FFHQ-1024 checkpoint in the reference's
+    rosinality format (seeded init at CKPT_SEED, not the default's seed;
+    grouped-conv leading dim, noise and blur buffers, a non-zero
+    ``latent_avg``) in a temporary ``$GANCONTROL_CHECKPOINT_DIR``: the model
+    that ``get_instrumented_model`` builds on the card holds the file's
+    weights, and at truncation 0.7 its images equal, bit for bit, those of
+    the same model built from the params in memory.  Returns its launches."""
+    from ganspace_tpu_torch.models import get_instrumented_model, get_model
+    from ganspace_tpu_torch.models.stylegan2 import SG2Config, init_params
+    params = init_params(SG2Config(), seed=CKPT_SEED)
+    latent_avg = (0.5 * np.random.RandomState(CKPT_SEED).randn(512)).astype(np.float32)
+    state = {k: torch.from_numpy(v)[None] if k.endswith(".conv.weight") else
+             torch.from_numpy(v) for k, v in params.items()}
+    state["convs.0.conv.blur.kernel"] = torch.ones(4, 4)
+    state["noises.noise_0"] = torch.zeros(1, 1, 4, 4)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        Path(root, "stylegan2").mkdir()
+        path = Path(root, "stylegan2", "stylegan2_ffhq_1024.pt")
+        torch.save({"g_ema": state, "latent_avg": torch.from_numpy(latent_avg)}, path)
+        mib = path.stat().st_size / 2 ** 20
+        with environ(GANCONTROL_CHECKPOINT_DIR=root):
+            torch.cuda.synchronize()
+            reset_launches()
+            inst = get_instrumented_model("StyleGAN2", "ffhq", "convs.2", torch.device("cuda"),
+                                          truncation=0.7)
+    load_s = time.perf_counter() - t0
+    model = inst.model
+    loaded = model.state_dict()
+    if set(loaded) != set(params):
+        raise AssertionError("checkpoint: the loaded keys differ from the file's")
+    for k, v in params.items():
+        if not torch.equal(loaded[k].cpu(), torch.from_numpy(v)):
+            raise AssertionError(f"checkpoint: {k} differs from the file's")
+    if not torch.equal(model.latent_avg.cpu(), torch.from_numpy(latent_avg)):
+        raise AssertionError("checkpoint: latent_avg differs from the file's")
+    ref = get_model("StyleGAN2", "ffhq", torch.device("cuda"), params=params,
+                    latent_avg=latent_avg, truncation=0.7)
+    z = model.sample_latent(CKPT_BATCH, seed=3)
+    img, want = model.forward(z), ref.forward(z)
+    launches = read_launches()
+    if not (torch.isfinite(img).all() and img.shape == (CKPT_BATCH, 3, 1024, 1024)):
+        raise AssertionError(f"checkpoint: image {tuple(img.shape)} or non-finite")
+    if not torch.equal(img, want):
+        raise AssertionError("checkpoint: images differ from the in-memory model's")
+    # the shape annotation's convs.2 tap forward, then two full forwards
+    expect_launches(launches, "checkpoint", modconv3x3=2 + 2 * 9, upsample_conv=2 + 2 * 8)
+    log(f"checkpoint: a {mib:.1f} MiB rosinality .pt at full FFHQ-1024 width (seed "
+        f"{CKPT_SEED}) loaded through get_instrumented_model in {load_s:.2f} s: every "
+        f"weight and latent_avg equal to the file's; {CKPT_BATCH} images at truncation 0.7 "
+        f"equal bit for bit to the in-memory model's; launches {launches} [{gpu}]")
+    del inst, model, ref
+    return launches
+
+
 def check_vs_cpu(conv_npz: dict, gen_seed: int = 7) -> None:
     """One W through the full-width generator on the card and on the CPU,
     then a batch of Z to the ``convs.2`` tap, then the latent regression of
@@ -1574,6 +1654,7 @@ def main() -> int:
     t_start = time.perf_counter()
     with ieee_f32():
         check_tile(gen)
+        check_wgmma_tile(gen)
         gram = check_centered_gram(gen)
         conv = check_modconv3x3(gen)
         plain = check_conv3x3(gen)
@@ -1581,6 +1662,8 @@ def main() -> int:
     log(f"kernel checks wall time: {time.perf_counter() - t_start:.1f} s")
     from ganspace_tpu_torch.models import get_instrumented_model
     launches = {}
+    with ieee_f32():
+        launches["checkpoint_load"] = check_checkpoint_load(gpu)
     t0 = time.perf_counter()
     launches["w_style_cli"], w_device = run_main_path(gpu)
     log(f"W path wall time: {time.perf_counter() - t0:.1f} s")

@@ -1,36 +1,25 @@
-// Implicit-GEMM correlation over a small tap window, NCHW float32, on the
-// tensor cores in 3xTF32 (tf32x3.cuh): the machinery of kernel B, shared by
-// its modes.
+// Implicit-GEMM 3x3 correlation, stride 1, zero padding 1, NCHW float32,
+// on the tensor cores in 3xTF32 (tf32x3.cuh): the machinery of kernel B's
+// 3x3 modes (modconv3x3.cu, the modulated and the plain one).
 //
-//   y[b, o, oy + S*m, ox + S*n] = d[b,o] * sum_{c, a < TY, e < TX}
-//       wt[o, c, a, e] * s[b,c] * x[b, c, m - 1 + dy + a, n - 1 + dx + e]
+//   y[b, o, m, n] = d[b,o] * sum_{c, a < 3, e < 3}
+//       wt[o, c, a, e] * s[b,c] * x[b, c, m - 1 + a, n - 1 + e]
 //
-// for (m, n) over an oh x ow output grid, with x read as zero outside the
-// image.  s and d are optional (null).  One launch covers one or more such
-// grids over the same x and y (a Launch of Geometry entries):
-//   * 3x3, stride 1, pad 1 (modconv3x3.cu): one grid, TY = TX = 3,
-//     dy = dx = 0, S = 1, the weight in its OIHW layout;
-//   * a stride-2 transposed convolution (upconv2x.cu): its four output
-//     phases, each a grid with its own window (TY, TX in {1, 2}), origin
-//     (dy, dx in {0, 1}) and weight, S = 2, the phase's taps gathered into
-//     [Co][Ci/8][TY*TX][8] by the wrapper.  Each block computes a tile of
-//     one phase; the phases' blocks share one grid, heaviest phase first.
+// with x read as zero outside the image and wt in its OIHW layout.  s and d
+// are optional (null).
 //
-// Design (what bounds it and what the design does about it): 2*T*C*Co FLOP
+// Design (what bounds it and what the design does about it): 18*C*Co FLOP
 // per output pixel over (C + Co)*4 bytes, compute-bound at every shape of
 // the synthesis but the 4-8 px ones.
-//   * M is output pixels, N is Co, K is T*C; a block computes kBM pixels x
+//   * M is output pixels, N is Co, K is 9*C; a block computes kBM pixels x
 //     kBN output channels with 8 warps of 32 pixels x 8*kNT channels, and
-//     walks K kCK input channels per stage (kCK / 8 m16n8k8 steps per tap:
-//     8 for the 3x3 window, 16 for the phases' smaller windows, so that a
-//     stage's products still outweigh its loads and its barrier);
+//     walks K kCK = 8 input channels per stage (one m16n8k8 step per tap);
 //   * a pixel tile is tr grid rows x tw columns, the rows counted across
 //     samples (row R of the tile is row R mod oh of sample R / oh), so that
-//     on small and odd grids (4-16 px, the phases' 5, 9, 17, 33) one tile
-//     spans several samples and few of its kBM pixels fall outside the
-//     grid.  tw is the grid's width under 64 columns when that width is not
-//     a power of two, else a power of two up to 32.  Each fragment row
-//     carries its own sample for s and d;
+//     on small and odd grids one tile spans several samples and few of its
+//     kBM pixels fall outside the grid.  tw is the grid's width under 64
+//     columns when that width is not a power of two, else a power of two up
+//     to 32.  Each fragment row carries its own sample for s and d;
 //   * each stage (the zero-padded input halo: for each sample the tile
 //     touches, its rows plus one above and one below, tw + 2 columns wide;
 //     the weight slice; the stage's s) arrives through a 3-stage cp.async
@@ -38,12 +27,9 @@
 //     aligned and is copied 16 bytes at a time where the map's width allows;
 //     the offset of each halo row in x is computed once per block into a
 //     table;
-//   * the weight slice keeps the global layout, one row of kCK*T floats per
-//     output channel, at a row stride of kCK*T + 4 floats: with OIHW
-//     (channel stride T, kCK = 8) that stride is conflict-free for T = 9,
-//     and with the phases' layout (channel stride 1, tap stride 8 within
-//     each 8-channel chunk, kCK = 16, the stride of T = 4 for every window)
-//     for T = 1, 2 and 4;
+//   * the weight slice keeps the global OIHW layout, one row of kCK*9 floats
+//     per output channel, at a row stride of kCK*9 + 4 floats, which is
+//     conflict-free;
 //   * s is applied when the A fragment is formed, before the split, and d
 //     in the epilogue, so no scaled copy of x or of the weight exists.  The
 //     split happens in registers: shared memory holds each value once.
@@ -70,22 +56,21 @@ namespace cg = cooperative_groups;
 constexpr int kThreads = 256;           // 8 warps
 constexpr int kStages = 3;
 constexpr int kMaxCluster = 8;
-constexpr int kMaxGrids = 4;            // the four phases of a stride-2 conv
 constexpr int kMaxSmem = 227 * 1024;
+constexpr int kTY = 3, kTX = 3;         // the window
+constexpr int kTMax = kTY * kTX;
+constexpr int kCK = 8;                  // input channels per stage
 
 // A halo row in shared memory holds columns w0 - 4 .. w0 + tw + 3 of x
 // (tw + 8 floats): the tile's columns start 16-byte aligned at index 4, and
 // the halo's own columns w0 - 1 and w0 + tw sit at indices 3 and tw + 4.
 constexpr int kPad = 4;
 
-// One output grid of a launch and its tiling.
+// The output grid of a launch and its tiling.
 struct Geometry {
   const float* wt;          // weight rows of krow floats per output channel
   long long krow;
   int oh, ow;               // output grid (the tiles cover it)
-  int oy, ox;               // grid (m, n) -> y[oy + ostr*m, ox + ostr*n]
-  int dy, dx;               // window origin in the halo (row m - 1 + dy)
-  int ty, tx;               // window (the phases' layout; OIHW is kTY x kTX)
   int xvec;                 // 16-byte copies of the halo rows' interior
   int wvec;                 // 16-byte copies of the weight rows
   int tw, tr;               // pixel tile: tr grid rows (across samples) x tw columns
@@ -98,14 +83,11 @@ struct Geometry {
   int chs;                  // halo floats per channel in shared memory
   int stage;                // floats of one ring stage
   int table;                // offset (floats) of the halo row table
-  int block0;               // this grid's first block in the launch
 };
 
 struct Launch {
-  Geometry g[kMaxGrids];
-  int n;                    // grids in the launch
-  int b, c, h, w, co;       // x [b, c, h, w], co output channels
-  int yh, yw, ostr;         // y [b, co, yh, yw], output stride
+  Geometry g;
+  int b, c, h, w, co;       // x [b, c, h, w], co output channels; y [b, co, h, w]
   int n_tiles;              // output-channel tiles
   int ks, chunks_per_rank, chunks;
 };
@@ -116,13 +98,12 @@ __device__ __forceinline__ int fast_div(int n, unsigned m) {
 }
 
 // Copy one stage into the ring: the halo [kCK][chs], the weight slice
-// [kBN][kCK * kTMax + 4] (kCK * taps floats of each row) and, with kScale,
-// the style scales [segs][kCK].
-template <int kBN, int kTMax, int kCK, bool kOIHW, bool kScale>
+// [kBN][kCK * kTMax + 4] and, with kScale, the style scales [segs][kCK].
+template <int kBN, bool kScale>
 __device__ __forceinline__ void load_stage(float* st, const float* smem_base, const Launch& L,
                                            const Geometry& q, const float* __restrict__ x,
-                                           const float* __restrict__ s, int taps, int c0,
-                                           int b0, int w0, int o0) {
+                                           const float* __restrict__ s, int c0, int b0,
+                                           int w0, int o0) {
   constexpr int kWS = kCK * kTMax + 4;
   const int tid = threadIdx.x;
   const int tw = q.tw;
@@ -155,23 +136,21 @@ __device__ __forceinline__ void load_stage(float* st, const float* smem_base, co
       tf32x3::cp_async4(dst + kPad + col, ok ? src + col : x, ok);
     }
   }
-  // the weight slice [o0, o0 + kBN) x [c0 * taps, (c0 + kCK) * taps)
+  // the weight slice [o0, o0 + kBN) x [c0 * 9, (c0 + kCK) * 9)
   float* ws = st + kCK * q.chs;
-  const long long kend = q.krow - static_cast<long long>(c0) * taps;  // valid entries
-  const float* wc = q.wt + static_cast<long long>(c0) * taps;
+  const long long kend = q.krow - static_cast<long long>(c0) * kTMax;  // valid entries
+  const float* wc = q.wt + static_cast<long long>(c0) * kTMax;
   if (q.wvec) {
-    // kCK * taps / 4 chunks per row: 18 for OIHW, 4, 8 or 16 for a phase
-    const int lg = kOIHW ? 0 : __ffs(kCK * taps / 4) - 1;
-    for (int idx = tid; idx < kBN * kCK * taps / 4; idx += kThreads) {
-      const int o = kOIHW ? idx / (kCK * kTMax / 4) : idx >> lg;
-      const int k = 4 * (kOIHW ? idx % (kCK * kTMax / 4) : idx & ((1 << lg) - 1));
+    for (int idx = tid; idx < kBN * kCK * kTMax / 4; idx += kThreads) {  // 18 chunks per row
+      const int o = idx / (kCK * kTMax / 4);
+      const int k = 4 * (idx % (kCK * kTMax / 4));
       const bool ok = o0 + o < L.co && k < kend;
       tf32x3::cp_async16(ws + o * kWS + k, ok ? wc + (o0 + o) * q.krow + k : q.wt, ok);
     }
   } else {
-    for (int idx = tid; idx < kBN * kCK * taps; idx += kThreads) {
-      const int o = idx / (kCK * taps);
-      const int k = idx - o * (kCK * taps);
+    for (int idx = tid; idx < kBN * kCK * kTMax; idx += kThreads) {
+      const int o = idx / (kCK * kTMax);
+      const int k = idx - o * (kCK * kTMax);
       const bool ok = o0 + o < L.co && k < kend;
       tf32x3::cp_async4(ws + o * kWS + k, ok ? wc + (o0 + o) * q.krow + k : q.wt, ok);
     }
@@ -190,19 +169,15 @@ __device__ __forceinline__ void load_stage(float* st, const float* smem_base, co
 
 // kWN warps across the output channels, each warp 32 pixels x 8 * kNT
 // channels: a block is (256 / kWN) pixels x (8 * kNT * kWN) channels.  The
-// window is at most kTY x kTX taps; kOIHW says the weight row is
-// channel-major (OIHW, tap innermost, the window exactly kTY x kTX) rather
-// than tap-major within each 8-channel chunk (the phases' layout, each
-// grid's window q.ty x q.tx).  A stage holds kCK input channels (kCK / 8 k8
-// steps per tap).  kScale: s is given.
-template <int kWN, int kNT, int kTY, int kTX, bool kOIHW, int kCK, bool kScale>
+// weight row is OIHW (channel-major, tap innermost).  A stage holds kCK
+// input channels (one k8 step per tap).  kScale: s is given.
+template <int kWN, int kNT, bool kScale>
 __global__ void __launch_bounds__(kThreads, 2)
 conv_kernel(const float* __restrict__ x, const float* __restrict__ s,
             const float* __restrict__ dmod, float* __restrict__ y,
             const __grid_constant__ Launch L) {
-  constexpr int kTMax = kTY * kTX;
   constexpr int kWS = kCK * kTMax + 4;
-  constexpr int kChS = kOIHW ? kTMax : 1;   // channel stride in a weight row
+  constexpr int kChS = kTMax;   // channel stride in a weight row
   constexpr int kBN = 8 * kNT * kWN;
   constexpr int kBM = 256 / kWN;
   constexpr int kPStride = kBM + 4;  // partial tile row stride
@@ -210,17 +185,10 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ s,
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
 
-  // This block's grid, then its tile: blockIdx.x = block0 + (m_tile *
-  // n_tiles + n_tile) * ks + rank, so the blocks that share an input tile
-  // run side by side.
-  int p = 0;
-  if constexpr (!kOIHW)  // the 3x3 mode launches one grid
-    while (p + 1 < L.n && static_cast<int>(blockIdx.x) >= L.g[p + 1].block0) ++p;
-  const Geometry& q = L.g[p];
-  const int ty = kOIHW ? kTY : q.ty;
-  const int tx = kOIHW ? kTX : q.tx;
-  const int taps = ty * tx;
-  const int t = (static_cast<int>(blockIdx.x) - q.block0) / L.ks;
+  // This block's tile: blockIdx.x = (m_tile * n_tiles + n_tile) * ks +
+  // rank, so the blocks that share an input tile run side by side.
+  const Geometry& q = L.g;
+  const int t = static_cast<int>(blockIdx.x) / L.ks;
   const int nt_blk = t % L.n_tiles;
   const int mt_blk = t / L.n_tiles;
   const int o0 = nt_blk * kBN;
@@ -261,7 +229,7 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ s,
 
   // Halo offset (channel tq, window origin) and s index of each fragment
   // row, pixel wm + mt*16 + gq + 8h: tile row i (grid row r0 + i of sample
-  // b0, counted on), column col; its window's first halo row is i + 2k + dy
+  // b0, counted on), column col; its window's first halo row is i + 2k
   // for its k-th sample.  Pixels past the tile's tr rows read row 0 and are
   // not stored.
   int poff[2][2], samp[2][2];
@@ -274,7 +242,7 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ s,
       const int col = m - i * q.tw;
       i = i < q.tr ? i : 0;
       const int k = fast_div(r0 + i, q.m_oh);
-      poff[mt][h] = (i + 2 * k + q.dy) * q.hs_w + kPad - 1 + q.dx + col + tq * q.chs;
+      poff[mt][h] = (i + 2 * k) * q.hs_w + kPad - 1 + col + tq * q.chs;
       samp[mt][h] = k * kCK + tq;
     }
   const int ch4 = 4 * q.chs;
@@ -291,8 +259,8 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ s,
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
     if (st < steps)
-      load_stage<kBN, kTMax, kCK, kOIHW, kScale>(smem + st * q.stage, smem, L, q, x, s, taps,
-                                                 (chunk_beg + st) * kCK, b0, w0, o0);
+      load_stage<kBN, kScale>(smem + st * q.stage, smem, L, q, x, s, (chunk_beg + st) * kCK,
+                              b0, w0, o0);
     tf32x3::cp_async_commit();
   }
 
@@ -301,9 +269,8 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ s,
     __syncthreads();
     const int next = step + kStages - 1;
     if (next < steps)
-      load_stage<kBN, kTMax, kCK, kOIHW, kScale>(smem + (next % kStages) * q.stage, smem, L,
-                                                 q, x, s, taps, (chunk_beg + next) * kCK, b0,
-                                                 w0, o0);
+      load_stage<kBN, kScale>(smem + (next % kStages) * q.stage, smem, L, q, x, s,
+                              (chunk_beg + next) * kCK, b0, w0, o0);
     tf32x3::cp_async_commit();
 
     const float* hx = smem + (step % kStages) * q.stage;
@@ -330,7 +297,6 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ s,
       for (int u = 0; u < kTY; ++u)
 #pragma unroll
         for (int v = 0; v < kTX; ++v) {
-          if (!kOIHW && (u >= ty || v >= tx)) continue;  // uniform over the block
           const int tap = 8 * j * q.chs + u * q.hs_w + v;
           uint32_t a_hi[2][4], a_lo[2][4];
 #pragma unroll
@@ -350,10 +316,8 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ s,
               tf32x3::split(p1[ch4], a_hi[mt][3], a_lo[mt][3]);
             }
           }
-          // the tap's column in the weight row: OIHW (channel, tap) at
-          // 9 c + tap; the phases' layout at (chunk, tap, channel)
-          const int wk = kOIHW ? 8 * j * kTMax + (u * kTX + v)
-                               : 8 * (j * taps + u * tx + v);
+          // the tap's column in the weight row: OIHW (channel, tap) at 9 c + tap
+          const int wk = 8 * j * kTMax + (u * kTX + v);
 #pragma unroll
           for (int nt = 0; nt < kNT; ++nt) {
             const float* wp = hx + wrow + nt * 8 * kWS + wk;
@@ -392,7 +356,7 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ s,
   const int c0 = rank * rows;
   const float* parts[kMaxCluster];
   for (int k = 0; k < L.ks; ++k) parts[k] = cluster.map_shared_rank(tile, k);
-  const long long yplane = static_cast<long long>(L.yh) * L.yw;
+  const long long yplane = static_cast<long long>(L.h) * L.w;
   for (int e = threadIdx.x; e < rows * kBM; e += kThreads) {
     const int ol = c0 + e / kBM;
     const int m = e % kBM;
@@ -406,8 +370,8 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ s,
     const int ww = w0 + m - i * q.tw;
     if (i < q.tr && o < L.co && bb < L.b && ww < q.ow) {
       if (dmod) val *= dmod[static_cast<long long>(bb) * L.co + o];
-      y[(static_cast<long long>(bb) * L.co + o) * yplane
-        + static_cast<long long>(q.oy + L.ostr * hh) * L.yw + q.ox + L.ostr * ww] = val;
+      y[(static_cast<long long>(bb) * L.co + o) * yplane + static_cast<long long>(hh) * L.w
+        + ww] = val;
     }
   }
   cluster.sync();  // keep every block's partial alive until all have read it
@@ -435,7 +399,7 @@ inline int gcd(int a, int b) {
 
 // The shared memory (floats) of a tile of tr rows: the ring, then the halo
 // offset table (the partial tile reuses the ring).
-template <int kBN, int kTMax, int kCK, bool kScale>
+template <int kBN, bool kScale>
 long long tile_floats(Geometry& q, bool vec) {
   constexpr int kWS = kCK * kTMax + 4;
   q.m_tw = div_magic(q.tw);
@@ -456,55 +420,33 @@ long long tile_floats(Geometry& q, bool vec) {
   return static_cast<long long>(q.table) + q.rows;
 }
 
-// Blocks of `floats` floats of shared memory that one SM holds (228 KB,
-// 1 KB reserved per block), at most the two of __launch_bounds__.
-inline int blocks_per_sm(long long floats) {
-  const long long per_block = floats * 4 + 1024;
-  const long long n = 228LL * 1024 / per_block;
-  return n < 2 ? static_cast<int>(n) : 2;
-}
-
-// The tiling of one grid (its window, output and weight fields set by the
-// caller): the floats of shared memory it needs, or -1 when it cannot fit.
-// Columns: an odd grid under 64 columns (the phases' 5, 9, 17, 33) whole,
-// else power-of-two tiles up to 32; rows: as many as fill kBM pixels,
-// counted across samples.  A phase grid takes the row count, among those
-// that fill at least 3/4 of the tile, that keeps the most pixels in flight
-// per SM (the 9-wide grids: 12 rows at two blocks per SM, not 14 at one).
-template <int kBN, int kBM, int kTMax, int kCK, bool kOIHW, bool kScale>
+// The tiling of the grid (its output and weight fields set by the caller):
+// the floats of shared memory it needs, or -1 when it cannot fit.  Columns:
+// an odd grid under 64 columns whole, else power-of-two tiles up to 32;
+// rows: as many as fill kBM pixels, counted across samples.
+template <int kBN, int kBM, bool kScale>
 long long tile_grid(Geometry& q, int batch) {
   q.tw = (q.ow < 64 && !is_pow2(q.ow)) ? q.ow : 1 << (log2_ceil(q.ow) < 5 ? log2_ceil(q.ow) : 5);
   const bool vec = q.xvec;
-  int full = kBM / q.tw;
-  if (!kOIHW) {
-    int best = full, best_score = -1;
-    for (int tr = full; 4 * tr >= 3 * full; --tr) {
-      q.tr = tr;
-      const int score = tr * blocks_per_sm(tile_floats<kBN, kTMax, kCK, kScale>(q, vec));
-      if (score > best_score) best = tr, best_score = score;
-    }
-    full = best;
-  }
-  q.tr = full;
-  long long floats = tile_floats<kBN, kTMax, kCK, kScale>(q, vec);
+  q.tr = kBM / q.tw;
+  long long floats = tile_floats<kBN, kScale>(q, vec);
   while (floats * 4 > kMaxSmem && q.tr > 1) {  // fewer rows while the ring does not fit
     q.tr = (q.tr + 1) / 2;
-    floats = tile_floats<kBN, kTMax, kCK, kScale>(q, vec);
+    floats = tile_floats<kBN, kScale>(q, vec);
   }
   q.tiles_w = (q.ow + q.tw - 1) / q.tw;
   q.tiles_r = static_cast<int>((static_cast<long long>(batch) * q.oh + q.tr - 1) / q.tr);
   return floats * 4 <= kMaxSmem ? floats : -1;
 }
 
-// Fill the tiling of every grid of L (its sizes, and each grid's window,
-// output and weight fields, set by the caller) and launch them as one grid.
-template <int kWN, int kNT, int kTY, int kTX, bool kOIHW, int kCK, bool kScale>
+// Fill the tiling of L's grid (its sizes, and the grid's output and weight
+// fields, set by the caller) and launch it.
+template <int kWN, int kNT, bool kScale>
 cudaError_t launch(const float* x, const float* s, const float* dmod, float* y, Launch L,
                    cudaStream_t stream) {
-  constexpr int kTMax = kTY * kTX;
   constexpr int kBN = 8 * kNT * kWN;
   constexpr int kBM = 256 / kWN;
-  auto kernel = conv_kernel<kWN, kNT, kTY, kTX, kOIHW, kCK, kScale>;
+  auto kernel = conv_kernel<kWN, kNT, kScale>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return attr;
@@ -512,30 +454,20 @@ cudaError_t launch(const float* x, const float* s, const float* dmod, float* y, 
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
 
-  if (L.n < 1 || L.n > kMaxGrids) return cudaErrorInvalidValue;
   L.n_tiles = (L.co + kBN - 1) / kBN;
   L.chunks = (L.c + kCK - 1) / kCK;  // stages
-  long long floats = 0, blocks = 0;
-  for (int p = 0; p < L.n; ++p) {
-    const long long need = tile_grid<kBN, kBM, kTMax, kCK, kOIHW, kScale>(L.g[p], L.b);
-    if (need < 0) return cudaErrorInvalidValue;
-    floats = need > floats ? need : floats;
-    blocks += static_cast<long long>(L.g[p].tiles_r) * L.g[p].tiles_w * L.n_tiles;
-  }
+  const long long floats = tile_grid<kBN, kBM, kScale>(L.g, L.b);
+  if (floats < 0) return cudaErrorInvalidValue;
+  const long long blocks = static_cast<long long>(L.g.tiles_r) * L.g.tiles_w * L.n_tiles;
   // Split K over a cluster until the grid holds about four blocks per SM,
   // each rank keeping at least one stage.
   L.ks = 1;
   while (L.ks < kMaxCluster && blocks * L.ks < 4LL * sms && 2 * L.ks <= L.chunks) L.ks *= 2;
   L.chunks_per_rank = (L.chunks + L.ks - 1) / L.ks;
-  long long block0 = 0;
-  for (int p = 0; p < L.n; ++p) {
-    L.g[p].block0 = static_cast<int>(block0);
-    block0 += static_cast<long long>(L.g[p].tiles_r) * L.g[p].tiles_w * L.n_tiles * L.ks;
-  }
-  if (block0 >= (1LL << 31) || kBN * (kBM + 4) > floats) return cudaErrorInvalidValue;
+  if (blocks * L.ks >= (1LL << 31) || kBN * (kBM + 4) > floats) return cudaErrorInvalidValue;
 
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(block0));
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks * L.ks));
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = static_cast<size_t>(floats) * 4;
   cfg.stream = stream;
@@ -554,17 +486,16 @@ cudaError_t launch(const float* x, const float* s, const float* dmod, float* y, 
 // across N) from 33 channels, 32-channel blocks from 17, 16-channel blocks
 // below, so that a 16-channel layer does not leave half the N tile empty.
 // s null takes the plain kernel.
-template <int kTY, int kTX, bool kOIHW, int kCK>
-cudaError_t launch_for(const float* x, const float* s, const float* dmod, float* y,
-                       const Launch& L, cudaStream_t stream) {
+inline cudaError_t launch_for(const float* x, const float* s, const float* dmod, float* y,
+                              const Launch& L, cudaStream_t stream) {
   if (s) {
-    if (L.co <= 16) return launch<1, 2, kTY, kTX, kOIHW, kCK, true>(x, s, dmod, y, L, stream);
-    if (L.co <= 32) return launch<1, 4, kTY, kTX, kOIHW, kCK, true>(x, s, dmod, y, L, stream);
-    return launch<2, 4, kTY, kTX, kOIHW, kCK, true>(x, s, dmod, y, L, stream);
+    if (L.co <= 16) return launch<1, 2, true>(x, s, dmod, y, L, stream);
+    if (L.co <= 32) return launch<1, 4, true>(x, s, dmod, y, L, stream);
+    return launch<2, 4, true>(x, s, dmod, y, L, stream);
   }
-  if (L.co <= 16) return launch<1, 2, kTY, kTX, kOIHW, kCK, false>(x, s, dmod, y, L, stream);
-  if (L.co <= 32) return launch<1, 4, kTY, kTX, kOIHW, kCK, false>(x, s, dmod, y, L, stream);
-  return launch<2, 4, kTY, kTX, kOIHW, kCK, false>(x, s, dmod, y, L, stream);
+  if (L.co <= 16) return launch<1, 2, false>(x, s, dmod, y, L, stream);
+  if (L.co <= 32) return launch<1, 4, false>(x, s, dmod, y, L, stream);
+  return launch<2, 4, false>(x, s, dmod, y, L, stream);
 }
 
 }  // namespace implicit_conv

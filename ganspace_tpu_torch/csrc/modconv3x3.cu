@@ -33,14 +33,12 @@ extern "C" int ganspace_modconv3x3(const float* x, const float* wt, const float*
                                    const float* dmod, float* y, int b, int c,
                                    int h, int w, int co, void* stream) {
   implicit_conv::Launch L = {};
-  L.n = 1;
   L.b = b, L.c = c, L.h = h, L.w = w, L.co = co;
-  L.yh = h, L.yw = w, L.ostr = 1;
-  implicit_conv::Geometry& q = L.g[0];
+  implicit_conv::Geometry& q = L.g;
   q.wt = wt, q.krow = static_cast<long long>(c) * 9;
-  q.oh = h, q.ow = w, q.oy = 0, q.ox = 0, q.dy = 0, q.dx = 0, q.ty = 3, q.tx = 3;
+  q.oh = h, q.ow = w;
   q.xvec = (w % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
   q.wvec = (c % 4 == 0) && (reinterpret_cast<uintptr_t>(wt) % 16 == 0);
-  return static_cast<int>(implicit_conv::launch_for<3, 3, true, 8>(
-      x, s, dmod, y, L, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(
+      implicit_conv::launch_for(x, s, dmod, y, L, static_cast<cudaStream_t>(stream)));
 }

@@ -14,10 +14,12 @@
 // three decimal digits and misses both bars, which is why the port's
 // float32 policy keeps TF32 off for cuBLAS and cuDNN.
 //
-// Warp-level mma.sync (and not wgmma) because every operand needs an
-// element-wise transform between shared memory and the tensor core (the
-// centering, the style scale, the split): mma.sync takes its fragments
-// from registers, where that costs a few instructions.
+// Kernel A and kernel B's 3x3 modes use warp-level mma.sync because every
+// operand needs an element-wise transform between shared memory and the
+// tensor core (the centering, the style scale, the split): mma.sync takes
+// its fragments from registers, where that costs a few instructions.  The
+// stride-2 mode splits its weight once per layer, so it reads B from shared
+// memory through wgmma (wgmma_tf32.cuh) and transforms only A.
 
 #pragma once
 

@@ -11,7 +11,10 @@ latent space; 18 W slots (W+).
 The module tree follows the checkpoint key names, so ``state_dict`` keys
 are the JAX package's flat parameter keys (``g_mapping.dense0.weight``,
 ``g_synthesis.blocks.8x8.conv0_up.weight``, ...) and
-:meth:`StyleGAN.params_from_jax` loads one without renaming.  Synthesis
+:meth:`StyleGAN.params_from_jax` loads one without renaming.  Built
+without ``params``, the model loads the lernapparat ``.pt`` or an NVlabs pickle that
+``models/checkpoints.py`` finds, as the JAX package does, and keeps seeded
+random weights when there is none.  Synthesis
 runs NCHW at every stage; the JAX package's space-to-depth tail is TPU-only
 and is not ported.  Its 3x3 convs go through kernel B (``ops/modconv.py``):
 
@@ -37,9 +40,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ganspace_tpu_torch import require_device
+from ganspace_tpu_torch.models import checkpoints
 from ganspace_tpu_torch.models.base import BaseGenerator, TapState
+from ganspace_tpu_torch.models.tf_import import import_stylegan_tf
+from ganspace_tpu_torch.models.torch_import import import_stylegan
 from ganspace_tpu_torch.ops.linear import equal_linear, pixel_norm
-from ganspace_tpu_torch.ops.modconv import PhaseWeights, conv3x3, upsample_conv
+from ganspace_tpu_torch.ops.modconv import UpsampleWeights, conv3x3, upsample_conv
 from ganspace_tpu_torch.ops.precision import ieee_f32
 from ganspace_tpu_torch.sampling import gaussian_latents
 
@@ -265,7 +271,7 @@ class UpBlock(nn.Module):
         self.conv1 = EqualizedConv2d(ch, ch, 3)
         self.epi2 = LayerEpilogue(ch, w_dim)
         self.fused = res >= FUSED_MIN_RES
-        self.phase_cache = PhaseWeights(self.conv0_up.weight) if self.fused else None
+        self.weight_cache = UpsampleWeights(self.conv0_up.weight) if self.fused else None
 
     def upconv(self, x: torch.Tensor) -> torch.Tensor:
         """``conv0_up`` before its blur and bias."""
@@ -276,7 +282,7 @@ class UpBlock(nn.Module):
             wp = F.pad(wm, (1, 1, 1, 1))
             w4 = (wp[:, :, 1:, 1:] + wp[:, :, :-1, 1:]
                   + wp[:, :, 1:, :-1] + wp[:, :, :-1, :-1])
-            return upsample_conv(x, w4, pad=1, cache=self.phase_cache)
+            return upsample_conv(x, w4, pad=1, cache=self.weight_cache)
         n, c, h, w = x.shape
         x = x[:, :, :, None, :, None].expand(n, c, h, 2, w, 2).reshape(n, c, 2 * h, 2 * w)
         return conv3x3(x, wm)
@@ -338,10 +344,16 @@ class StyleGAN(BaseGenerator):
         self.g_mapping = MappingNetwork(cfg.w_dim)
         self.g_synthesis = SynthesisNetwork(cfg)
         if params is None:
-            # No checkpoint loader in this port yet: seeded random weights.
-            print(f"{self.name}: no checkpoint in this port yet; using random "
-                  f"weights (seed {init_seed})")
-            params = init_params(cfg, init_seed)
+            # The local .pt, else a local NVlabs pickle, as the JAX package
+            # reads them; seeded random weights when neither is there.
+            found, rel = checkpoints.locate_stylegan(self.outclass, self.resolution)
+            if found is not None and found.suffix == ".pkl":
+                params = import_stylegan_tf(found)
+            elif found is not None:
+                params = import_stylegan(found)
+            else:
+                checkpoints.note_random_init(self.name, rel)
+                params = init_params(cfg, init_seed)
         self.params_from_jax(params)
         self.register_buffer("blur_kernel", blur121_kernel(), persistent=False)
         self.to(device)

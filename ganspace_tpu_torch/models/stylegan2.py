@@ -11,7 +11,10 @@ names (``style``, ``input``, ``conv1``, ``to_rgb1``, ``convs.i``,
 The module tree follows the rosinality checkpoint layout, so its
 ``state_dict`` keys are the keys of the JAX package's flat parameter dict
 (``style.1.weight``, ``convs.0.conv.weight``, ...) and
-:meth:`StyleGAN2.params_from_jax` loads one without renaming.  Synthesis
+:meth:`StyleGAN2.params_from_jax` loads one without renaming.  Built
+without ``params``, the model loads the rosinality ``.pt`` that
+``models/checkpoints.py`` finds, as the JAX package does, and keeps seeded
+random weights when there is none.  Synthesis
 runs NCHW at every stage; the JAX package's space-to-depth tail
 (``ops/s2d.py``) exists only for TPU lanes and is not ported.  Every
 non-upsampling 3x3 StyledConv goes through kernel B's modulated mode and
@@ -29,9 +32,11 @@ import torch
 from torch import nn
 
 from ganspace_tpu_torch import require_device
+from ganspace_tpu_torch.models import checkpoints
 from ganspace_tpu_torch.models.base import BaseGenerator, TapState
+from ganspace_tpu_torch.models.torch_import import import_stylegan2
 from ganspace_tpu_torch.ops.linear import equal_linear, fused_leaky_relu, pixel_norm
-from ganspace_tpu_torch.ops.modconv import PhaseWeights, modulated_conv2d
+from ganspace_tpu_torch.ops.modconv import UpsampleWeights, modulated_conv2d
 from ganspace_tpu_torch.ops.precision import ieee_f32
 from ganspace_tpu_torch.ops.upfirdn import make_fir_kernel, upsample2x
 from ganspace_tpu_torch.sampling import gaussian_latents
@@ -186,13 +191,13 @@ class StyledConv(nn.Module):
         self.noise = NoiseInjection()
         self.activate = FusedLeakyReLU(out_ch)
         self.upsample = upsample
-        self.phase_cache = PhaseWeights(self.conv.weight) if upsample else None
+        self.weight_cache = UpsampleWeights(self.conv.weight) if upsample else None
 
     def forward(self, name: str, x, w_lat, noise, blur_k, ts: TapState):
         s = self.conv.modulation(w_lat)
         x = modulated_conv2d(x, self.conv.weight, s, demodulate=True,
                              upsample=self.upsample, blur_kernel=blur_k,
-                             phase_cache=self.phase_cache)
+                             weight_cache=self.weight_cache)
         x = ts.tap(f"{name}.conv", x)
         if ts.stopped:
             return x
@@ -268,10 +273,14 @@ class StyleGAN2(BaseGenerator):
             in_ch = out_ch
 
         if params is None:
-            # No checkpoint loader in this port yet: seeded random weights.
-            print(f"{self.name}: no checkpoint in this port yet; using random "
-                  f"weights (seed {init_seed})")
-            params = init_params(cfg, seed=init_seed)
+            # The reference checkpoint layout, as the JAX package reads it;
+            # seeded random weights when the file is absent.
+            found, rel = checkpoints.locate_stylegan2(self.outclass, self.resolution)
+            if found is not None:
+                params, latent_avg = import_stylegan2(found)
+            else:
+                checkpoints.note_random_init(self.name, rel)
+                params = init_params(cfg, seed=init_seed)
         self.params_from_jax(params)
         avg = latent_avg if latent_avg is not None else np.zeros((cfg.w_dim,), np.float32)
         self.register_buffer("latent_avg", torch.as_tensor(avg, dtype=torch.float32),

@@ -19,11 +19,12 @@ plain PyTorch version, which is the CPU path and the kernel's oracle:
   kernel with no scale and no demodulation;
 * :func:`upsample_conv`: the stride-2 transposed conv, with optional ``s``
   and ``d`` (StyleGAN2's upsampling StyledConvs, StyleGAN's fused
-  ``conv0_up``), as four phase correlations on the same implicit GEMM,
-  launched as one grid (``csrc/upconv2x.cu``): a fixed summation order, so
-  a repeated call gives identical bits, which cuDNN's transposed
-  convolution does not.  A layer gathers its phases' taps once
-  (:class:`PhaseWeights`).
+  ``conv0_up``), as one dense product of pixels by (tap, output channel) on
+  Hopper's wgmma and an overlap-add of the taps (``csrc/upconv2x.cu``): a
+  fixed summation order, so a repeated call gives identical bits, which
+  cuDNN's transposed convolution does not.  A layer splits its weight into
+  TF32 hi and lo once, in the layout the kernel reads
+  (:class:`UpsampleWeights`).
 
 The blur after an upsampling conv and the 1x1 ``to_rgb`` conv stay stock
 PyTorch ops, as the JAX package leaves them to XLA; they run under the
@@ -40,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from ganspace_tpu_torch.ops._build import check, load_kernels, stream_handle
+from ganspace_tpu_torch.ops.tf32x3 import split_tf32, sw128_image
 from ganspace_tpu_torch.ops.upfirdn import upfirdn2d
 
 
@@ -148,86 +150,98 @@ def upsample_conv_plain(x: torch.Tensor, w_scaled: torch.Tensor,
     return y if d is None else y * d[:, :, None, None]
 
 
-def upsample_phases(k: int, pad: int, h: int, w: int):
-    """The four output phases of a stride-2 transposed conv with a k x k
-    kernel and padding ``pad`` on an h x w input, as the kernel runs them:
-    ``(py, px, uy, ux, dy, dx, oh, ow)``.  Output row 2m + py collects the
-    taps ``uy`` (in window order) from input rows m - 1 + dy + a, a < len(uy);
-    the phase's grid is oh x ow.  Likewise for columns."""
-    def axis(p, n):
-        taps = sorted((u for u in range(k) if (u - p - pad) % 2 == 0), reverse=True)
-        first = (p + pad - taps[0]) // 2          # input offset of the window's first tap
-        size = 2 * n + k - 2 - 2 * pad
-        return taps, first + 1, (size - p + 1) // 2
-    phases = []
-    for py in (0, 1):
-        uy, dy, oh = axis(py, h)
-        for px in (0, 1):
-            ux, dx, ow = axis(px, w)
-            phases.append((py, px, uy, ux, dy, dx, oh, ow))
-    return phases
+#: output channels per block of the stride-2 kernel, by kernel size: N =
+#: k^2 * cot columns of taps x channels (144 for k = 3, 128 for k = 4)
+UP_COT = {3: 16, 4: 8}
+UP_KC = 32            # input channels per stage (a [N][32] weight tile pair)
+UP_TILE_M = 128       # pixels per block
+UP_MAX_SPT = 32       # whole samples per block at most
 
 
-def phase_weight(w_scaled: torch.Tensor, uy, ux) -> torch.Tensor:
-    """One phase's taps of ``w_scaled`` [Co, C, k, k] in the kernel's layout
-    [Co, ceil(C / 8), len(uy) * len(ux), 8], zero past channel C.  A phase's
-    taps are every other tap in descending order, so strided slices and a
-    flip gather them on the weight's device (an index list would be copied
-    from the host, and that copy waits for the device)."""
-    co, c = w_scaled.shape[:2]
-    taps = w_scaled[:, :, min(uy)::2, min(ux)::2].flip(2, 3).reshape(co, c, -1)
-    taps = F.pad(taps, (0, 0, 0, -c % 8))
-    return taps.reshape(co, -1, 8, taps.shape[-1]).transpose(2, 3).contiguous()
+def _axis_tilings(n: int):
+    """(owned, loaded, halo, tiles) of one axis of n input rows: the whole
+    axis, or tiles of t rows plus the halo row above each."""
+    yield n, n, 0, 1
+    for t in range(1, min(n, UP_TILE_M)):
+        yield t, t + 1, 1, -(-n // t)
 
 
-def phase_weights(w_scaled: torch.Tensor, pad: int) -> torch.Tensor:
-    """The four phases' :func:`phase_weight` of a stride-2 transposed conv
-    with padding ``pad``, flat and one after another in the order of
-    :func:`upsample_phases`: the weight operand of the stride-2 kernel."""
-    k = w_scaled.shape[-1]
-    return torch.cat([phase_weight(w_scaled, uy, ux).reshape(-1)
-                      for _, _, uy, ux, *_ in upsample_phases(k, pad, 1, 1)])
+@functools.lru_cache(maxsize=None)
+def upsample_tiling(b: int, h: int, w: int) -> tuple:
+    """The stride-2 kernel's block tiling of a [b, *, h, w] input:
+    ``(spt, tr, lr, hr, tiles_r, tc, lc, hc, tiles_c)``.  A block holds at
+    most 128 input pixels: ``spt`` whole samples when a sample fits, else a
+    rectangle of one sample that owns ``tr`` x ``tc`` input pixels and loads
+    ``lr`` x ``lc`` of them (``hr``, ``hc``: one halo row above, one halo
+    column to the left, whose taps land in its outputs).  Of the tilings that
+    fit, the one with the fewest blocks; among those, 16-byte row copies
+    (whole rows of a width divisible by 4), then the fewest loaded pixels."""
+    best = None
+    for tr, lr, hr, nr in _axis_tilings(h):
+        for tc, lc, hc, nc in _axis_tilings(w):
+            if lr * lc > UP_TILE_M:
+                continue
+            spt = min(UP_TILE_M // (lr * lc), UP_MAX_SPT, b) if hr == hc == 0 else 1
+            blocks = -(-b // spt) * nr * nc
+            key = (blocks, not (hc == 0 and w % 4 == 0), blocks * lr * lc * spt)
+            if best is None or key < best[0]:
+                best = key, (spt, tr, lr, hr, nr, tc, lc, hc, nc)
+    return best[1]
 
 
-class PhaseWeights:
-    """One layer's :func:`phase_weights`, gathered when its weight first
-    reaches the stride-2 kernel and again only after that weight changes: a
-    load, an in-place edit or a move changes its storage or its version."""
+def upsample_weight_matrix(w_scaled: torch.Tensor) -> torch.Tensor:
+    """The stride-2 kernel's B operand of ``w_scaled`` [Co, C, k, k]:
+    [n_co, chunks, N, 32] with B[t, q, tap * cot + o, c] = w_scaled[t * cot
+    + o, 32 q + c, u, v] for tap = u * k + v, zero past Co and C."""
+    co, c, k, _ = w_scaled.shape
+    cot = UP_COT[k]
+    n_co, chunks = -(-co // cot), -(-c // UP_KC)
+    wt = w_scaled.permute(2, 3, 0, 1).reshape(k * k, co, c)
+    wt = F.pad(wt, (0, chunks * UP_KC - c, 0, n_co * cot - co))
+    wt = wt.reshape(k * k, n_co, cot, chunks, UP_KC).permute(1, 3, 0, 2, 4)
+    return wt.reshape(n_co, chunks, k * k * cot, UP_KC)
+
+
+def upsample_weight_image(w_scaled: torch.Tensor) -> torch.Tensor:
+    """The weight operand of the stride-2 kernel: :func:`upsample_weight_matrix`
+    split into TF32 hi and lo (``ops/tf32x3.split_tf32``), each [N, 32] tile
+    in the swizzled layout the kernel's wgmma reads (``sw128_image``):
+    [n_co, chunks, 2 (hi, lo), N * 32], contiguous."""
+    hi, lo = split_tf32(upsample_weight_matrix(w_scaled).contiguous())
+    return sw128_image(torch.stack((hi, lo), dim=2)).contiguous()
+
+
+class UpsampleWeights:
+    """One layer's :func:`upsample_weight_image`, split and laid out when its
+    weight first reaches the stride-2 kernel and again only after that weight
+    changes: a load, an in-place edit or a move changes its storage or its
+    version."""
 
     def __init__(self, source: torch.Tensor):
         self.source = source
         self._key = None
         self._value = None
 
-    def get(self, w_scaled: torch.Tensor, pad: int) -> torch.Tensor:
-        """The phase weights of ``w_scaled``, the scaled form of ``source``."""
+    def get(self, w_scaled: torch.Tensor) -> torch.Tensor:
+        """The weight image of ``w_scaled``, the scaled form of ``source``."""
         key = (self.source.data_ptr(), self.source._version, w_scaled.device,
-               tuple(w_scaled.shape), pad)
+               tuple(w_scaled.shape))
         if key != self._key:
-            self._value = phase_weights(w_scaled, pad)
+            self._value = upsample_weight_image(w_scaled)
             self._key = key
         return self._value
 
 
-@functools.lru_cache(maxsize=None)
-def _phase_table(k: int, pad: int, h: int, w: int):
-    """The kernel's phase descriptors [4][8] (ty, tx, dy, dx, oh, ow, py, px)."""
-    rows = [(len(uy), len(ux), dy, dx, oh, ow, py, px)
-            for py, px, uy, ux, dy, dx, oh, ow in upsample_phases(k, pad, h, w)]
-    flat = [v for row in rows for v in row]
-    return (ctypes.c_int * len(flat))(*flat), len(rows)
-
-
 def upsample_conv(x: torch.Tensor, w_scaled: torch.Tensor,
                   s: torch.Tensor | None = None, d: torch.Tensor | None = None,
-                  *, pad: int = 0, cache: PhaseWeights | None = None) -> torch.Tensor:
+                  *, pad: int = 0, cache: UpsampleWeights | None = None) -> torch.Tensor:
     """d * conv_transpose2d(x * s, w_scaled^T, stride 2, padding ``pad``),
     NCHW float32: x [B, C, H, W], w_scaled [Co, C, k, k] (k = 3 or 4, the
     correlation orientation of a conv weight), s [B, C] or None, d [B, Co]
     or None; the output is [B, Co, 2H + k - 2 - 2 pad, ...].  A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel, its four
-    output phases in one grid, or raises.  ``cache``, the layer's
-    :class:`PhaseWeights`, keeps the gathered taps between calls."""
+    takes the plain version; a CUDA tensor launches the kernel or raises.
+    ``cache``, the layer's :class:`UpsampleWeights`, keeps the split weight
+    between calls."""
     b, c, h, w = x.shape
     co, _, k, _ = w_scaled.shape
     if w_scaled.shape != (co, c, k, k) or k not in (3, 4) or pad not in (0, 1):
@@ -240,12 +254,12 @@ def upsample_conv(x: torch.Tensor, w_scaled: torch.Tensor,
     x = x.contiguous()
     s = None if s is None else s.contiguous()
     d = None if d is None else d.contiguous()
-    wp = phase_weights(w_scaled, pad) if cache is None else cache.get(w_scaled, pad)
-    table, n = _phase_table(k, pad, h, w)
+    image = upsample_weight_image(w_scaled) if cache is None else cache.get(w_scaled)
+    tiling = (ctypes.c_int * 9)(*upsample_tiling(b, h, w))
     y = torch.empty((b, co, ho, wo), dtype=torch.float32, device=x.device)
     check(load_kernels().ganspace_upsample_conv(
-        x.data_ptr(), wp.data_ptr(), _ptr(s), _ptr(d), y.data_ptr(), ctypes.addressof(table),
-        n, b, c, h, w, co, ho, wo, stream_handle(x)), "upsample_conv")
+        x.data_ptr(), image.data_ptr(), _ptr(s), _ptr(d), y.data_ptr(), ctypes.addressof(tiling),
+        b, c, h, w, co, k, pad, stream_handle(x)), "upsample_conv")
     upsample_conv.launches += 1
     return y
 
@@ -258,7 +272,7 @@ def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor,
                      style_scales: torch.Tensor, *, demodulate: bool = True,
                      upsample: bool = False,
                      blur_kernel: torch.Tensor | None = None,
-                     phase_cache: PhaseWeights | None = None) -> torch.Tensor:
+                     weight_cache: UpsampleWeights | None = None) -> torch.Tensor:
     """Modulated conv on an NCHW batch.
 
     Args:
@@ -266,8 +280,8 @@ def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor,
       weight: [out, in, kh, kw], torch orientation.
       style_scales: [B, in] per-channel modulation from the style affine.
       blur_kernel: 2-D FIR kernel for the upsampling path (gain 1).
-      phase_cache: the layer's :class:`PhaseWeights` of ``weight`` for the
-        upsampling path.
+      weight_cache: the layer's :class:`UpsampleWeights` of ``weight`` for
+        the upsampling path.
     """
     out_ch, in_ch, kh, kw = weight.shape
     w = weight * (1.0 / math.sqrt(in_ch * kh * kw))
@@ -275,7 +289,7 @@ def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor,
     d = demodulation(w, s) if demodulate else None
 
     if upsample:
-        y = upsample_conv(x, w, s, d, cache=phase_cache)
+        y = upsample_conv(x, w, s, d, cache=weight_cache)
         # Blur of the transposed-conv path: taps scaled by factor^2 = 4,
         # p = (len - factor) - (k - 1).
         p = (blur_kernel.shape[0] - 2) - (kh - 1)

@@ -106,7 +106,7 @@ def test_upsample_conv_on_card(gen, b, c, co, h, w, k, pad):
                                               2 * w + k - 2 - 2 * pad)
             assert float((got - ref).abs().max() / ref.abs().max()) < 1e-5
             assert torch.equal(got, upsample_conv(x, wt, ss, d, pad=pad))
-    assert upsample_conv.launches == launches + 4          # the four phases, one grid
+    assert upsample_conv.launches == launches + 4          # four calls, one launch each
 
 
 def test_cuda_operands_never_fall_back(gen):
@@ -131,6 +131,17 @@ def test_tf32x3_tile_on_card(gen):
     b = torch.randn(8, 8, generator=gen, device="cuda")
     ref = a.double() @ b.double().T
     got = tile_3xtf32(a, b).double()
+    assert float((got - ref).abs().max() / ref.abs().max()) < 1e-6
+
+
+@pytest.mark.parametrize("n", [144, 128])
+def test_wgmma_tile_on_card(gen, n):
+    """The stride-2 kernel's wgmma step: register A, swizzled B."""
+    from ganspace_tpu_torch.ops.tf32x3 import wgmma_tile_3xtf32
+    a = torch.randn(64, 32, generator=gen, device="cuda")
+    b = torch.randn(n, 32, generator=gen, device="cuda")
+    ref = a.double() @ b.double().T
+    got = wgmma_tile_3xtf32(a, b).double()
     assert float((got - ref).abs().max() / ref.abs().max()) < 1e-6
 
 

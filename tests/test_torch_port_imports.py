@@ -23,6 +23,9 @@ MODULES = [
     "ganspace_tpu_torch.estimators.ipca",
     "ganspace_tpu_torch.models",
     "ganspace_tpu_torch.models.base",
+    "ganspace_tpu_torch.models.checkpoints",
+    "ganspace_tpu_torch.models.torch_import",
+    "ganspace_tpu_torch.models.tf_import",
     "ganspace_tpu_torch.models.stylegan",
     "ganspace_tpu_torch.models.stylegan2",
     "ganspace_tpu_torch.decomposition",

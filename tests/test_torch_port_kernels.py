@@ -23,9 +23,10 @@ from ganspace_tpu.ops.upfirdn import make_fir_kernel as jax_fir
 from ganspace_tpu_torch import require_device
 from ganspace_tpu_torch.ops.modconv import (
     conv3x3, conv3x3_plain, demodulation, modconv3x3, modconv3x3_plain, modulated_conv2d,
-    PhaseWeights, phase_weight, phase_weights, upsample_conv, upsample_conv_plain,
-    upsample_phases)
+    UP_COT, UpsampleWeights, upsample_conv, upsample_conv_plain, upsample_tiling,
+    upsample_weight_image, upsample_weight_matrix)
 from ganspace_tpu_torch.ops.moments import centered_gram, centered_gram_plain
+from ganspace_tpu_torch.ops.tf32x3 import sw128_image
 from ganspace_tpu_torch.ops.upfirdn import make_fir_kernel
 
 
@@ -114,49 +115,159 @@ def test_conv3x3_plain_mode_matches_pallas_blockconv(b, hw, c, co):
     assert _rel(got, ref) < 1e-5
 
 
-@pytest.mark.parametrize("k,pad,c", [(3, 0, 16), (3, 0, 5), (4, 1, 16), (4, 1, 12)])
-def test_upsample_phases_reassemble_the_transposed_conv(k, pad, c):
-    """The geometry the stride-2 kernel is given: each phase's gathered taps
-    (in the kernel's [Co, C/8, taps, 8] layout, zero past channel C) as a
-    stride-1 correlation over the window the kernel reads, written
-    interleaved, is the transposed conv."""
-    import torch.nn.functional as F
-    rs = np.random.RandomState(k + c)
-    x = torch.from_numpy(rs.randn(2, c, 5, 7))
-    w = torch.from_numpy(rs.randn(6, c, k, k))
-    ref = upsample_conv_plain(x, w, pad=pad)
-    got = torch.full_like(ref, float("nan"))
-    flat, offset = phase_weights(w, pad), 0     # the kernel's weight operand
-    for py, px, uy, ux, dy, dx, oh, ow in upsample_phases(k, pad, 5, 7):
-        wp = phase_weight(w, uy, ux)
-        assert wp.shape == (6, -(-c // 8), len(uy) * len(ux), 8) and wp.is_contiguous()
-        assert torch.equal(flat[offset:offset + wp.numel()], wp.reshape(-1))
-        offset += wp.numel()
-        win = wp.transpose(2, 3).reshape(6, -1, len(uy), len(ux))
-        assert not win[:, c:].any()
-        xp = F.pad(x, (1, 2, 1, 2))            # row m - 1 + dy + a of x
-        got[:, :, py::2, px::2] = F.conv2d(xp[:, :, dy:, dx:], win[:, :c])[:, :, :oh, :ow]
-    assert offset == flat.numel()
-    assert torch.isfinite(got).all()
-    torch.testing.assert_close(got, ref, rtol=1e-12, atol=1e-12)
+def _unswizzle(image, n):
+    """The [..., N, 32] tiles of a swizzled weight image (the swizzle is its
+    own inverse)."""
+    tiles = image.reshape(*image.shape[:-1], n, 32)
+    return sw128_image(tiles).reshape(tiles.shape)
 
 
-def test_phase_weights_gathered_once_per_weight():
-    """A layer's phase weights are gathered again only when its weight
-    changes: an in-place edit (a load) bumps the version, a move the
-    storage."""
+def _emulate_upsample(x, w, s, d, pad, image):
+    """The stride-2 kernel in plain torch: per block of
+    :func:`upsample_tiling`, the dense product of its loaded pixels (x * s,
+    zero outside the image) with the split weight read back from ``image``
+    (hi + lo), then the overlap-add into the block's own output rectangle in
+    the kernel's tap order (u, then v, ascending).  Also returns how many
+    blocks wrote each output."""
+    b, c, h, wd = x.shape
+    co, _, k, _ = w.shape
+    cot, n = UP_COT[k], k * k * UP_COT[k]
+    ho, wo = 2 * h + k - 2 - 2 * pad, 2 * wd + k - 2 - 2 * pad
+    tiles = _unswizzle(image, n)                          # [n_co, chunks, 2, N, 32]
+    bmat = (tiles[:, :, 0].double() + tiles[:, :, 1].double())
+    bmat = bmat.permute(0, 2, 1, 3).reshape(bmat.shape[0], n, -1)   # [n_co, N, K]
+    xs = (x if s is None else x * s[:, :, None, None]).double()
+    spt, tr, lr, hr, nr, tc, lc, hc, nc = upsample_tiling(b, h, wd)
+    y = torch.zeros(b, co, ho, wo, dtype=torch.float64)
+    written = torch.zeros(b, co, ho, wo, dtype=torch.int64)
+    for b0 in range(0, b, spt):
+        for i0 in range(0, h, tr):
+            for j0 in range(0, wd, tc):
+                ilo, jlo = i0 - hr, j0 - hc
+                a = torch.zeros(spt, bmat.shape[-1], lr, lc, dtype=torch.float64)
+                for sb in range(min(spt, b - b0)):
+                    for r in range(lr):
+                        if 0 <= ilo + r < h:
+                            lo_c, hi_c = max(0, -jlo), min(lc, wd - jlo)
+                            a[sb, :c, r, lo_c:hi_c] = xs[b0 + sb, :, ilo + r,
+                                                         jlo + lo_c:jlo + hi_c]
+                y0 = 0 if i0 == 0 else 2 * i0 - pad
+                y1 = ho if i0 + tr >= h else 2 * (i0 + tr) - pad
+                x0 = 0 if j0 == 0 else 2 * j0 - pad
+                x1 = wo if j0 + tc >= wd else 2 * (j0 + tc) - pad
+                for ct in range(bmat.shape[0]):
+                    p = torch.einsum("scij,nc->sijn", a, bmat[ct])
+                    out = torch.zeros(spt, ho, wo, cot, dtype=torch.float64)[:, y0:y1, x0:x1]
+                    ys, xs_ = torch.arange(y0, y1), torch.arange(x0, x1)
+                    for u in range(k):
+                        iy = ys + pad - u
+                        vy = (iy >= 0) & (iy % 2 == 0) & (iy // 2 < h)
+                        r = torch.where(vy, iy // 2 - ilo, 0)
+                        assert ((r >= 0) & (r < lr)).all()
+                        for v in range(k):
+                            jx = xs_ + pad - v
+                            vx = (jx >= 0) & (jx % 2 == 0) & (jx // 2 < wd)
+                            q = torch.where(vx, jx // 2 - jlo, 0)
+                            assert ((q >= 0) & (q < lc)).all()
+                            tap = p[:, r][:, :, q][..., (u * k + v) * cot:(u * k + v + 1) * cot]
+                            out = out + tap * (vy[:, None] & vx[None, :])[None, :, :, None]
+                    nb, no = min(spt, b - b0), min(cot, co - ct * cot)
+                    y[b0:b0 + nb, ct * cot:ct * cot + no, y0:y1, x0:x1] = \
+                        out[:nb, :, :, :no].permute(0, 3, 1, 2)
+                    written[b0:b0 + nb, ct * cot:ct * cot + no, y0:y1, x0:x1] += 1
+    if d is not None:
+        y = y * d[:, :, None, None].double()
+    return y, written
+
+
+# (k, pad, C, Co, B, H, W): whole-sample blocks (4x4 and 8x8 maps, a last
+# partial block), halo rectangles, C off 8 and above one 32-channel stage,
+# Co off the 16- and 8-channel tiles
+UP_EMULATION = [(3, 0, 16, 20, 9, 4, 4), (3, 0, 5, 6, 2, 13, 20), (3, 1, 40, 16, 3, 8, 8),
+                (3, 1, 12, 3, 1, 17, 11), (4, 1, 16, 12, 2, 12, 12), (4, 1, 12, 8, 3, 5, 7),
+                (4, 0, 40, 9, 1, 16, 16), (4, 0, 8, 24, 4, 3, 9)]
+
+
+@pytest.mark.parametrize("k,pad,c,co,b,h,w", UP_EMULATION)
+def test_upsample_emulation_matches_the_transposed_conv(k, pad, c, co, b, h, w):
+    """What the stride-2 kernel computes from its weight operand, emulated
+    block by block: every output written by exactly one block, and equal to
+    the plain version, with s and d."""
+    rs = np.random.RandomState(k + c + h)
+    x = torch.from_numpy(rs.randn(b, c, h, w).astype(np.float32))
+    wt = torch.from_numpy(rs.randn(co, c, k, k).astype(np.float32)) / (k * k * c) ** 0.5
+    s = torch.from_numpy((1.0 + 0.5 * rs.randn(b, c)).astype(np.float32))
+    d = demodulation(wt, s)
+    got, written = _emulate_upsample(x, wt, s, d, pad, upsample_weight_image(wt))
+    assert (written == 1).all()
+    ref = upsample_conv_plain(x, wt, s, d, pad=pad)
+    assert got.shape == ref.shape
+    assert _rel(got.float().numpy(), ref.numpy()) < 1e-5
+
+
+@pytest.mark.parametrize("k,c", [(3, 8), (3, 13), (4, 8), (4, 13)])
+def test_upsample_weight_image_is_the_split_weight(k, c):
+    """The cached operand: hi and lo are TF32 (13 low bits clear), hi + lo is
+    the weight to float32 rounding, in the [tile, chunk, tap * cot + o, c]
+    order, zero past C and Co, each [N, 32] tile swizzled."""
+    rs = np.random.RandomState(k * c)
+    co = 11
+    wt = torch.from_numpy(rs.randn(co, c, k, k).astype(np.float32))
+    image = upsample_weight_image(wt)
+    cot, n = UP_COT[k], k * k * UP_COT[k]
+    assert image.shape == (-(-co // cot), 1, 2, n * 32) and image.is_contiguous()
+    tiles = _unswizzle(image, n)
+    hi, lo = tiles[:, :, 0], tiles[:, :, 1]
+    for half in (hi, lo):
+        assert not (half.contiguous().view(torch.int32) & 0x1FFF).any()
+    mat = upsample_weight_matrix(wt)
+    # within one float32 unit of each weight: lo keeps 11 of the 13 bits hi drops
+    assert ((hi + lo - mat).abs() <= 2.0 ** -22 * mat.abs()).all()
+    assert ((mat - hi).abs() <= 2.0 ** -11 * mat.abs()).all()
+    for u in range(k):
+        for v in range(k):
+            tap = mat[:, 0, (u * k + v) * cot:(u * k + v + 1) * cot].reshape(-1, 32)
+            assert torch.equal(tap[:co, :c], wt[:, :, u, v])
+            assert not tap[co:].any() and not tap[:, c:].any()
+
+
+def test_upsample_weights_rebuilt_only_for_a_new_weight():
+    """A layer's split weight is built again only when its weight changes:
+    an in-place edit (a load) bumps the version, a move the storage."""
     rs = np.random.RandomState(8)
     weight = torch.nn.Parameter(torch.from_numpy(rs.randn(6, 16, 3, 3).astype(np.float32)))
-    cache = PhaseWeights(weight)
-    first = cache.get(weight * 0.5, 0)
-    assert torch.equal(first, phase_weights(weight * 0.5, 0))
-    assert cache.get(weight * 0.5, 0) is first
+    cache = UpsampleWeights(weight)
+    first = cache.get(weight * 0.5)
+    assert torch.equal(first, upsample_weight_image(weight * 0.5))
+    assert cache.get(weight * 0.5) is first
     with torch.no_grad():
         weight.mul_(2.0)
-    again = cache.get(weight * 0.5, 0)
-    assert again is not first and torch.equal(again, phase_weights(weight * 0.5, 0))
+    again = cache.get(weight * 0.5)
+    assert again is not first and torch.equal(again, upsample_weight_image(weight * 0.5))
     weight.data = weight.data.clone()
-    assert cache.get(weight * 0.5, 0) is not again
+    assert cache.get(weight * 0.5) is not again
+
+
+# (B, H, W, whole-sample blocks expected): the conv-tap path's 4 and 8 px
+# inputs at batch 128 and the render's and StyleGAN's maps at batch 5
+UP_TILINGS = [(128, 4, 4, 8), (128, 8, 8, 2), (5, 4, 4, 5), (5, 16, 16, 0), (5, 64, 64, 0),
+              (16, 128, 128, 0), (5, 512, 512, 0)]
+
+
+@pytest.mark.parametrize("b,h,w,spt", UP_TILINGS)
+def test_upsample_tiling_of_the_paths_shapes(b, h, w, spt):
+    """Whole samples where a sample fits 128 pixels (no halo, x read once);
+    else rectangles with one halo row and column that cover every input
+    pixel once as their own."""
+    got = upsample_tiling(b, h, w)
+    g_spt, tr, lr, hr, nr, tc, lc, hc, nc = got
+    assert lr * lc * g_spt <= 128 and lr == tr + hr and lc == tc + hc
+    if spt:
+        assert (g_spt, hr, hc, nr, nc) == (spt, 0, 0, 1, 1)
+    else:
+        assert g_spt == 1 and nr == -(-h // tr) and nc == -(-w // tc)
+        # no more than 1.6x the input's pixels are loaded
+        assert nr * nc * lr * lc <= 1.6 * h * w
 
 
 def test_upsample_conv_matches_jax_stylegan2_formulation():

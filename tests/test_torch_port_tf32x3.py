@@ -111,3 +111,17 @@ def test_three_passes_as_close_to_exact_as_ieee(kernel):
     one = np.abs(product(a, b, 1) - exact).max()
     assert three < 4 * ieee
     assert one > 30 * ieee
+
+
+def test_weight_split_on_the_host_is_the_kernels():
+    """``ops/tf32x3.split_tf32``, which splits the stride-2 kernel's weight
+    once per layer, rounds as the kernels' in-register split does, bit for
+    bit, over magnitudes from 1e-30 to 1e30 and both signs."""
+    import torch
+    from ganspace_tpu_torch.ops.tf32x3 import split_tf32
+    rs = np.random.RandomState(3)
+    a = (rs.randn(4096) * 10.0 ** rs.uniform(-30, 30, 4096)).astype(np.float32)
+    hi, lo = split_tf32(torch.from_numpy(a))
+    want_hi, want_lo = split(a)
+    assert np.array_equal(hi.numpy().view(np.uint32), want_hi.view(np.uint32))
+    assert np.array_equal(lo.numpy().view(np.uint32), want_lo.view(np.uint32))
