@@ -21,7 +21,12 @@ Phases, each of which raises on failure:
    stride-2 mode at StyleGAN2's tap and render upsampling shapes and
    StyleGAN's fused ``conv0_up`` shapes at the render's and the video's
    batches, beside cuDNN's transposed convolution (default and
-   deterministic), after its wgmma step alone on one 64 x N x 32 tile.  Every case repeats bit for bit.  The lists are built
+   deterministic), after its wgmma step alone on one 64 x N x 32 tile;
+   BigGAN-512's stride-1 3x3 shapes and ``conv_to_rgb`` (3 and 128 output
+   channels) in the plain mode and its seven nearest-up convs as the
+   stride-2 mode with composite 4x4 kernels, at the render's batch and the
+   ``generator.layers.1`` fit's, beside cuDNN (``conv2d``, and ``conv2d`` of
+   the nearest-upsampled map for the up-convs).  Every case repeats bit for bit.  The lists are built
    from the paths' own batches and configurations;
 6. a full-width StyleGAN2-FFHQ-1024 checkpoint in the reference's rosinality
    format, written from a seeded init into a temporary
@@ -76,7 +81,22 @@ Phases, each of which raises on failure:
    through the card (kernels) against the same model on the CPU (plain
    versions); then one 1024-px StyleGAN image and one batch of
    ``blocks.16x16`` activations the same way;
-16. every kernel shape launched over the run (recorded in front of the
+16. BigGAN-deep-512 (class husky, truncation 1.0) at full width: a
+   HuggingFace ``pytorch_model.bin`` with spectral-norm triples (sigma !=
+   1) written from a seeded init and loaded through
+   ``get_instrumented_model`` (the baked weights, images bit for bit
+   against the model built in memory); the CLI ``visualize --model
+   BigGAN-512 --class husky --layer generator.gen_z --est ipca -c 80 -n
+   1000000 -b 10000`` (the fused stream of truncated device latents into
+   the sketch tier, 24 grids at 512 px); the host-RNG gen_z fits under
+   seeds 1 and 7 at n = 40960 and the gate of the device stream against
+   them (``stdev`` beside the subspace metrics; every device latent within
+   +-2 truncation); a profile of four fused gen_z blocks and of one
+   5-frame forward; the conv tap
+   ``generator.layers.1`` at n = 20000 on the fused stream (kernel B and
+   the stride-2 mode inside the fit); then two 512-px images and the gen_z
+   and layers.1 taps on the card against the CPU;
+17. every kernel shape launched over the run (recorded in front of the
    kernel library) that phase 5 did not cover, such as the fits' batch-1
    probes, held against its plain version by the same bars.
 
@@ -283,6 +303,70 @@ UP_CASES = {
     "sg1_fused": sg1_shapes(1024, RENDER_BATCH)[1],
     "sg1_video": [c for b in VIDEO_BATCHES for c in sg1_shapes(VIDEO_RES, b)[1]],
 }
+# BigGAN-deep-512 (models/biggan.BigGANConfig.for_resolution(512): 128 wide,
+# 14 GenBlocks from 4 to 512 px, attention at 64 px), class husky, truncation
+# 1.0: the README's BigGAN command, BASELINE.json's third configuration.
+# gen_z (D = 4 * 4 * 2048 = 32768) takes the sketch tier; -b 10000 gives the
+# fused activation stream 100 blocks of 10000, and the render 24 grids of 14
+# strips of 5 frames, one forward each
+BG_N, BG_BATCH = 1_000_000, 10_000
+BG_ARGS = ["--model", "BigGAN-512", "--class", "husky", "--layer", "generator.gen_z",
+           "--est", "ipca", "-c", "80", "-n", str(BG_N), "-b", str(BG_BATCH)]
+BG_TAP_D = 4 * 4 * 2048
+BG_STRIPS = 2 * 12 * 14                 # activation and latent mode, 12 grids of 14 rows
+# the stream gate: the host gen_z fits under seeds 1 and 7 and a device one,
+# at the heuristic batch 512 (256 MiB / (32768 * 16 B)); the gate's bar on
+# act_stdev (the truncation sets the scale, which the directions cannot show)
+BG_GATE_N, BG_STDEV_BAR = 40960, 4.0
+# a conv tap with kernel B and B-up inside the fused fit: generator.layers.1
+# (8 px, 2048 channels, D = 131072) at n = 20000, the fused stream forced
+# (156 blocks of the heuristic batch 128)
+BG_TAP, BG_TAP_N, BG_TAP_BATCH = "generator.layers.1", 20_000, 128
+BG_TAP_BLOCKS = BG_TAP_N // BG_TAP_BATCH
+
+
+def bg_shapes(batch: int, upto: int | None = None) -> tuple[list, list]:
+    """Kernel B's calls in one BigGAN-512 forward at ``batch``, through module
+    ``upto`` (a partial forward) or all of them, in order, repeats included:
+    the plain mode's (B, C, Co, H, W) (conv_1 of the blocks that keep their
+    size, every conv_2, conv_to_rgb's three rows) and the stride-2 mode's
+    (B, C, Co, H, W, 4, 1, False) (each up-block's nearest-up conv_1)."""
+    from ganspace_tpu_torch.models.biggan import BigGANConfig
+    cfg = BigGANConfig.for_resolution(512)
+    plain, up, r = [], [], 4
+    for mi, mod in enumerate(cfg.module_plan()):
+        if upto is not None and mi > upto:
+            break
+        if mod[0] == "attn":
+            continue
+        mid = mod[2] // 4
+        if mod[1]:
+            up.append((batch, mid, mid, r, r, 4, 1, False))
+            r *= 2
+        else:
+            plain.append((batch, mid, mid, r, r))
+        plain.append((batch, mid, mid, r, r))
+    if upto is None:
+        plain.append((batch, cfg.channel_width * cfg.layers[-1][2], 3, r, r))
+    return plain, up
+
+
+def bg_plain_cases() -> dict:
+    """Kernel B's plain-mode groups of BigGAN-512: its render's distinct
+    shapes at B = 5 with conv_to_rgb's 128 rows beside its three (the tap
+    read), and the layers.1 fit's at B = 128."""
+    render = list(dict.fromkeys(bg_shapes(RENDER_BATCH)[0]))
+    return {"bg_render": render + [(RENDER_BATCH, 128, 128, 512, 512)],
+            "bg_tap": list(dict.fromkeys(bg_shapes(BG_TAP_BATCH, upto=1)[0]))}
+
+
+def bg_up_cases() -> dict:
+    """The stride-2 mode's BigGAN-512 groups: the seven nearest-up convs at
+    the render's batch and the layers.1 fit's one at B = 128."""
+    return {"bg_render": bg_shapes(RENDER_BATCH)[1],
+            "bg_tap": bg_shapes(BG_TAP_BATCH, upto=1)[1]}
+
+
 # wide-range cases: X = 1e3 randn + 1e2 for A, s spanning 1e-2..1e2 for B
 GRAM_WIDE = (4096, 512)
 CONV_WIDE = [(RENDER_BATCH, 512, 512, 8, 8), (RENDER_BATCH, 512, 512, 64, 64)]
@@ -571,11 +655,12 @@ def sum_rows(rows: list) -> dict:
 def check_conv3x3(gen: torch.Generator) -> dict:
     """Kernel B's plain mode (no scale, no demodulation: the TPU kernel's own
     function) at StyleGAN-1024's ten 3x3 shapes at the render's batch, at
-    the other paths' batches (``PLAIN_PATH_CASES``), and at two ragged
-    shapes (Co <= 16 takes the 16-channel tile)."""
+    the other paths' batches (``PLAIN_PATH_CASES``), at BigGAN-512's
+    (``bg_plain_cases``), and at two ragged shapes (Co <= 16 takes the
+    16-channel tile)."""
     import torch.nn.functional as F
     from ganspace_tpu_torch.ops.modconv import conv3x3, conv3x3_plain
-    groups = {"render": PLAIN_CASES, **PLAIN_PATH_CASES,
+    groups = {"render": PLAIN_CASES, **PLAIN_PATH_CASES, **bg_plain_cases(),
               "ragged": [(3, 20, 16, 9, 13), (2, 16, 7, 5, 5)]}
     out, worst = {}, 0.0
     for group, cases in groups.items():
@@ -641,17 +726,24 @@ def check_upsample_conv(gen: torch.Generator) -> dict:
     conv on the scaled input) at every upsampling shape of the paths, each
     repeated bit for bit; beside it cuDNN's transposed conv, its default
     algorithm and its deterministic one (the price of repeatable bits
-    without this kernel).  The kernel is timed with its split weight kept,
+    without this kernel).  BigGAN's up-convs take the composite kernel of a
+    3x3 weight, and cuDNN's call for them is the conv of the nearest-upsampled
+    map they replace.  The kernel is timed with its split weight kept,
     as a layer keeps it (``UpsampleWeights``)."""
     import torch.nn.functional as F
+    from ganspace_tpu_torch.models.biggan import nearest_up_kernel
     from ganspace_tpu_torch.ops.modconv import (
         UpsampleWeights, upsample_conv, upsample_conv_plain)
     out, worst = {}, 0.0
-    for group, cases in UP_CASES.items():
+    for group, cases in {**UP_CASES, **bg_up_cases()}.items():
         rows = []
         for case in cases:
             b, c, co, h, w, k, pad, modulated = case
             x, wt, s, d = up_inputs(gen, case)
+            if group.startswith("bg_"):
+                # BigGAN's nearest 2x + 3x3 conv, as the composite kernel
+                w3 = torch.randn(co, c, 3, 3, generator=gen, device="cuda") / (9 * c) ** 0.5
+                wt = nearest_up_kernel(w3)
             got = upsample_conv(x, wt, s, d, pad=pad)
             err, rel = conv_err(got, upsample_conv_plain(x, wt, s, d, pad=pad), case,
                                 " stride-2 mode")
@@ -663,6 +755,9 @@ def check_upsample_conv(gen: torch.Generator) -> dict:
             wt_t = wt.transpose(0, 1)
 
             def cudnn():
+                if group.startswith("bg_"):
+                    return F.conv2d(F.interpolate(xs, scale_factor=2, mode="nearest"), w3,
+                                    padding=1)
                 return F.conv_transpose2d(xs, wt_t, stride=2, padding=pad)
             ho = 2 * h + k - 2 - 2 * pad
             nbytes = 4.0 * (b * c * h * w + co * c * k * k + b * co * ho * ho
@@ -1360,6 +1455,299 @@ def check_sg1_vs_cpu() -> None:
         raise AssertionError(f"card and CPU disagree on the {SG1_TAP} activation")
 
 
+class TruncationRecorder:
+    """Wraps BigGAN's device draw (``models/biggan.device_truncated``) over a
+    region: the largest |z| of every draw, kept on the card, and the number
+    of latents drawn, against the bound 2 * truncation."""
+
+    def __enter__(self):
+        from ganspace_tpu_torch.models import biggan
+        self.module, self.draw = biggan, biggan.device_truncated
+        self.max, self.count, self.limit = None, 0, None
+
+        def recording(gen, n, dim, truncation):
+            z = self.draw(gen, n, dim, truncation)
+            m = z.abs().max()
+            self.max = m if self.max is None else torch.maximum(self.max, m)
+            self.count += n
+            self.limit = 2.0 * truncation
+            return z
+        biggan.device_truncated = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.module.device_truncated = self.draw
+        return False
+
+    def check(self, what: str) -> str:
+        if not self.count:
+            raise AssertionError(f"{what}: no latent was drawn on the device")
+        top = float(self.max)
+        if not top <= self.limit:
+            raise AssertionError(f"{what}: a device latent at {top} > {self.limit}")
+        return f"{self.count} device latents, max |z| {top:.6f} <= {self.limit}"
+
+
+def bg_counts(upto: int | None = None) -> tuple[int, int]:
+    """(plain 3x3, stride-2) launches of one BigGAN-512 forward."""
+    plain, up = bg_shapes(1, upto)
+    return len(plain), len(up)
+
+
+def run_biggan_cli(gpu: str) -> tuple[dict, dict]:
+    """``visualize --model BigGAN-512 --class husky --layer generator.gen_z
+    --est ipca -c 80 -n 1000000 -b 10000``: the fused activation stream of
+    truncated device latents (100 blocks of 10000) into the sketch tier, the
+    regression and the random moments riding it; then 24 grids of 14 strips
+    at 512 px through kernel B's plain and stride-2 modes."""
+    from PIL import Image
+    from ganspace_tpu_torch.apps import visualize
+    with tempfile.TemporaryDirectory() as out, environ(GANSPACE_OUTPUT_DIR=out), \
+            TruncationRecorder() as drawn:
+        reset_launches()
+        result = visualize.main(list(BG_ARGS))
+        launches = read_launches()
+        log(f"BigGAN CLI launches: {launches}")
+        plain, up = bg_counts()
+        expect_launches(launches, "BigGAN CLI", conv3x3=plain * BG_STRIPS,
+                        upsample_conv=up * BG_STRIPS)
+        bound = drawn.check("BigGAN CLI")
+        arrays, meta = load_cache(result.cache)
+        if arrays["act_comp"].shape != (80, 1, BG_TAP_D) or arrays["lat_comp"].shape != (80, 1, 128):
+            raise AssertionError(f"BigGAN cache shapes {arrays['act_comp'].shape}, "
+                                 f"{arrays['lat_comp'].shape}")
+        expect_meta(meta, "BigGAN CLI", device_rng=True, fused_linreg=True)
+        lat = arrays["lat_comp"].reshape(80, -1)
+        if np.abs(np.linalg.norm(lat, axis=1) - 1.0).max() > 1e-5:
+            raise AssertionError("BigGAN lat_comp rows are not unit rows")
+        summ = Path(out, "out", "BigGAN-512-husky-t1.0", "generator.gen_z", "ipca", "summ")
+        grids = sorted(p.name for p in summ.glob("*.jpg"))
+        names = ["components", "random_dirs"] + [f"samp{i}_real" for i in range(10)]
+        if grids != sorted(f"{n}_{m}.jpg" for n in names for m in ("ACT", "Z")):
+            raise AssertionError(f"BigGAN summ grids {grids}")
+        with Image.open(summ / "components_Z.jpg") as grid:
+            size = grid.size
+        if size != (5 * 512 + 4 * 8, 14 * 512) or not (summ / "+lightbox.html").is_file():
+            raise AssertionError(f"BigGAN grid of {size} or no lightbox page")
+        log(f"BigGAN npz ok: act_comp (80, 1, {BG_TAP_D}), |C C^T - I| = "
+            f"{arrays['gram_err']:.2e}, unit lat_comp rows; _meta {json.dumps(meta)}; "
+            f"{len(grids)} grids of {size[0]} x {size[1]} px and the lightbox page; {bound}")
+    log(f"BigGAN CLI fit (n = {BG_N}, b = {BG_BATCH}): {result.fit_seconds:.3f} s, "
+        f"{BG_N / result.fit_seconds:.1f} samples/s; phases: {fmt_phases(result.phases)} "
+        f"[{gpu}]")
+    log(f"BigGAN render: {result.images} images at 512 px in {result.render_seconds:.3f} s, "
+        f"{result.images / result.render_seconds:.2f} images/s [{gpu}]")
+    return launches, arrays
+
+
+def check_biggan_stream_gate(gpu: str, inst) -> dict:
+    """The host-RNG gen_z fit under seeds 1 and 7 and the default
+    environment's device fit (the fused stream of truncated device latents)
+    at n = 40960: the device components against the host's, judged by the
+    host seed-1-vs-7 control.  With seeded random weights gen_z's spectrum
+    is nearly flat (the singular values of a random [32768, 128] map), so the
+    principal-angle cuts exist only where it has a gap; the gate always
+    holds ``median_cos`` and ``var_ratio`` to GATE_RATIOS and ``stdev``, the
+    largest relative difference of ``act_stdev``, to BG_STDEV_BAR: the
+    truncation sets the activations' scale, which the directions cannot
+    show.  Returns the runs' launches."""
+    runs = {}
+    for seed in (0, 7):
+        run = fit_only(inst, "generator.gen_z", BG_GATE_N, seed=seed, GANSPACE_DEVICE_RNG=0)
+        expect_launches(run["launches"], "BigGAN host gen_z fit")
+        expect_meta(run["meta"], "BigGAN host gen_z fit", device_rng=False)
+        log(f"BigGAN host-RNG gen_z fit, seed {seed or 1}: {run['seconds']:.3f} s, "
+            f"{BG_GATE_N / run['seconds']:.1f} samples/s; phases: "
+            f"{fmt_phases(run['phases'])} [{gpu}]")
+        runs[seed] = run
+    with TruncationRecorder() as drawn:
+        dev = fit_only(inst, "generator.gen_z", BG_GATE_N)
+    expect_launches(dev["launches"], "BigGAN device gen_z fit")
+    expect_meta(dev["meta"], "BigGAN device gen_z fit", device_rng=True, fused_linreg=True)
+    bound = drawn.check("BigGAN device gen_z fit")
+    log(f"BigGAN device gen_z fit: {dev['seconds']:.3f} s, {BG_GATE_N / dev['seconds']:.1f} "
+        f"samples/s; {bound}; phases: {fmt_phases(dev['phases'])} [{gpu}]")
+    host, ctrl, device = runs[0]["arrays"], runs[7]["arrays"], dev["arrays"]
+
+    def errors(a, b):
+        ca, cb = a["act_comp"].reshape(80, -1), b["act_comp"].reshape(80, -1)
+        cos = np.abs(np.sum(ca.astype(np.float64) * cb, axis=1))
+        return {"median_cos": float(np.median(1.0 - cos)),
+                "var_ratio": float(np.abs(a["var_ratio"] - b["var_ratio"]).max()),
+                "stdev": float(np.abs(a["act_stdev"] / b["act_stdev"] - 1.0).max())}
+    err, ctrl_err = errors(host, device), errors(host, ctrl)
+    bars = {**GATE_RATIOS, "stdev": BG_STDEV_BAR}
+    ratios = {k: err[k] / max(ctrl_err[k], 1e-12) for k in err}
+    try:
+        cuts, cut_err, cut_ctrl, cut_ratios = stream_gate((host, device), (host, ctrl),
+                                                          host["act_stdev"])
+        ratios.update({k: cut_ratios[k] for k in ("cut_mean", "cut_max")})
+        err.update({k: cut_err[k] for k in ("cut_mean", "cut_max")})
+        ctrl_err.update({k: cut_ctrl[k] for k in ("cut_mean", "cut_max")})
+        cut_note = f"{len(cuts)} cuts at a relative gap >= {GATE_GAP}: {cuts}"
+    except AssertionError:
+        cut_note = f"no relative gap >= {GATE_GAP} in the host spectrum: no cut"
+    top = host["act_stdev"][0] ** 2
+    log(f"BigGAN gen_z gate (n = {BG_GATE_N}, c = 80, {cut_note}; host spectrum lambda_80 / "
+        f"lambda_1 = {host['act_stdev'][-1] ** 2 / top:.4f}): device vs host "
+        + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+        + "; host seed 1 vs 7 " + ", ".join(f"{k} {v:.3e}" for k, v in ctrl_err.items())
+        + "; ratios " + ", ".join(f"{k} {v:.3f} (bar {bars[k]})" for k, v in ratios.items())
+        + f" [{gpu}]")
+    bad = [k for k, v in ratios.items() if not v <= bars[k]]
+    if bad:
+        raise AssertionError(f"BigGAN gen_z: the device stream misses the control's bar on {bad}")
+    return {"bg_gate_host": runs[0]["launches"], "bg_gate_host_seed7": runs[7]["launches"],
+            "bg_gate_device": dev["launches"]}
+
+
+def run_biggan_tap_fit(gpu: str, inst) -> dict:
+    """``generator.layers.1`` (D = 131072) at n = 20000 on the fused stream
+    forced below its threshold: 156 blocks of 128, each a tap forward through
+    block 0 (two plain-mode convs) and block 1 (the stride-2 up-conv and one
+    plain-mode conv), into the sketch tier with its refine pass when the
+    policy keeps it."""
+    with TruncationRecorder() as drawn:
+        run = fit_only(inst, BG_TAP, BG_TAP_N, GANSPACE_FUSED_ACTS=1)
+    meta = run["meta"]
+    expect_meta(meta, "BigGAN layers.1 fit", device_rng=True, fused_linreg=True)
+    forwards = 1 + BG_TAP_BLOCKS * (1 + (not meta["refine_skipped"]))
+    plain, up = bg_counts(upto=1)
+    expect_launches(run["launches"], "BigGAN layers.1 fit", conv3x3=plain * forwards,
+                    upsample_conv=up * forwards)
+    if run["arrays"]["act_comp"].shape != (80, 1, 2048, 8, 8):
+        raise AssertionError(f"act_comp shape {run['arrays']['act_comp'].shape}")
+    log(f"BigGAN {BG_TAP} fit at n = {BG_TAP_N} (fused, {BG_TAP_BLOCKS} blocks of "
+        f"{BG_TAP_BATCH}): {run['seconds']:.3f} s, {BG_TAP_N / run['seconds']:.1f} samples/s; "
+        f"launches {run['launches']}; refine_skipped {meta['refine_skipped']}; "
+        f"{drawn.check('BigGAN layers.1 fit')}; phases: {fmt_phases(run['phases'])} [{gpu}]")
+    return run["launches"]
+
+
+def check_biggan_checkpoint(gpu: str) -> dict:
+    """A full-width BigGAN-deep-512 checkpoint in the HuggingFace format,
+    written from a seeded init (CKPT_SEED) into a temporary
+    ``$GANCONTROL_CHECKPOINT_DIR``: every conv and linear but the class
+    embedding as ``weight_orig`` (twice the init, so sigma != 1) with
+    ``weight_u`` and ``weight_v`` from one power-iteration step.  The model
+    ``get_instrumented_model`` builds on the card holds the baked weights
+    (``weight_orig / u^T W v``, computed here in numpy), and its images equal
+    bit for bit those of a model built in memory from them."""
+    from ganspace_tpu_torch.models import get_instrumented_model, get_model
+    from ganspace_tpu_torch.models.biggan import BigGANConfig, init_params
+    params = init_params(BigGANConfig.for_resolution(512), seed=CKPT_SEED)
+    rs = np.random.RandomState(CKPT_SEED)
+    state, expected = {}, {}
+    for k, v in params.items():
+        if not k.endswith(".weight") or k == "embeddings.weight" or k.startswith("generator.bn."):
+            state[k] = torch.from_numpy(v)
+            expected[k] = v
+            continue
+        base = k[:-len(".weight")]
+        w_orig = 2.0 * v
+        w_mat = w_orig.reshape(w_orig.shape[0], -1)
+        vv = w_mat.T @ rs.randn(w_mat.shape[0]).astype(np.float32)
+        vv /= np.linalg.norm(vv)
+        u = w_mat @ vv
+        u /= np.linalg.norm(u)
+        state.update({f"{base}.weight_orig": torch.from_numpy(w_orig),
+                      f"{base}.weight_u": torch.from_numpy(u),
+                      f"{base}.weight_v": torch.from_numpy(vv)})
+        expected[k] = (w_orig / float(u @ w_mat @ vv)).astype(np.float32)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        Path(root, "biggan-deep-512").mkdir()
+        path = Path(root, "biggan-deep-512", "pytorch_model.bin")
+        torch.save(state, path)
+        mib = path.stat().st_size / 2 ** 20
+        with environ(GANCONTROL_CHECKPOINT_DIR=root):
+            torch.cuda.synchronize()
+            reset_launches()
+            inst = get_instrumented_model("BigGAN-512", "husky", "generator.gen_z",
+                                          torch.device("cuda"))
+    load_s = time.perf_counter() - t0
+    del state
+    model = inst.model
+    loaded = model.state_dict()
+    if set(loaded) != set(expected):
+        raise AssertionError("BigGAN checkpoint: the loaded keys differ from the file's")
+    for k, v in expected.items():
+        if not torch.equal(loaded[k].cpu(), torch.from_numpy(v)):
+            raise AssertionError(f"BigGAN checkpoint: {k} differs from the baked weight")
+    if np.array_equal(expected["generator.gen_z.weight"], params["generator.gen_z.weight"]):
+        raise AssertionError("BigGAN checkpoint: sigma is 1, the bake is not exercised")
+    ref = get_model("BigGAN-512", "husky", torch.device("cuda"), params=expected)
+    z = model.sample_latent(CKPT_BATCH, seed=3)
+    img, want = model.forward(z), ref.forward(z)
+    launches = read_launches()
+    if not (torch.isfinite(img).all() and img.shape == (CKPT_BATCH, 3, 512, 512)):
+        raise AssertionError(f"BigGAN checkpoint: image {tuple(img.shape)} or non-finite")
+    if not torch.equal(img, want):
+        raise AssertionError("BigGAN checkpoint: images differ from the in-memory model's")
+    plain, up = bg_counts()
+    expect_launches(launches, "BigGAN checkpoint", conv3x3=2 * plain, upsample_conv=2 * up)
+    log(f"BigGAN checkpoint: a {mib:.1f} MiB HuggingFace .bin at full 512-px width (seed "
+        f"{CKPT_SEED}, sigma != 1) loaded through get_instrumented_model in {load_s:.2f} s: "
+        f"every weight equal to its bake; {CKPT_BATCH} images equal bit for bit to the "
+        f"in-memory model's; launches {launches} [{gpu}]")
+    del inst, model, ref
+    return launches
+
+
+def check_biggan_vs_cpu() -> None:
+    """Two 512-px BigGAN images, then a batch of 16 to ``generator.gen_z`` and
+    to ``generator.layers.1``, on the card (kernels) and on the CPU (plain
+    versions), the same seeded weights and host latents."""
+    from ganspace_tpu_torch.models.base import InstrumentedModel
+    from ganspace_tpu_torch.models.biggan import BigGAN, BigGANConfig, init_params
+    params = init_params(BigGANConfig.for_resolution(512), seed=0)
+    models = [BigGAN(512, "husky", params=params, device=d) for d in ("cuda", "cpu")]
+    z = models[1].sample_latent(2, seed=7)
+    t0 = time.perf_counter()
+    ref = models[1].forward(z)
+    cpu_s = time.perf_counter() - t0
+    img = models[0].forward(z.cuda()).cpu()
+    if not (torch.isfinite(img).all() and img.shape == (2, 3, 512, 512)):
+        raise AssertionError(f"BigGAN image shape {tuple(img.shape)} or non-finite")
+    rel = float((2 * img - 2 * ref).abs().max() / (2 * ref - 1).abs().max())
+    log(f"BigGAN 512 px images, card vs CPU: rel {rel:.3e} (bar {TAP_REL:.0e}); the CPU "
+        f"forward of 2 took {cpu_s:.2f} s")
+    if not rel < TAP_REL:
+        raise AssertionError("card and CPU disagree on the BigGAN 512 px image")
+    z = models[1].sample_latent(16, seed=8)
+    for tap in ("generator.gen_z", BG_TAP):
+        acts = []
+        for model in models:
+            inst = InstrumentedModel(model)
+            inst.retain_layer(tap)
+            model.partial_forward(z.to(model.device), tap)
+            acts.append(inst.retained_features()[tap].cpu())
+        tap_rel = float((acts[0] - acts[1]).abs().max() / acts[1].abs().max())
+        log(f"BigGAN {tap} activation {tuple(acts[1].shape)}, card vs CPU: rel "
+            f"{tap_rel:.3e} (bar {TAP_REL:.0e})")
+        if not tap_rel < TAP_REL:
+            raise AssertionError(f"card and CPU disagree on the BigGAN {tap} activation")
+
+
+def profile_biggan(gpu: str, model) -> None:
+    """Four blocks of the BigGAN CLI's fused stream at gen_z (each 10000
+    truncated latents drawn, the embedding and gen_z, and the sketch,
+    regression and random-projection updates of ``fit_stream``), then one
+    5-frame 512-px forward of its render."""
+    from ganspace_tpu_torch.decomposition import acts_stream_block
+    from ganspace_tpu_torch.estimators.ipca import IPCAEstimator
+    from ganspace_tpu_torch.sampling import SEED_SAMPLING, random_directions_device
+    acts = acts_stream_block(model, "generator.gen_z", BG_BATCH, SEED_SAMPLING)
+    dirs = random_directions_device(80, BG_TAP_D, "cuda")
+    est = IPCAEstimator(80, refine="never")
+
+    def fused():
+        est.fit_stream(acts, 4, with_reg=True, rand_dirs=dirs)
+    profile_run(gpu, f"BigGAN gen_z fused stream (4 blocks of {BG_BATCH}, one pass)", fused)
+    z = model.sample_latent(RENDER_BATCH, seed=1)
+    profile_run(gpu, f"BigGAN 512-px forward (B = {RENDER_BATCH})", lambda: model.forward(z))
+
+
 def _device_us(event) -> float:
     return (getattr(event, "self_device_time_total", 0)
             or getattr(event, "self_cuda_time_total", 0))
@@ -1714,6 +2102,22 @@ def main() -> int:
     del tap_inst
     launches["sg1_video_bedrooms"] = run_sg1_video(gpu)
     log(f"StyleGAN phases wall time: {time.perf_counter() - t0:.1f} s")
+
+    # BigGAN-deep-512, class husky, at full width
+    t0 = time.perf_counter()
+    with ieee_f32():
+        launches["bg_checkpoint"] = check_biggan_checkpoint(gpu)
+    launches["bg_cli"], _ = run_biggan_cli(gpu)
+    bg_inst = get_instrumented_model("BigGAN-512", "husky", "generator.gen_z",
+                                     torch.device("cuda"))
+    launches.update(check_biggan_stream_gate(gpu, bg_inst))
+    with ieee_f32():
+        profile_biggan(gpu, bg_inst.model)
+    del bg_inst
+    tap_inst = get_instrumented_model("BigGAN-512", "husky", BG_TAP, torch.device("cuda"))
+    launches["bg_fit_layers1"] = run_biggan_tap_fit(gpu, tap_inst)
+    del tap_inst
+    log(f"BigGAN phases wall time: {time.perf_counter() - t0:.1f} s")
     conv_npz = runs["convs2_fit_host"]["arrays"]
     with ieee_f32():
         profile_conv_tap_blocks(gpu)
@@ -1721,6 +2125,7 @@ def main() -> int:
         check_sketch_vs_cpu()
         check_vs_cpu(conv_npz)
         check_sg1_vs_cpu()
+        check_biggan_vs_cpu()
         check_launched_shapes(recorder, gen)
     log(f"total wall time: {time.perf_counter() - t_start:.1f} s")
 

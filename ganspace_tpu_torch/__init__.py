@@ -1,12 +1,13 @@
 """ganspace_tpu_torch: the PyTorch + CUDA port of ganspace_tpu.
 
 A second package beside the JAX one, for one NVIDIA Hopper GPU.  It covers
-the visualize CLI on StyleGAN and StyleGAN2: sample latents, run the
-generator to a tap on the card, fit the IPCA estimator (exact moments or
-the Nystrom sketch), regress the components to latent space, write the
-``.npz`` component cache and render the edit grids, sweep videos and
-gallery pages.  The two Pallas kernels of the JAX package are hand-written
-CUDA kernels here (``csrc/``), each beside its plain PyTorch version.
+the visualize CLI on StyleGAN, StyleGAN2 and BigGAN-deep: sample latents,
+run the generator to a tap on the card, fit the IPCA estimator (exact
+moments or the Nystrom sketch), regress the components to latent space,
+write the ``.npz`` component cache and render the edit grids, sweep videos
+and gallery pages.  The two Pallas kernels of the JAX package are
+hand-written CUDA kernels here (``csrc/``), each beside its plain PyTorch
+version.
 Models are built on the card unless the caller names another device.
 
 The package imports ``torch`` and never ``jax`` or ``ganspace_tpu``.

@@ -20,6 +20,8 @@ PyTorch path):
         --layer style --use_w --est ipca -c 80 -n 300000
     python -m ganspace_tpu_torch.apps.visualize --model StyleGAN2 --class ffhq \
         --layer convs.2 --est ipca -c 80 -n 50000
+    python -m ganspace_tpu_torch.apps.visualize --model BigGAN-512 --class husky \
+        --layer generator.gen_z --est ipca -c 80 -n 1000000 -b 10000
 
 A conv tap renders activation-mode grids (``*_ACT.jpg``) beside the
 latent-mode ones (``*_Z.jpg`` or ``*_W.jpg``).

@@ -1,10 +1,10 @@
 """Model registry and instrumented-model factory
 (``ganspace_tpu/models/__init__.py``, reference ``models/wrappers.py:651-735``).
 
-StyleGAN and StyleGAN2 are the families ported so far; custom generators
-can be registered under any name.  Every entry point builds its model on
-the card unless ``device`` names another device; it never falls back to
-the CPU.
+StyleGAN, StyleGAN2 and BigGAN-deep (128, 256 and 512 px) are the families
+ported so far; custom generators can be registered under any name.  Every
+entry point builds its model on the card unless ``device`` names another
+device; it never falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import torch
 from ganspace_tpu_torch import require_device
 from ganspace_tpu_torch.config import Config
 from ganspace_tpu_torch.models.base import BaseGenerator, InstrumentedModel
+from ganspace_tpu_torch.models.biggan import BigGAN
 from ganspace_tpu_torch.models.stylegan import StyleGAN
 from ganspace_tpu_torch.models.stylegan2 import StyleGAN2
 
@@ -37,11 +38,21 @@ def _only(kwargs, keys):
 def get_model(name, output_class=None, device="cuda", **kwargs) -> BaseGenerator:
     """Name -> generator on ``device`` (reference ``wrappers.py:652-684``),
     resolved by :func:`require_device`.  A ``Config`` may be passed as the
-    first argument."""
+    first argument.  ``inst=`` (an :class:`InstrumentedModel`) or ``model=``
+    hands in a built model, which is returned when it is the same network
+    and class, or a BigGAN, which changes its class in place."""
     if isinstance(name, Config):
         cfg = name
         kwargs.setdefault("use_w", cfg.use_w)
         return get_model(cfg.model, cfg.output_class, cfg.device, **kwargs)
+    inst = kwargs.pop("inst", None)
+    model = kwargs.pop("model", None)
+    if inst or model:
+        cached = model or inst.model
+        if cached.model_name == name and (cached.outclass == output_class
+                                          or "BigGAN" in name):
+            cached.set_output_class(output_class)
+            return cached
     device = require_device(device)
     if name in _CUSTOM_MODELS:
         return _CUSTOM_MODELS[name](output_class, device=device, **kwargs)
@@ -52,7 +63,12 @@ def get_model(name, output_class=None, device="cuda", **kwargs) -> BaseGenerator
         return StyleGAN2(class_name=output_class, device=device,
                          **_only(kwargs, ("truncation", "use_w", "cfg", "params",
                                           "latent_avg", "init_seed")))
-    if name in _NOT_PORTED or "BigGAN" in name:
+    if "BigGAN" in name:
+        if "-" not in name:
+            raise ValueError("Please specify BigGAN resolution, e.g. BigGAN-512")
+        return BigGAN(name.split("-")[-1], class_name=output_class, device=device,
+                      **_only(kwargs, ("truncation", "cfg", "params", "init_seed")))
+    if name in _NOT_PORTED:
         raise NotImplementedError(
             f"model {name!r} is not ported yet (ROADMAP.md, queue 1: the other generator families)")
     raise RuntimeError(f"Unknown model {name}")
@@ -83,6 +99,8 @@ def get_instrumented_model(name, output_class=None, layers=None, device="cuda",
 
     use_w = kwargs.pop("use_w", False)
     model = get_model(name, output_class, device, **kwargs)
+    if kwargs.get("inst"):
+        kwargs["inst"].close()
     if not isinstance(layers, (list, tuple)):
         layers = [layers]
     for layer_name in layers:
@@ -104,6 +122,7 @@ __all__ = [
     "get_instrumented_model",
     "annotate_model_shapes",
     "BaseGenerator",
+    "BigGAN",
     "InstrumentedModel",
     "StyleGAN",
     "StyleGAN2",

@@ -1,5 +1,5 @@
-"""Checkpoint location for the StyleGAN families (the locate half of
-``ganspace_tpu/models/checkpoints.py``).
+"""Checkpoint location for the StyleGAN families and BigGAN (the locate
+half of ``ganspace_tpu/models/checkpoints.py``).
 
 A constructor called without ``params`` looks for the reference's file
 under ``$GANCONTROL_CHECKPOINT_DIR`` and loads what it finds; on a miss it
@@ -14,6 +14,8 @@ Layout (the reference's, shared with the JAX package):
       stylegan/stylegan_<class>_<res>.pt                 (lernapparat format)
       stylegan/stylegan_<class>_<res>.pkl                (NVlabs dnnlib pickle)
       stylegan/karras2019stylegan-<class>-<res>x<res>.pkl
+      biggan-deep-<res>/pytorch_model.bin                (HuggingFace format)
+      biggan-deep-<res>/tf_weights.npz                   (TF-Hub variable dump)
 
 Without ``$GANCONTROL_CHECKPOINT_DIR`` the root is the JAX package's own
 default, ``ganspace_tpu/models/checkpoints`` of this checkout, so that one
@@ -63,3 +65,13 @@ def locate_stylegan(outclass: str, resolution: int) -> Tuple[Optional[Path], str
         if found is not None:
             return found, rel
     return None, rel
+
+
+def locate_biggan(resolution: int) -> Tuple[Optional[Path], Optional[Path], str]:
+    """(the HuggingFace ``.bin`` or None, the TF-Hub dump when there is no
+    ``.bin`` or None, the ``.bin``'s path under the root)."""
+    name = f"biggan-deep-{resolution}"
+    rel = f"{name}/pytorch_model.bin"
+    found = find_checkpoint(rel)
+    tf_found = None if found is not None else find_checkpoint(f"{name}/tf_weights.npz")
+    return found, tf_found, rel

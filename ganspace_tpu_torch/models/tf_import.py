@@ -1,5 +1,6 @@
-"""The NVlabs StyleGAN pickle, read without TensorFlow (the StyleGAN half
-of ``ganspace_tpu/models/tf_import.py``).
+"""TF-era checkpoints read without TensorFlow: the NVlabs StyleGAN pickle
+and BigGAN's TF-Hub variable set (``ganspace_tpu/models/tf_import.py``
+without ProGAN).
 
 NVlabs pickles store every variable as a plain numpy array inside the
 ``Network.__getstate__`` dict (keys ``name`` / ``static_kwargs`` /
@@ -8,15 +9,19 @@ stubs the ``dnnlib``/``tfutil`` classes recovers the full ``{var_name:
 ndarray}`` mapping offline.  :func:`import_stylegan_tf` translates the
 generator's names and layouts into the flat parameter dict that
 ``StyleGAN.params_from_jax`` loads (reference
-``models/stylegan/model.py:395-456``).  The ProGAN and BigGAN importers
-come with their model families.
+``models/stylegan/model.py:395-456``).  BigGAN's TF-Hub weights are taken
+as any ``{tf_var_name: ndarray}`` mapping or an ``.npz`` of one (dumped once
+with ``tf.train.load_checkpoint`` where TF is installed): the name map and
+all tensor munging of the reference's converter live in
+:func:`import_biggan_tf`.  The ProGAN importer comes with its model family.
 """
 
 from __future__ import annotations
 
 import io
 import pickle
-from typing import Dict, List
+import re
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -180,4 +185,130 @@ def import_stylegan_tf(src) -> Dict[str, np.ndarray]:
             elif v.ndim == 4:
                 v = _f32(v.transpose(3, 2, 0, 1))
         params[key] = v
+    return params
+
+
+# ---------------------------------------------------------------------------
+# BigGAN (TF-Hub variable set)
+# ---------------------------------------------------------------------------
+
+_EMA = "ema_0.9999"
+
+
+def bake_spectral_norm_tf(w: np.ndarray, u0: np.ndarray,
+                          eps: float = 1e-4) -> np.ndarray:
+    """Bake SN from a TF ``u0`` with the converter's exact arithmetic.
+
+    The reference conversion seeds torch's buffers with one power-iteration
+    step from ``u0`` (``convert_tf_to_pytorch.py:169-183``): ``v =
+    normalize(W^T u0)``, ``u = normalize(W v)``; torch eval then divides by
+    ``sigma = u^T W v = |W v|``.  Collapsed to a single division here.
+    """
+    w_mat = w.reshape(w.shape[0], -1)
+    v = w_mat.T @ u0
+    v = v / max(float(np.linalg.norm(v)), eps)
+    sigma = float(np.linalg.norm(w_mat @ v))
+    return _f32(w / sigma)
+
+
+def _biggan_config_for_vars(tf: Dict[str, np.ndarray]):
+    from ganspace_tpu_torch.models.biggan import BigGANConfig
+    n_blocks = 1 + max((int(m.group(1))
+                        for k in tf
+                        for m in [re.match(r"Generator/GBlock_(\d+)/", k)]
+                        if m), default=0)
+    resolution = {10: 128, 12: 256, 14: 512}.get(n_blocks)
+    if resolution is None:
+        raise ValueError(f"unrecognized BigGAN depth: {n_blocks} GBlocks")
+    return BigGANConfig.for_resolution(resolution)
+
+
+def import_biggan_tf(src, cfg=None,
+                     batch_stats: Optional[Sequence[np.ndarray]] = None
+                     ) -> Dict[str, np.ndarray]:
+    """TF-Hub BigGAN vars -> flat params with spectral norm baked.
+
+    ``src``: ``{tf_var_name: ndarray}`` or the ``.npz`` path of one.  The
+    name map mirrors reference ``convert_tf_to_pytorch.py:60-116``; the
+    tensor munging ``:149-160`` (2-D transposed, 4-D HWIO->OIHW, 1-D
+    squeezed).  ``batch_stats``: the 51-point truncation-sweep BN statistics
+    in the reference's extraction order (means/vars interleaved per BN,
+    ``:186-216``), else bundled in ``src`` as ``stats_0, stats_1, ...``;
+    zeros/ones are substituted when absent.
+    """
+    if isinstance(src, (str, bytes)) or hasattr(src, "__fspath__"):
+        with np.load(src) as z:
+            tf = {k: np.asarray(z[k]) for k in z.files}
+    else:
+        tf = {k: np.asarray(v) for k, v in src.items()}
+    if batch_stats is None:
+        bundled = sorted((k for k in tf if re.fullmatch(r"stats_\d+", k)),
+                         key=lambda k: int(k.split("_")[1]))
+        if bundled:
+            batch_stats = [tf.pop(k) for k in bundled]
+    cfg = cfg or _biggan_config_for_vars(tf)
+
+    params: Dict[str, np.ndarray] = {}
+
+    def lin(tf_base: str, name: str, sn: bool = True):
+        w = _f32(tf[f"{tf_base}/w/{_EMA}"].T)
+        if sn:
+            w = bake_spectral_norm_tf(w, np.squeeze(tf[f"{tf_base}/u0"]), cfg.eps)
+        params[f"{name}.weight"] = w
+        if f"{tf_base}/b/{_EMA}" in tf:
+            params[f"{name}.bias"] = _f32(np.squeeze(tf[f"{tf_base}/b/{_EMA}"]))
+
+    def conv(tf_base: str, name: str):
+        w = _f32(tf[f"{tf_base}/w/{_EMA}"].transpose(3, 2, 0, 1))
+        params[f"{name}.weight"] = bake_spectral_norm_tf(
+            w, np.squeeze(tf[f"{tf_base}/u0"]), cfg.eps)
+        if f"{tf_base}/b/{_EMA}" in tf:
+            params[f"{name}.bias"] = _f32(np.squeeze(tf[f"{tf_base}/b/{_EMA}"]))
+
+    lin("linear", "embeddings", sn=False)
+    lin("Generator/GenZ/G_linear", "generator.gen_z")
+
+    stats = list(batch_stats) if batch_stats is not None else None
+    stat_i = 0
+
+    def bn_stats(name: str, ch: int):
+        nonlocal stat_i
+        if stats is not None:
+            params[f"{name}.running_means"] = _f32(stats[stat_i])
+            params[f"{name}.running_vars"] = _f32(stats[stat_i + 1])
+        else:
+            params[f"{name}.running_means"] = np.zeros((cfg.n_stats, ch), np.float32)
+            params[f"{name}.running_vars"] = np.ones((cfg.n_stats, ch), np.float32)
+        stat_i += 2
+
+    layer_idx = 0
+    for i, (up, cin_mult, cout_mult) in enumerate(cfg.layers):
+        if i == cfg.attention_layer_position:
+            attn = f"generator.layers.{layer_idx}"
+            tf_attn = "Generator/attention"
+            params[f"{attn}.gamma"] = _f32(tf[f"{tf_attn}/gamma/{_EMA}"]).reshape(1)
+            for pt_sub, tf_sub in (("snconv1x1_g", "g"),
+                                   ("snconv1x1_o_conv", "o_conv"),
+                                   ("snconv1x1_phi", "phi"),
+                                   ("snconv1x1_theta", "theta")):
+                conv(f"{tf_attn}/{tf_sub}", f"{attn}.{pt_sub}")
+            layer_idx += 1
+        tf_block = f"Generator/GBlock_{i}" if i > 0 else "Generator/GBlock"
+        base = f"generator.layers.{layer_idx}"
+        cin = cfg.channel_width * cin_mult
+        mid = cin // 4
+        for j, ch in enumerate((cin, mid, mid, mid)):
+            tf_bn = f"{tf_block}/BatchNorm_{j}" if j > 0 else f"{tf_block}/BatchNorm"
+            bn_stats(f"{base}.bn_{j}", ch)
+            lin(f"{tf_bn}/scale", f"{base}.bn_{j}.scale")
+            lin(f"{tf_bn}/offset", f"{base}.bn_{j}.offset")
+        for j in range(4):
+            conv(f"{tf_block}/conv{j}", f"{base}.conv_{j}")
+        layer_idx += 1
+
+    ch_out = cfg.channel_width * cfg.layers[-1][2]
+    bn_stats("generator.bn", ch_out)
+    params["generator.bn.weight"] = _f32(np.squeeze(tf[f"Generator/BatchNorm/scale/{_EMA}"]))
+    params["generator.bn.bias"] = _f32(np.squeeze(tf[f"Generator/BatchNorm/offset/{_EMA}"]))
+    conv("Generator/conv_to_rgb", "generator.conv_to_rgb")
     return params

@@ -1,5 +1,5 @@
-"""Importers of the StyleGAN families' PyTorch checkpoints (the StyleGAN
-half of ``ganspace_tpu/models/torch_import.py``).
+"""Importers of the StyleGAN families' and BigGAN's PyTorch checkpoints
+(``ganspace_tpu/models/torch_import.py`` without ProGAN).
 
 Each returns the flat numpy parameter dict that the models'
 ``params_from_jax`` loads, keyed as the JAX package keys it:
@@ -7,7 +7,11 @@ Each returns the flat numpy parameter dict that the models'
 * StyleGAN2: the rosinality ``.pt`` with ``g_ema`` and ``latent_avg``; the
   grouped-conv leading dim is squeezed, the noises and blur buffers dropped;
 * StyleGAN: the lernapparat state dict, whose names match one to one; the
-  fixed blur buffers are dropped.
+  fixed blur buffers are dropped;
+* BigGAN-deep: the HuggingFace ``pytorch_model.bin``, whose spectral-norm
+  weights are baked: in eval mode torch computes ``W = W_orig / sigma``
+  with ``sigma = u^T W v`` from the stored power-iteration vectors, a
+  constant, so the division happens once here.
 
 A path is read with ``torch.load``; an in-memory dict is taken as it is.
 """
@@ -55,3 +59,34 @@ def import_stylegan(path_or_dict) -> Dict[str, np.ndarray]:
     state = _load_state(path_or_dict)
     return {key: _to_np(value) for key, value in state.items()
             if ".intermediate.kernel" not in key and not key.endswith("blur.kernel")}
+
+
+def bake_spectral_norm(w_orig: np.ndarray, u: np.ndarray,
+                       v: np.ndarray | None = None) -> np.ndarray:
+    """W_orig / sigma with sigma = u^T W_mat v (torch eval-mode semantics).
+
+    If ``v`` is absent (older torch checkpoints store only ``u``), it is the
+    deterministic ``normalize(W_mat^T u)`` torch recomputes each forward.
+    """
+    w_mat = w_orig.reshape(w_orig.shape[0], -1)
+    if v is None:
+        v = w_mat.T @ u
+        v = v / max(np.linalg.norm(v), 1e-12)
+    sigma = float(u @ w_mat @ v)
+    return (w_orig / sigma).astype(np.float32)
+
+
+def import_biggan(path_or_dict) -> Dict[str, np.ndarray]:
+    """The HuggingFace BigGAN-deep state dict -> flat params, every
+    ``weight_orig`` / ``weight_u`` / ``weight_v`` triple baked into one
+    ``weight``."""
+    state = {k: _to_np(v) for k, v in _load_state(path_or_dict).items()}
+    params: Dict[str, np.ndarray] = {}
+    for key, value in state.items():
+        if key.endswith(".weight_orig"):
+            base = key[:-len(".weight_orig")]
+            params[base + ".weight"] = bake_spectral_norm(
+                value, state.get(base + ".weight_u"), state.get(base + ".weight_v"))
+        elif not key.endswith((".weight_u", ".weight_v")):
+            params[key] = value
+    return params

@@ -16,6 +16,11 @@ generator is Philox; on the CPU it is torch's CPU generator.  Neither gives
 threefry's values, and the two differ from each other: device streams are
 compared only statistically.
 
+BigGAN draws truncated latents instead: ``truncation * truncnorm(-2, 2)``
+from scipy on the host (:func:`truncated_latents`, the JAX package's values)
+and the inverse-CDF draw of ``trunc_normal_`` on a block's generator
+(:func:`device_truncated`), both within +-2 truncation.
+
 Seed map (reference ``decomposition.py:34-37``):
   SAMPLING=1, RANDOM_DIRS=2, LINREG=3, VISUALIZATION=5.
 """
@@ -107,6 +112,28 @@ def gaussian_latents(n_samples: int, dim: int, seed: int) -> np.ndarray:
     ``ganspace_tpu.sampling.gaussian_latents``."""
     z = np.random.RandomState(seed).standard_normal(dim * n_samples)
     return z.astype(np.float32).reshape(n_samples, dim)
+
+
+def truncated_latents(n_samples: int, dim: int, truncation: float, seed: int) -> np.ndarray:
+    """``truncation * truncnorm(-2, 2)`` draws of ``RandomState(seed)``, [n, dim]
+    float32 (reference ``pytorch_pretrained_biggan/utils.py:21-33``): the
+    values of ``ganspace_tpu.sampling.truncated_latents``, BigGAN's host
+    stream."""
+    from scipy.stats import truncnorm
+    state = np.random.RandomState(seed)
+    values = truncnorm.rvs(-2, 2, size=(n_samples, dim), random_state=state).astype(np.float32)
+    return truncation * values
+
+
+def device_truncated(gen: torch.Generator, n: int, dim: int, truncation: float) -> torch.Tensor:
+    """An [n, dim] float32 draw of ``truncation * TruncNormal(-2, 2)`` on
+    ``gen``'s device, BigGAN's device stream: the inverse-CDF draw of
+    ``trunc_normal_``, clamped to [-2, 2], so no value lies outside
+    +-2 truncation.  Its values are not the host stream's; the two are
+    compared only statistically."""
+    t = torch.empty((n, dim), dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return truncation * t
 
 
 def random_directions(components: int, dimensions: int) -> np.ndarray:

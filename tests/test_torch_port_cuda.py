@@ -251,3 +251,74 @@ def test_sketch_tier_on_card_matches_cpu(gen):
     assert comps[0].device.type == "cuda" and comps[1].device.type == "cpu"
     cos = (comps[0].cpu() * comps[1]).sum(1).abs()
     assert float(cos.min()) > 0.9999
+
+
+# -- BigGAN-512 (kernel B's plain and stride-2 modes at its shapes) -----------
+
+# (C, resolution) of BigGAN-512's stride-1 3x3 convs: conv_1 of the blocks that
+# keep their size and every conv_2, 512 channels at 4 px to 32 at 512 px
+BIGGAN_3X3 = [(512, 4), (512, 8), (512, 16), (256, 16), (256, 32), (256, 64), (128, 64),
+              (128, 128), (64, 128), (64, 256), (32, 256), (32, 512)]
+# (C, input resolution) of its seven up-blocks' conv_1 (nearest 2x, then 3x3)
+BIGGAN_UP = [(512, 4), (512, 8), (256, 16), (256, 32), (128, 64), (64, 128), (32, 256)]
+
+
+@pytest.mark.parametrize("c,co,r", [(c, c, r) for c, r in BIGGAN_3X3]
+                         + [(128, 3, 512), (128, 128, 512)])
+def test_conv3x3_biggan_shapes_on_card(gen, c, co, r):
+    """The stride-1 convs and ``conv_to_rgb`` (three output rows when the
+    tap is not read, all 128 when it is) at batch 2."""
+    x = torch.randn(2, c, r, r, generator=gen, device="cuda")
+    wt = torch.randn(co, c, 3, 3, generator=gen, device="cuda") / (9 * c) ** 0.5
+    with ieee_f32():
+        got, ref = conv3x3(x, wt), conv3x3_plain(x, wt)
+        assert float((got - ref).abs().max() / ref.abs().max()) < 1e-5
+        assert torch.equal(got, conv3x3(x, wt))
+
+
+@pytest.mark.parametrize("c,r", BIGGAN_UP)
+def test_nearest_up_conv_on_card(gen, c, r):
+    """An up-block's conv_1 through the stride-2 mode with the composite 4x4
+    kernel (padding 1) against cuDNN's conv of the nearest-upsampled map."""
+    import torch.nn.functional as F
+    from ganspace_tpu_torch.models.biggan import nearest_up_kernel
+    x = torch.randn(2, c, r, r, generator=gen, device="cuda")
+    wt = torch.randn(c, c, 3, 3, generator=gen, device="cuda") / (9 * c) ** 0.5
+    with ieee_f32():
+        ck = nearest_up_kernel(wt)
+        got = upsample_conv(x, ck, pad=1)
+        ref = F.conv2d(F.interpolate(x, scale_factor=2, mode="nearest"), wt, padding=1)
+        assert got.shape == ref.shape == (2, c, 2 * r, 2 * r)
+        assert float((got - ref).abs().max() / ref.abs().max()) < 1e-5
+        assert torch.equal(got, upsample_conv(x, ck, pad=1))
+
+
+def test_biggan_on_card_matches_cpu(gen):
+    """A small BigGAN on the card (kernels) and on the CPU (plain versions):
+    the image, the gen_z and a block's taps, and the pure tap function of a
+    regenerated fused block bit for bit."""
+    from ganspace_tpu_torch.decomposition import acts_stream_block
+    from ganspace_tpu_torch.models import biggan as bg
+    from ganspace_tpu_torch.models.base import InstrumentedModel
+    cfg = bg.BigGANConfig(output_dim=32, z_dim=16, channel_width=8,
+                          layers=((False, 16, 16), (True, 16, 8), (True, 8, 4), (True, 4, 2)),
+                          attention_layer_position=2)
+    params = bg.init_params(cfg, seed=3)
+    models = [bg.BigGAN(32, "husky", truncation=0.7, cfg=cfg, params=params, device=d)
+              for d in ("cuda", "cpu")]
+    z = models[1].sample_latent(4, seed=2)
+    taps = ("generator.gen_z", "generator.layers.1", "generator.layers.4.relu")
+    out = []
+    launches = (conv3x3.launches, upsample_conv.launches)
+    for m in models:
+        inst = InstrumentedModel(m)
+        inst.retain_layers(taps)
+        img = m.forward(z.to(m.device))
+        out.append([img.cpu()] + [inst.retained_features()[t].cpu() for t in taps])
+    # per forward: conv_1 of block 0, four conv_2, conv_to_rgb; three up-convs
+    assert (conv3x3.launches - launches[0], upsample_conv.launches - launches[1]) == (6, 3)
+    for got, ref in zip(*out):
+        assert float((got - ref).abs().max() / ref.abs().max()) < 1e-4
+    block = acts_stream_block(models[0], "generator.layers.1", 16, seed=1)
+    (acts, lat), again = block(2), block(2)
+    assert float(lat.abs().max()) <= 1.4 and torch.equal(again[0], acts)

@@ -28,6 +28,9 @@ MODULES = [
     "ganspace_tpu_torch.models.tf_import",
     "ganspace_tpu_torch.models.stylegan",
     "ganspace_tpu_torch.models.stylegan2",
+    "ganspace_tpu_torch.models.biggan",
+    "ganspace_tpu_torch.models.imagenet_classes",
+    "ganspace_tpu_torch.models._imagenet_wnids",
     "ganspace_tpu_torch.decomposition",
     "ganspace_tpu_torch.edit",
     "ganspace_tpu_torch.apps.visualize",

@@ -249,9 +249,12 @@ def test_upsample_weights_rebuilt_only_for_a_new_weight():
 
 
 # (B, H, W, whole-sample blocks expected): the conv-tap path's 4 and 8 px
-# inputs at batch 128 and the render's and StyleGAN's maps at batch 5
+# inputs at batch 128 and the render's and StyleGAN's maps at batch 5, then
+# BigGAN-512's up-convs (4 -> 8 ... 256 -> 512 px) at the render's batch and
+# its shape annotation's batch-1 probe
 UP_TILINGS = [(128, 4, 4, 8), (128, 8, 8, 2), (5, 4, 4, 5), (5, 16, 16, 0), (5, 64, 64, 0),
-              (16, 128, 128, 0), (5, 512, 512, 0)]
+              (16, 128, 128, 0), (5, 512, 512, 0),
+              (5, 8, 8, 2), (5, 32, 32, 0), (5, 128, 128, 0), (5, 256, 256, 0), (1, 4, 4, 1)]
 
 
 @pytest.mark.parametrize("b,h,w,spt", UP_TILINGS)
