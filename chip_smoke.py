@@ -10,7 +10,8 @@ Phases, each of which raises on failure:
 3. the 3xTF32 tensor-core step of ``csrc/tf32x3.cuh`` on one 16x8x8 tile;
 4. kernel A (centered Gram) against its plain PyTorch version, on the card,
    with a wide-range case and a determinism check, and at the paths' block
-   shapes (4096, 5120, 37376 and 65536 rows of 512);
+   shapes (4096, 5120, 37376 and 65536 rows of 512) and the full-batch
+   fits' one launch over 1003520 rows of 512 (also against a float64 Gram);
 5. kernel B against its plain versions: the modulated 3x3 mode at the nine
    modulated 3x3 shapes of 1024-px StyleGAN2 synthesis at the render's
    batch of 5 (and at a batch of 2, for comparison with earlier runs), at
@@ -43,7 +44,16 @@ Phases, each of which raises on failure:
    seed 1 and seed 7: the statistical gate holds the device stream's
    components against the host stream's, judged by the host seed-1-vs-7
    control;
-10. the conv-tap path in the default environment: ``visualize --model
+10. the full-batch estimators at W: ``visualize --model StyleGAN2 --class
+   ffhq --use_w --layer style --est pca -c 80 -n 1000000`` (the whole
+   [1003520, 512] sample matrix collected on the card, kernel A launched
+   once over it, the grids), its components gated against the moments-tier
+   fit of phase 8 by the seed control of phase 9; the ICA fit (kernel A
+   once, for the whitening; its FastICA iterations printed) and the sparse
+   PCA fit (``--sparsity 1.0``, no kernel A; its share of zeros printed) at
+   the same n; then the four full-batch estimators on the card against the
+   CPU on the first 65536 + 4096 W latents;
+11. the conv-tap path in the default environment: ``visualize --model
    StyleGAN2 --class ffhq --layer convs.2 --est ipca -c 80 -n 50000`` in Z
    space (D = 512 * 16 * 16 = 131072; the fused activation stream of 390
    blocks of 128 with the sketch tier's refine pass, the regression's and
@@ -52,13 +62,17 @@ Phases, each of which raises on failure:
    its grids checked; then the fused-regression gate: the same 390 blocks
    regenerated, the explicit normal equations solved against the run's
    components, block 0 drawn again equal bit for bit;
-11. the conv-tap fit alone at ``-n 20000``: the pre-sampled device stream
+12. the conv-tap fit alone at ``-n 20000``: the pre-sampled device stream
    with the regression sweep, the fused activation stream forced below its
    threshold (``GANSPACE_FUSED_ACTS=1``, timed against it) twice, its two
    caches equal bit for bit, then the host-RNG one under seed 1 and seed 7,
    with the fused stream's components beside the seed control (reported,
-   not gated);
-12. StyleGAN (v1), the CLI's default model, at full FFHQ-1024 width: the
+   not gated); then fbpca on the host stream, a full-batch fit (the
+   collecting sweep through kernel B's modulated and stride-2 modes into a
+   [21968, 131072] matrix on the card, the randomized SVD, the regression
+   sweep), beside the host sketch fit (printed, not gated), and fbpca on
+   2048 ``convs.2`` activations on the card against the CPU;
+13. StyleGAN (v1), the CLI's default model, at full FFHQ-1024 width: the
    default command ``visualize --model StyleGAN --class ffhq --layer
    g_mapping --est ipca -c 80`` at the default n = 300000 (the fused
    activation stream into the moments tier; 24 grids through kernel B's
@@ -68,20 +82,20 @@ Phases, each of which raises on failure:
    ``g_synthesis.blocks.16x16`` at n = 50000 (the sketch tier); ``--video``
    on the real 256-px config (bedrooms) at -c 1, cut from 1024 px and 15
    components (~20k frames), through ffmpeg or, without it, GIF;
-13. one fit block of the pre-sampled conv-tap path and 16 blocks of the
+14. one fit block of the pre-sampled conv-tap path and 16 blocks of the
    fused activation stream under ``torch.profiler`` (device time by kernel,
    busy share of the wall time), then the sketch tier on the card against exact
    PCA: a rank-2048 stream at D = 131072 with a slowly decaying spectrum,
    whose exact sample PCA is a 2048-dimensional float64 problem; the
    single-pass sketch must miss the bar there and the refined one pass it;
-14. the sketch tier on the card against the same stream and Omega on the
+15. the sketch tier on the card against the same stream and Omega on the
    CPU (D = 32768);
-15. one 1024-px image, one batch of ``convs.2`` activations and the latent
+16. one 1024-px image, one batch of ``convs.2`` activations and the latent
    regression (``linreg_lstsq`` on the host-RNG conv-tap fit's components)
    through the card (kernels) against the same model on the CPU (plain
    versions); then one 1024-px StyleGAN image and one batch of
    ``blocks.16x16`` activations the same way;
-16. BigGAN-deep-512 (class husky, truncation 1.0) at full width: a
+17. BigGAN-deep-512 (class husky, truncation 1.0) at full width: a
    HuggingFace ``pytorch_model.bin`` with spectral-norm triples (sigma !=
    1) written from a seeded init and loaded through
    ``get_instrumented_model`` (the baked weights, images bit for bit
@@ -96,7 +110,7 @@ Phases, each of which raises on failure:
    ``generator.layers.1`` at n = 20000 on the fused stream (kernel B and
    the stride-2 mode inside the fit); then two 512-px images and the gen_z
    and layers.1 taps on the card against the CPU;
-17. every kernel shape launched over the run (recorded in front of the
+18. every kernel shape launched over the run (recorded in front of the
    kernel library) that phase 5 did not cover, such as the fits' batch-1
    probes, held against its plain version by the same bars.
 
@@ -197,6 +211,23 @@ NPZ_KEYS = {"act_comp", "act_mean", "act_stdev", "lat_comp", "lat_mean",
 GRAM_CASES = [(4096, 512, False), (300, 130, False), (77, 515, False),
               (256, 128, True)]
 W_BATCH = 4096            # decomposition.W_BATCH: the host streams' and remainders' blocks
+# The full-batch estimators (pca, fbpca, ica, spca) fit the whole collected
+# matrix at once: n_total + nb rows, the last nb left zero
+# (decomposition._compute).  At W and n = 1M: 999424 + 4096 rows of 512,
+# kernel A's one launch for PCA and for ICA's whitening.
+W_FULL_ROWS = W_N_1M // W_BATCH * W_BATCH + W_BATCH                   # 1003520
+PCA_ARGS = ["--model", "StyleGAN2", "--class", "ffhq", "--use_w", "--layer", "style",
+            "--est", "pca", "-c", "80", "-n", str(W_N_1M)]
+SPCA_SPARSITY = 1.0       # the CLI's default --sparsity
+# the estimators on the card against the CPU: the first 65536 + 4096 W
+# latents of the pre-sampled device stream, and 2048 convs.2 activations
+# (16 tap forwards at the path's batch) for fbpca
+VS_CPU_W_ROWS, VS_CPU_TAP_ROWS = 65536 + 4096, 2048
+VS_CPU_COS, VS_CPU_STDEV_REL = 0.999, 1e-4
+# sample matrices of more than 2^31 elements, where the estimators still take
+# kernel A (64-bit addresses): a W fit at n = 4M+ and a conv1 fit (D = 8192)
+# at n = 256k+, 64 rows past the 2^31 mark each
+GRAM_OVER_INT = [(2 ** 31 // d + 64, d) for d in (512, 8192)]
 
 
 def w_stream_nb(n: int) -> int:
@@ -521,23 +552,99 @@ def check_centered_gram(gen: torch.Generator) -> dict:
         shapes[f"{n}x{d}"] = gram_timing(x, err)
         CHECKED.add(("centered_gram", n, d))
         del x, got, ref
+    shapes[f"{W_FULL_ROWS}x512"] = check_full_batch_gram(gen)
+    for n, d in GRAM_OVER_INT:
+        shapes[f"{n}x{d}"] = check_gram_over_int(gen, n, d)
     timing["shapes"] = shapes
     return timing
 
 
-def gram_timing(x: torch.Tensor, err: float) -> dict:
+def check_full_batch_gram(gen: torch.Generator) -> dict:
+    """Kernel A where the JAX package calls its Pallas kernel: PCA's Gram
+    and ICA's whitening covariance, one launch over the whole W matrix at
+    n = 1M (W_FULL_ROWS x 512), its mean given.  Against the plain version
+    by the bar, and beside it against a float64 Gram; then timed."""
+    from ganspace_tpu_torch.ops.moments import centered_gram, centered_gram_plain
+    n, d = W_FULL_ROWS, 512
+    x = torch.randn(n, d, generator=gen, device="cuda") * 2.0 + 0.5
+    mean = x.mean(dim=0)
+    launches = centered_gram.launches
+    got = centered_gram(x, mean)
+    if centered_gram.launches != launches + 1:
+        raise AssertionError(f"centered_gram {n}x{d}: the kernel did not launch")
+    ref = centered_gram_plain(x, mean)
+    xd = x.double() - mean.double()
+    ref64 = xd.T @ xd
+    del xd
+    err, bar = float((got - ref).abs().max()), gram_bar(ref)
+    err64 = float((got.double() - ref64).abs().max())
+    plain64 = float((ref.double() - ref64).abs().max())
+    log(f"centered_gram N={n} D={d} (the full-batch fits' one launch, its mean given): "
+        f"max|d| against the plain version {err:.3e} (bar {bar:.3e}); against float64: "
+        f"kernel {err64:.3e}, plain version {plain64:.3e} (max|ref| "
+        f"{float(ref64.abs().max()):.3e})")
+    if not err <= bar:
+        raise AssertionError(f"centered_gram {n}x{d}: max|d| {err} > {bar}")
+    if not torch.equal(got, centered_gram(x, mean)):
+        raise AssertionError(f"centered_gram {n}x{d}: two launches differ")
+    del got, ref, ref64
+    row = gram_timing(x, err)
+    row.update(max_abs_err_f64=err64, plain_max_abs_err_f64=plain64)
+    CHECKED.add(("centered_gram", n, d))
+    return row
+
+
+def check_gram_over_int(gen: torch.Generator, n: int, d: int) -> dict:
+    """The estimators' Gram (``estimators/pca.covariance``) on an [n, d]
+    matrix of more than 2^31 elements: one kernel-A launch, two launches
+    bit-identical, then timed (at D = 8192 over 3 launches, each near a
+    second).  At these n the float32 plain version (one cuBLAS product with
+    K = n) is itself farther from the exact Gram than the bar, so the kernel
+    is held by the bar against the plain version in float64, and must be no
+    farther from it than the float32 plain version."""
+    from ganspace_tpu_torch.estimators.pca import covariance
+    from ganspace_tpu_torch.ops.moments import centered_gram, centered_gram_plain
+    x = torch.randn(n, d, generator=gen, device="cuda") * 2.0 + 0.5
+    mean = x.mean(dim=0)
+    launches = centered_gram.launches
+    got = covariance(x, mean)
+    if centered_gram.launches != launches + 1:
+        raise AssertionError(f"covariance {n}x{d}: {centered_gram.launches - launches} "
+                             "kernel-A launches, expected 1")
+    xd = x.double() - mean.double()
+    ref64 = xd.T @ xd
+    del xd
+    err, bar = float((got.double() - ref64).abs().max()), gram_bar(ref64)
+    plain_err = float((centered_gram_plain(x, mean).double() - ref64).abs().max())
+    log(f"centered_gram N={n} D={d} ({n * d} elements, past 2^31; the estimators' "
+        f"covariance): max|d| against the plain version in float64 {err:.3e} (bar "
+        f"{bar:.3e}); the float32 plain version's {plain_err:.3e}")
+    if not (err <= bar and err <= plain_err):
+        raise AssertionError(f"centered_gram {n}x{d}: max|d| {err} against float64 above "
+                             f"the bar {bar} or the float32 plain version's {plain_err}")
+    if not torch.equal(got, covariance(x, mean)):
+        raise AssertionError(f"centered_gram {n}x{d}: two launches differ")
+    del got, ref64
+    row = gram_timing(x, err, reps=3 if d > 512 else 20)
+    row.update(max_abs_err_f64=err, plain_max_abs_err_f64=plain_err)
+    CHECKED.add(("centered_gram", n, d))
+    return row
+
+
+def gram_timing(x: torch.Tensor, err: float, reps: int = 20) -> dict:
     """Kernel A, its plain version and cuBLAS at one shape, beside the bound;
     the main path passes the block mean (estimators/ipca.py)."""
     from ganspace_tpu_torch.ops.moments import centered_gram, centered_gram_plain
     n, d = x.shape
     mean = x.mean(dim=0)
     xc = x - mean
-    row = timed(median_ms(lambda: centered_gram(x, mean)),
-                median_ms(lambda: centered_gram_plain(x, mean)),
-                median_ms(lambda: xc.T @ xc),
+    warmup = min(3, reps)
+    row = timed(median_ms(lambda: centered_gram(x, mean), reps, warmup),
+                median_ms(lambda: centered_gram_plain(x, mean), reps, warmup),
+                median_ms(lambda: xc.T @ xc, reps, warmup),
                 bound(n * d * (d + 1), 4 * (n * d + d + d * d)))
     row["max_abs_err"] = err
-    log(f"  N={n} D={d}: two launches bit-identical; kernel {row['ms']:.4f} ms, "
+    log(f"  N={n} D={d}: two launches bit-identical; median of {reps}: kernel {row['ms']:.4f} ms, "
         f"plain {row['plain_ms']:.4f} ms, cuBLAS xc.T @ xc {row['library_ms']:.4f} "
         f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; FFMA "
         f"{row['bound_ffma_ms']:.4f} ms), share {row['bound_share']:.3f}")
@@ -937,9 +1044,10 @@ def expect_launches(launches: dict, what: str, **want) -> None:
         raise AssertionError(f"{what}: kernel launches {launches}, expected {want}")
 
 
-def load_cache(path, c: int = 80) -> tuple[dict, dict]:
+def load_cache(path, c: int = 80, orthonormal: bool = True) -> tuple[dict, dict]:
     """(arrays, _meta) of a component cache, its keys, finiteness and
-    orthonormal ``act_comp`` rows checked."""
+    ``act_comp`` rows checked: orthonormal, or unit rows where ``orthonormal``
+    is False (ICA's and sparse PCA's components are no orthogonal basis)."""
     with np.load(path, allow_pickle=False) as data:
         if set(data.files) != NPZ_KEYS:
             raise AssertionError(f"npz keys {sorted(data.files)}")
@@ -949,9 +1057,12 @@ def load_cache(path, c: int = 80) -> tuple[dict, dict]:
         if not np.isfinite(a).all():
             raise AssertionError(f"npz {k} is not finite")
     comp = arrays["act_comp"].reshape(c, -1)
-    gram_err = float(np.abs(comp @ comp.T - np.eye(c)).max())
+    gram = comp @ comp.T
+    gram_err = float(np.abs(gram - np.eye(c)).max() if orthonormal
+                     else np.abs(np.diag(gram) - 1.0).max())
     if gram_err > 1e-4:
-        raise AssertionError(f"act_comp rows not orthonormal: {gram_err}")
+        raise AssertionError(f"act_comp rows not {'orthonormal' if orthonormal else 'unit'}: "
+                             f"{gram_err}")
     arrays["gram_err"] = gram_err
     return arrays, meta
 
@@ -962,15 +1073,36 @@ def expect_meta(meta: dict, what: str, **want) -> None:
         raise AssertionError(f"{what}: _meta {got}, expected {want}")
 
 
-def fit_only(inst, layer: str, n: int, seed: int = 0, **env) -> dict:
+@contextlib.contextmanager
+def record_estimators():
+    """The estimators ``decomposition`` builds in the region, in order (the
+    fitted one is the last: the cache name builds one first).  Only the
+    zero-tail gate needs one: the moments tier's count, mean and scatter,
+    which the cache does not hold."""
+    from ganspace_tpu_torch import decomposition
+    made, real = [], decomposition.get_estimator
+
+    def recording(*args, **kw):
+        made.append(real(*args, **kw))
+        return made[-1]
+    decomposition.get_estimator = recording
+    try:
+        yield made
+    finally:
+        decomposition.get_estimator = real
+
+
+def fit_only(inst, layer: str, n: int, seed: int = 0, estimator: str = "ipca",
+             sparsity: float = 1.0, **env) -> dict:
     """``get_or_compute`` alone (no render) on ``inst``'s model, its launch
-    counts, cache, wall seconds (device drained) and phase seconds."""
+    counts, cache, wall seconds (device drained) and phase seconds; a
+    full-batch fit prints its iterations, where it has them."""
     from ganspace_tpu_torch.config import Config
     from ganspace_tpu_torch.decomposition import get_or_compute
     use_w = inst.model.latent_space_name() == "W"
     config = Config(model=inst.model.model_name, output_class=inst.model.outclass, layer=layer,
-                    estimator="ipca", components=80, n=n, use_w=use_w,
-                    seed=seed or None, device="cuda")
+                    estimator=estimator, components=80, n=n, use_w=use_w,
+                    seed=seed or None, sparsity=sparsity, device="cuda")
     with tempfile.TemporaryDirectory() as out, environ(GANSPACE_OUTPUT_DIR=out, **env):
         phases = {}
         torch.cuda.synchronize()
@@ -980,7 +1112,7 @@ def fit_only(inst, layer: str, n: int, seed: int = 0, **env) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = read_launches()
-        arrays, meta = load_cache(path)
+        arrays, meta = load_cache(path, orthonormal=estimator not in ("ica", "spca"))
     return {"launches": launches, "arrays": arrays, "meta": meta,
             "seconds": seconds, "phases": phases}
 
@@ -1032,8 +1164,11 @@ def run_main_path(gpu: str) -> tuple[dict, dict]:
 
 
 def run_w_fit_1m(gpu: str, inst) -> dict:
-    """The W fit alone at n = 1M on the fused W stream."""
-    run = fit_only(inst, "style", W_N_1M)
+    """The W fit alone at n = 1M on the fused W stream, and its fitted
+    estimator (for ``with_zero_tail``)."""
+    with record_estimators() as made:
+        run = fit_only(inst, "style", W_N_1M)
+    run["estimator"] = made[-1]
     log(f"W fit at n = {W_N_1M}: launches {run['launches']}")
     expect_launches(run["launches"], "W fit at 1M", centered_gram=N_W_1M_BLOCKS)
     expect_meta(run["meta"], "W fit at 1M", device_rng=True)
@@ -1041,7 +1176,7 @@ def run_w_fit_1m(gpu: str, inst) -> dict:
     log(f"W fit at n = {W_N_1M} (n_total {n_total}): {run['seconds']:.3f} s, "
         f"{W_N_1M / run['seconds']:.1f} samples/s; phases: "
         f"{fmt_phases(run['phases'])} [{gpu}]")
-    return run["launches"]
+    return run
 
 
 def min_angle_err(a: np.ndarray, b: np.ndarray, m: int) -> float:
@@ -1091,7 +1226,7 @@ def check_gate(gpu: str, what: str, n: int, device: dict, host: dict, ctrl: dict
         raise AssertionError(f"{what}: the device stream misses the control's bar on {bad}")
 
 
-def check_w_stream_gate(gpu: str, inst, device_arrays: dict) -> tuple[dict, dict]:
+def check_w_stream_gate(gpu: str, inst, device_arrays: dict) -> dict:
     """The host-RNG W fit (seed 1, the earlier path) and its seed-7 control,
     then the device stream's components against the host stream's."""
     runs = {}
@@ -1104,7 +1239,210 @@ def check_w_stream_gate(gpu: str, inst, device_arrays: dict) -> tuple[dict, dict
             f"phases: {fmt_phases(run['phases'])} [{gpu}]")
         runs[seed] = run
     check_gate(gpu, "W stream", W_N, device_arrays, runs[0]["arrays"], runs[7]["arrays"])
-    return runs[0]["launches"], runs[7]["launches"]
+    return runs
+
+
+def with_zero_tail(moments, nb: int, c: int = 80) -> dict:
+    """The exact PCA that the full-batch path computes, from the moments
+    tier's statistics (count n, mean mu, scatter M2) of a stream: its matrix
+    holds nb more rows, left zero, which its mean and scatter count (over
+    N = n + nb rows: M2 + (n nb / N) mu mu^T), so a rank-1 term along the
+    mean joins the covariance.  Components, stdev and var_ratio as the
+    full-batch PCA reports them (population variances over N rows)."""
+    n = moments.count
+    big = n + nb
+    mu = moments.mean.double()
+    cov = (moments.m2.double() + (n * nb / big) * torch.outer(mu, mu)) / big
+    evals, evecs = torch.linalg.eigh(cov)
+    evals, evecs = torch.clamp(torch.flip(evals, (0,)), min=0.0), torch.flip(evecs, (1,))
+    return {"act_comp": evecs[:, :c].T.float().cpu().numpy(),
+            "act_stdev": torch.sqrt(evals[:c]).float().cpu().numpy(),
+            "var_ratio": (evals[:c] / evals.sum()).float().cpu().numpy()}
+
+
+def run_pca_cli(gpu: str, recorder, moments_1m: dict, host: dict) -> dict:
+    """The full-batch path end to end: ``visualize --est pca`` at W and
+    n = 1M, the whole sample matrix collected on the card and fitted at
+    once, kernel A launched once over all its rows, then the grids.  Its
+    components are gated against the moments-tier W fit at n = 1M
+    (``moments_1m``, the fused stream) with the zero tail of the
+    full-batch matrix put in (``with_zero_tail``): two exact PCAs of one
+    distribution from other streams, judged by the host seed-1-vs-7
+    control of ``host``.  The same measure against the moments tier's own
+    cache, without the tail, is printed beside it."""
+    from ganspace_tpu_torch.apps import visualize
+
+    seen, recorder.seen = recorder.seen, set()
+    try:
+        with tempfile.TemporaryDirectory() as out, environ(GANSPACE_OUTPUT_DIR=out):
+            reset_launches()
+            result = visualize.main(list(PCA_ARGS))
+            launches = read_launches()
+            summ = Path(out, "out", "StyleGAN2-ffhq", "style", "pca", "summ")
+            grids = sorted(p.name for p in summ.glob("*.jpg"))
+            arrays, meta = load_cache(result.cache)
+    finally:
+        run_seen, recorder.seen = recorder.seen, seen | recorder.seen
+    log(f"W PCA CLI launches: {launches}")
+    expect_launches(launches, "W PCA CLI", centered_gram=1, modconv3x3=N_CONV_LAUNCHES,
+                    upsample_conv=N_UP_LAUNCHES)
+    gram_shapes = sorted(k[1:] for k in run_seen if k[0] == "centered_gram")
+    if gram_shapes != [(W_FULL_ROWS, 512)]:
+        raise AssertionError(f"W PCA CLI: kernel A at {gram_shapes}, expected "
+                             f"[({W_FULL_ROWS}, 512)]")
+    if result.cache.name != f"stylegan2-ffhq_style_pca-full_c80_n{W_N_1M}_w.npz":
+        raise AssertionError(f"W PCA CLI cache {result.cache.name}")
+    if arrays["act_comp"].reshape(80, -1).shape != (80, 512):
+        raise AssertionError(f"act_comp shape {arrays['act_comp'].shape}")
+    if not (np.diff(arrays["var_ratio"]) <= 1e-7).all():
+        raise AssertionError("var_ratio is not descending")
+    expect_meta(meta, "W PCA CLI", device_rng=True, fused_linreg=False, refine_skipped=None)
+    expected = (["components_W.jpg", "random_dirs_W.jpg"]
+                + [f"samp{i}_real_W.jpg" for i in range(10)])
+    if grids != sorted(expected):
+        raise AssertionError(f"W PCA CLI summ grids {grids}")
+    log(f"W PCA CLI (n = {W_N_1M}, kernel A once at {W_FULL_ROWS} x 512): fit "
+        f"{result.fit_seconds:.3f} s, {W_N_1M / result.fit_seconds:.1f} samples/s; phases: "
+        f"{fmt_phases(result.phases)}; render {result.images} images in "
+        f"{result.render_seconds:.3f} s, {result.images / result.render_seconds:.2f} "
+        f"images/s; |C C^T - I| = {arrays['gram_err']:.2e}; {len(grids)} grids [{gpu}]")
+    control = (host[0]["arrays"], host[7]["arrays"])
+    _, untailed, _, untailed_ratios = stream_gate((moments_1m["arrays"], arrays), control,
+                                                  moments_1m["arrays"]["act_stdev"])
+    log(f"W PCA vs the moments tier's cache, no zero tail (printed, not gated): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in untailed.items()) + "; ratios "
+        + ", ".join(f"{k} {v:.3f}" for k, v in untailed_ratios.items()))
+    tailed = with_zero_tail(moments_1m["estimator"]._moments, W_BATCH)
+    cuts, err, ctrl_err, ratios = stream_gate((tailed, arrays), control, tailed["act_stdev"])
+    log(f"W PCA gate (n = {W_N_1M}, {len(cuts)} cuts at a relative gap >= {GATE_GAP}: "
+        f"{cuts}): PCA vs the moments tier with the zero tail "
+        + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+        + f"; host seed 1 vs 7 at n = {W_N} "
+        + ", ".join(f"{k} {v:.3e}" for k, v in ctrl_err.items())
+        + "; ratios " + ", ".join(f"{k} {v:.3f} (bar {GATE_RATIOS[k]})"
+                                  for k, v in ratios.items()) + f" [{gpu}]")
+    bad = [k for k, v in ratios.items() if not v <= GATE_RATIOS[k]]
+    if bad:
+        raise AssertionError(f"W PCA: misses the control's bar on {bad}")
+    return launches
+
+
+def run_w_full_batch_fit(gpu: str, inst, estimator: str) -> dict:
+    """ICA (kernel A once, for its whitening) or sparse PCA (no kernel A)
+    over the whole W matrix at n = 1M: unit rows, descending stdevs."""
+    run = fit_only(inst, "style", W_N_1M, estimator=estimator, sparsity=SPCA_SPARSITY)
+    what = f"W {estimator} fit at n = {W_N_1M}"
+    expect_launches(run["launches"], what, centered_gram=int(estimator == "ica"))
+    expect_meta(run["meta"], what, device_rng=True, fused_linreg=False)
+    comp, stdev = run["arrays"]["act_comp"].reshape(80, -1), run["arrays"]["act_stdev"]
+    if comp.shape != (80, 512) or not (np.diff(stdev) <= 1e-6).all():
+        raise AssertionError(f"{what}: components {comp.shape} or stdevs not descending")
+    detail = ("FastICA's iterations on the fit's 'Done in' line above" if estimator == "ica"
+              else f"sparsity {SPCA_SPARSITY}: {float(np.mean(comp == 0)):.4f} of the "
+                   f"entries zero")
+    log(f"{what}: {run['seconds']:.3f} s; {detail}; unit rows to {run['arrays']['gram_err']:.2e}, "
+        f"stdevs descending; launches {run['launches']}; phases: "
+        f"{fmt_phases(run['phases'])} [{gpu}]")
+    return run["launches"]
+
+
+def run_conv_fbpca_fit(gpu: str, inst, sketch_host: dict) -> dict:
+    """fbpca at ``convs.2`` and n = 20000 on the host stream: the
+    collecting sweep (kernel B's modulated mode and the stride-2 mode in
+    every tap forward) into an [n_total + nb, 131072] matrix on the card,
+    the randomized SVD, then the ``linreg_lstsq`` sweep.  Its components
+    beside the sketch tier's fit of the same stream (``sketch_host``):
+    printed, not gated."""
+    run = fit_only(inst, "convs.2", CONV_N, estimator="fbpca", GANSPACE_DEVICE_RNG=0)
+    what = f"conv-tap fbpca fit at n = {CONV_N}, host RNG"
+    expect_meta(run["meta"], what, device_rng=False, fused_linreg=False, refine_skipped=None)
+    shape = dict(refined=False, fused_blocks=0, cli=False)
+    expect_launches(run["launches"], what, modconv3x3=conv_tap_launches(**shape),
+                    upsample_conv=conv_tap_launches(**shape, per_tap=UP_PER_TAP_FORWARD,
+                                                    per_full=UP_PER_FORWARD))
+    a = run["arrays"]["act_comp"].reshape(80, -1).astype(np.float64)
+    b = sketch_host["act_comp"].reshape(80, -1)
+    cos = np.abs(np.sum(a * b, axis=1))
+    captured = float(run["arrays"]["var_ratio"].sum() / sketch_host["var_ratio"].sum())
+    log(f"{what}: {run['seconds']:.3f} s, {CONV_N / run['seconds']:.1f} samples/s; "
+        f"launches {run['launches']}; phases: {fmt_phases(run['phases'])} [{gpu}]")
+    log(f"{what} beside the sketch tier's fit of the same stream (printed, not gated): "
+        f"min |cos| {cos.min():.6f}, median |cos| {np.median(cos):.6f}, captured variance "
+        f"(sum of var_ratio) {run['arrays']['var_ratio'].sum():.6f} against "
+        f"{sketch_host['var_ratio'].sum():.6f}, ratio {captured:.6f}")
+    return run["launches"]
+
+
+def fit_on(name: str, x: torch.Tensor, device: str):
+    """(the estimator ``name`` fitted on ``x`` moved to ``device``, seconds)."""
+    from ganspace_tpu_torch.estimators import get_estimator
+    est = get_estimator(name, 80, SPCA_SPARSITY, device=device)
+    t0 = time.perf_counter()
+    est.fit(x.to(device))
+    torch.cuda.synchronize()
+    return est, time.perf_counter() - t0
+
+
+def compare_fits(a, b) -> tuple[float, float]:
+    """(min rank-by-rank |cos|, max relative stdev difference) of two fits."""
+    cos = np.abs(np.sum(a.components_.astype(np.float64) * b.components_, axis=1))
+    return float(cos.min()), float(np.abs(a.stdev / b.stdev - 1.0).max())
+
+
+def check_estimators_vs_cpu(gpu: str, names: tuple, make_x, **want) -> dict:
+    """The estimators ``names`` fitted on the card and on the CPU (the plain
+    versions) from one centered matrix ``make_x()``: rank-by-rank |cos| and
+    stdevs against their bars.  ``want``: the phase's kernel launches."""
+    reset_launches()
+    x = make_x()
+    failed = []
+    for name in names:
+        (card, card_s), (cpu, cpu_s) = fit_on(name, x, "cuda"), fit_on(name, x, "cpu")
+        cos, rel = compare_fits(card, cpu)
+        line = (f"{name} on {tuple(x.shape)}, card vs CPU: min |cos| rank by rank {cos:.7f}, "
+                f"stdev rel {rel:.3e}")
+        if name == "ica":
+            line += f", {card.n_iter_} / {cpu.n_iter_} iterations"
+        line += f" (bars {VS_CPU_COS}, {VS_CPU_STDEV_REL:.0e})"
+        if not (cos > VS_CPU_COS and rel < VS_CPU_STDEV_REL):
+            failed.append(name)
+        log(line + f"; card {card_s:.3f} s, CPU {cpu_s:.3f} s [{gpu}]")
+    launches = read_launches()
+    expect_launches(launches, "estimators card vs CPU", **want)
+    if failed:
+        raise AssertionError(f"{failed}: card and CPU disagree")
+    return launches
+
+
+def planted_sources(rows: int, d: int = 512, c: int = 80, seed: int = 0) -> torch.Tensor:
+    """``rows`` samples of c Laplace sources mixed into d dimensions by a
+    Gaussian matrix, centered, on the card: an ICA problem with one answer,
+    which near-Gaussian W latents of random weights are not."""
+    rs = np.random.RandomState(seed)
+    s = torch.from_numpy(rs.laplace(size=(rows, c)).astype(np.float32)).cuda()
+    x = s @ torch.from_numpy(rs.standard_normal((c, d)).astype(np.float32)).cuda()
+    return x - x.mean(dim=0, keepdim=True)
+
+
+def w_matrix(model, rows: int) -> torch.Tensor:
+    """The first ``rows`` W latents of the pre-sampled device stream (the
+    full-batch W path's blocks), centered."""
+    from ganspace_tpu_torch.sampling import SEED_SAMPLING
+    x = torch.cat(model.sample_latents_device(rows // W_BATCH, W_BATCH, SEED_SAMPLING))
+    x = x.reshape(rows, -1)
+    return x - x.mean(dim=0, keepdim=True)
+
+
+def tap_matrix(inst, rows: int) -> torch.Tensor:
+    """``rows`` convs.2 activations, ``CONV_BATCH`` host latents a tap
+    forward, centered."""
+    model, chunks = inst.model, []
+    model.seed_host_rng(0)
+    for _ in range(rows // CONV_BATCH):
+        model.partial_forward(model.sample_latent(CONV_BATCH), "convs.2")
+        chunks.append(inst.retained_features()["convs.2"].reshape(CONV_BATCH, -1))
+    x = torch.cat(chunks)
+    return x - x.mean(dim=0, keepdim=True)
 
 
 def run_conv_tap_path(gpu: str) -> tuple[dict, dict]:
@@ -2058,9 +2396,26 @@ def main() -> int:
     # one model per latent space for the fit-only runs (the CLI's weights)
     w_inst = get_instrumented_model("StyleGAN2", "ffhq", "style", torch.device("cuda"),
                                     use_w=True)
-    launches["w_fit_1m"] = run_w_fit_1m(gpu, w_inst)
-    launches["w_fit_host"], launches["w_fit_host_seed7"] = check_w_stream_gate(
-        gpu, w_inst, w_device)
+    w_fit_1m = run_w_fit_1m(gpu, w_inst)
+    launches["w_fit_1m"] = w_fit_1m["launches"]
+    w_host = check_w_stream_gate(gpu, w_inst, w_device)
+    launches["w_fit_host"], launches["w_fit_host_seed7"] = (w_host[0]["launches"],
+                                                            w_host[7]["launches"])
+    # the full-batch estimators at W: the PCA CLI (the full-batch path end
+    # to end) gated against the moments-tier fit, then ICA and sparse PCA
+    t0 = time.perf_counter()
+    launches["w_pca_cli"] = run_pca_cli(gpu, recorder, w_fit_1m, w_host)
+    launches["w_ica_fit_1m"] = run_w_full_batch_fit(gpu, w_inst, "ica")
+    launches["w_spca_fit_1m"] = run_w_full_batch_fit(gpu, w_inst, "spca")
+    with ieee_f32():
+        # FastICA on near-Gaussian W latents has no single answer (1e-7
+        # noise moves it), so it is held on planted sources
+        launches["estimators_vs_cpu_w"] = check_estimators_vs_cpu(
+            gpu, ("pca", "fbpca", "spca"), lambda: w_matrix(w_inst.model, VS_CPU_W_ROWS),
+            centered_gram=1)
+        launches["ica_vs_cpu_planted"] = check_estimators_vs_cpu(
+            gpu, ("ica",), lambda: planted_sources(VS_CPU_W_ROWS), centered_gram=1)
+    log(f"W full-batch estimators wall time: {time.perf_counter() - t0:.1f} s")
     del w_inst
     t0 = time.perf_counter()
     launches["convs2_cli"], conv50 = run_conv_tap_path(gpu)
@@ -2075,6 +2430,15 @@ def main() -> int:
             "convs2_fit_host": run_conv_fit(gpu, conv_inst, device_rng=False),
             "convs2_fit_host_seed7": run_conv_fit(gpu, conv_inst, device_rng=False,
                                                   seed=7)}
+    t0 = time.perf_counter()
+    launches["convs2_fbpca_fit_host"] = run_conv_fbpca_fit(gpu, conv_inst,
+                                                           runs["convs2_fit_host"]["arrays"])
+    with ieee_f32():
+        forwards = VS_CPU_TAP_ROWS // CONV_BATCH
+        launches["fbpca_vs_cpu_convs2"] = check_estimators_vs_cpu(
+            gpu, ("fbpca",), lambda: tap_matrix(conv_inst, VS_CPU_TAP_ROWS),
+            modconv3x3=B_PER_TAP_FORWARD * forwards, upsample_conv=UP_PER_TAP_FORWARD * forwards)
+    log(f"conv-tap fbpca wall time: {time.perf_counter() - t0:.1f} s")
     del conv_inst
     launches.update({path: run["launches"] for path, run in runs.items()})
     log(f"conv-tap fit at n = {CONV_N}: fused stream "

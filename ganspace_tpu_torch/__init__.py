@@ -2,8 +2,9 @@
 
 A second package beside the JAX one, for one NVIDIA Hopper GPU.  It covers
 the visualize CLI on StyleGAN, StyleGAN2 and BigGAN-deep: sample latents,
-run the generator to a tap on the card, fit the IPCA estimator (exact
-moments or the Nystrom sketch), regress the components to latent space,
+run the generator to a tap on the card, fit the streaming IPCA estimator
+(exact moments or the Nystrom sketch) or a full-batch one (PCA, randomized
+SVD, FastICA, sparse PCA), regress the components to latent space,
 write the ``.npz`` component cache and render the edit grids, sweep videos
 and gallery pages.  The two Pallas kernels of the JAX package are
 hand-written CUDA kernels here (``csrc/``), each beside its plain PyTorch

@@ -30,7 +30,9 @@
 //     the fixed order 0..ks-1: no atomics, so two launches give the same
 //     bits;
 //   * ragged N and D edges are zero-filled on the copy, masked out of the
-//     centering, and masked on the store.
+//     centering, and masked on the store;
+//   * rows and columns are counted in int and X and G addressed in 64 bits,
+//     so X may hold more than 2^31 elements (the full-batch fits' matrices).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>

@@ -1,9 +1,10 @@
 """Decomposition pipeline (``ganspace_tpu/decomposition.py``).
 
 Sample latents -> run the generator to the tap -> stream blocks through the
-IPCA estimator -> regress the components back to latent space -> write the
-``.npz`` cache whose keys, ``_meta`` fields and filename scheme match the
-JAX package's (and the reference's, ``decomposition.py:332-341, 384-394``).
+IPCA estimator, or collect them for a full-batch one -> regress the
+components back to latent space -> write the ``.npz`` cache whose keys,
+``_meta`` fields and filename scheme match the JAX package's (and the
+reference's, ``decomposition.py:332-341, 384-394``).
 
 The path is chosen as the JAX package's ``_compute`` chooses it
 (``decomposition.py:755-830``):
@@ -21,7 +22,9 @@ The path is chosen as the JAX package's ``_compute`` chooses it
   card, or on the host under ``GANSPACE_DEVICE_RNG=0`` or above
   ``GANSPACE_LATENT_HBM_BUDGET``), NB-sample blocks of partial forwards
   through ``fit_partial``, the refine sweep, and a separate regression
-  sweep.
+  sweep.  For the full-batch estimators (``pca``, ``fbpca``, ``ica``,
+  ``spca``) the same blocks are collected into one sample matrix on the
+  model's device (the "Collecting" sweep) and fitted at once.
 
 ``GANSPACE_DEVICE_RNG=0`` is the JAX package's bit-exact host path.  Not
 ported: the fused-acts sentinel registry (``auto`` is the sample-count rule
@@ -300,7 +303,11 @@ def _compute(config, dump_name: Path,
         print(f"WARNING: clamping components {config.components} -> "
               f"{n_components} (feature dim {sample_dims}); the cache "
               f"filename keeps the requested count")
-    transformer = get_estimator(config.estimator, n_components, config.sparsity)
+    transformer = get_estimator(config.estimator, n_components, config.sparsity,
+                                device=device)
+    # The full-batch estimators (pca, fbpca, ica, spca) fit the whole sample
+    # matrix at once; ipca streams.
+    full_batch = not transformer.batch_support
 
     # Decomposition on a non-Gaussian latent space (reference
     # decomposition.py:239): the samples are the W latents themselves.
@@ -316,11 +323,31 @@ def _compute(config, dump_name: Path,
     # Round N down to full batches, but never below one batch.
     batch = min(batch, config.n)
     n_total = config.n // batch * batch
+
+    if full_batch:
+        budget = 20 * 1_000_000_000
+        feat_bytes = sample_dims * np.dtype("float64").itemsize
+        if n_total > budget // feat_bytes:
+            print("WARNING: estimator does not support batching, given config "
+                  "will use {:.1f} GB memory.".format(feat_bytes / 1e9 * n_total))
+    if config.estimator == "ica":
+        lapack_max_n = np.floor_divide(np.iinfo(np.int32).max // 4, sample_dims)
+        if n_total > lapack_max_n:
+            raise RuntimeError(f"Matrices too large for ICA, please use N <= {lapack_max_n}")
+
     print("B={}, N={}, dims={}, N/dims={:.1f}".format(
         batch, n_total, sample_dims, n_total / sample_dims), flush=True)
 
     # Must not depend on the chosen batch size (reproducibility)
     nb = max(batch, max(2_000, 3 * n_components))
+
+    # The full-batch sample matrix, on the model's device: deliberately
+    # n_total + nb rows with the tail left zero, and the fit runs over ALL
+    # of them, as the JAX package and the reference do
+    # (decomposition.py:224,267,278-285: N + NB rows allocated, ceil(N/NB)
+    # blocks filled, the fit on "all samples"), so that the caches match.
+    samples = (torch.zeros((n_total + nb, sample_dims), dtype=torch.float32, device=device)
+               if full_batch else None)
 
     # -- the path (decomposition.py:751-830) --------------------------------
     seed0 = config.seed or SEED_SAMPLING
@@ -330,10 +357,11 @@ def _compute(config, dump_name: Path,
         os.environ.get("GANSPACE_LATENT_HBM_BUDGET", 8 * 1024 ** 3))
     device_rng = _env_on("GANSPACE_DEVICE_RNG")
     lat_fn = model.device_latents_fn()
-    streamable = (transformer._use_moments(sample_dims)
-                  or transformer._use_nystrom(sample_dims))
-    fused = (samples_are_latents and device_rng and lat_fn is not None
-             and transformer._use_moments(sample_dims))
+    # the streaming tiers are IPCA's alone (the JAX package's getattr guards)
+    use_moments = getattr(transformer, "_use_moments", lambda d: False)(sample_dims)
+    streamable = use_moments or getattr(transformer, "_use_nystrom",
+                                        lambda d: False)(sample_dims)
+    fused = samples_are_latents and device_rng and lat_fn is not None and use_moments
     want_reg = _env_on("GANSPACE_FUSED_LINREG")
     acts_block = (None if samples_are_latents
                   else acts_stream_block(model, layer_key, batch, seed0,
@@ -379,13 +407,13 @@ def _compute(config, dump_name: Path,
 
     stamp("setup")
 
-    def run_sweep(action):
-        """Stream every NB block through ``fit_partial``; returns the last
-        assembled block (kept for the stdev baselines)."""
+    def run_sweep(action, feed=lambda gi, xb: transformer.fit_partial(xb)):
+        """Stream every NB block through ``feed(gi, block)``; returns the
+        last assembled block (kept for the stdev baselines)."""
         xb = None
         for bi, gi in enumerate(range(0, n_total, nb)):
             xb = make_block(gi)
-            if not transformer.fit_partial(xb):
+            if not feed(gi, xb):
                 break
             print(f"\r{action} batches (NB={nb}): {bi + 1}/{n_blocks}",
                   end="", flush=True)
@@ -447,6 +475,14 @@ def _compute(config, dump_name: Path,
             transformer.abort_refine()
             canceled = interrupted()
             x_block = None
+    elif full_batch:
+        def collect(gi, xb):
+            samples[gi:gi + nb] = xb
+            return True
+        try:
+            run_sweep("Collecting", collect)
+        except KeyboardInterrupt:
+            sys.exit(1)  # nothing fitted yet
     else:
         try:
             x_block = run_sweep("Fitting")
@@ -458,7 +494,7 @@ def _compute(config, dump_name: Path,
     # refine inside fit_stream): the latents are kept, so one more sweep buys
     # a power iteration on the scatter, unless the adaptive policy finds the
     # first-pass sketch resolved (the moments tier never refines).
-    if (not canceled and not (fused or fused_acts)
+    if (not canceled and not (fused or fused_acts or full_batch)
             and transformer.should_refine() and transformer.begin_refine()):
         try:
             run_sweep("Refine pass")
@@ -471,25 +507,52 @@ def _compute(config, dump_name: Path,
             canceled = True
     stamp("refine")
 
-    if canceled and transformer.n_samples_seen_ == 0:
-        print("Nothing fitted before the interrupt — exiting without a "
-              "partial save")
-        sys.exit(1)
-    x_global_mean = transformer.mean_.reshape((1, sample_dims))
-    if x_block is None:
-        x_block = torch.zeros((1, sample_dims), dtype=torch.float32, device=device)
+    if full_batch:
+        # The global mean over all n_total + nb rows, the zero tail included
+        # (decomposition.py:1203-1212), then the whole-batch fit.
+        mean_t = torch.mean(samples, dim=0, keepdim=True)
+        samples -= mean_t
+        x_global_mean = mean_t.cpu().numpy()
+        print(f"[{timestamp()}] Fitting whole batch")
+        t_start_fit = datetime.datetime.now()
+        transformer.fit(samples)
+        n_iter = getattr(transformer, "n_iter_", None)
+        print(f"[{timestamp()}] Done in {datetime.datetime.now() - t_start_fit}"
+              + ("" if n_iter is None else f", {n_iter} iterations"))
+        if not np.all(np.abs(transformer.mean_) < 1e-3):
+            raise AssertionError("Mean of normalized data should be zero")
+        # the random baselines read the first 5000 centered rows; the rest
+        # of the matrix goes before the regression sweep
+        x_centered = samples[:5000].clone()
+        del samples
+        stamp("fit")
+    else:
+        if canceled and transformer.n_samples_seen_ == 0:
+            print("Nothing fitted before the interrupt — exiting without a "
+                  "partial save")
+            sys.exit(1)
+        x_global_mean = transformer.mean_.reshape((1, sample_dims))
+        if x_block is None:
+            x_block = torch.zeros((1, sample_dims), dtype=torch.float32, device=device)
+        x_centered = x_block[:5000] - torch.as_tensor(x_global_mean, device=device)
 
     # The components stay on the device for the regression; samples-are-
     # latents runs take the moments tier's bundle (lat_stdev and the random
     # baselines included).
-    rand_mom = transformer.rand_moments() if device_rng_used else None
+    rand_mom = (getattr(transformer, "rand_moments", lambda: None)()
+                if device_rng_used else None)
     bundle_stats = None
     if samples_are_latents:
-        bundle = transformer.finish_latent_bundle(rand_moments=rand_mom)
+        bundle = getattr(transformer, "finish_latent_bundle",
+                         lambda **_k: None)(rand_moments=rand_mom)
         if bundle is not None:
             x_comp, bundle_stats = bundle
             x_stdev, x_var_ratio = bundle_stats[0], bundle_stats[1]
-    if bundle_stats is None:
+    if bundle_stats is None and full_batch:
+        # the full-batch estimators hand back host arrays
+        x_comp, x_stdev, x_var_ratio = transformer.get_components()
+        x_comp = torch.as_tensor(x_comp, device=device)
+    elif bundle_stats is None:
         x_comp, x_stdev, x_var_ratio = transformer.get_components(device=True)
     if (tuple(x_comp.shape) != (n_components, sample_dims)
             or x_stdev.shape[0] != n_components):
@@ -505,7 +568,7 @@ def _compute(config, dump_name: Path,
         z_comp = x_comp.cpu().numpy()
         z_global_mean = np.array(x_global_mean)
     else:
-        reg = transformer.reg_moments()
+        reg = getattr(transformer, "reg_moments", lambda: None)()
         if reg is not None:
             fused_linreg_used = True
             z_comp, z_global_mean = regression_from_moments(
@@ -520,8 +583,8 @@ def _compute(config, dump_name: Path,
     # Random-direction stdev baselines (reference decomposition.py:310-316).
     # From the moments that rode the stream (all n samples; variance is
     # shift-invariant, so the global-mean centering falls out), else over
-    # the first 5000 rows of the last block, centered by the global mean,
-    # along directions from the stream the samples came from.
+    # the first 5000 centered rows of the full-batch matrix or of the last
+    # block, along directions from the stream the samples came from.
     if bundle_stats is not None and rand_mom is not None:
         x_stdev_random = bundle_stats[3]
     elif rand_mom is not None:
@@ -532,10 +595,7 @@ def _compute(config, dump_name: Path,
                        if device_rng_used else
                        torch.as_tensor(random_directions(n_components, sample_dims),
                                        device=device))
-        n_rand_samples = min(5000, x_block.shape[0])
-        x_data = (x_block[:n_rand_samples]
-                  - torch.as_tensor(x_global_mean, device=device))
-        x_stdev_random = torch.std(random_dirs @ x_data.T, dim=1,
+        x_stdev_random = torch.std(random_dirs @ x_centered.T, dim=1,
                                    correction=0).cpu().numpy()
 
     x_comp = x_comp.cpu().numpy().reshape(-1, *sample_shape)
@@ -612,7 +672,9 @@ def _compute(config, dump_name: Path,
 
 def component_cache_name(config) -> str:
     """The reference filename scheme (``decomposition.py:384-392``)."""
-    transformer = get_estimator(config.estimator, config.components, config.sparsity)
+    # the parameter string alone: the estimator is never fitted here
+    transformer = get_estimator(config.estimator, config.components, config.sparsity,
+                                device="cpu")
     return "{}-{}_{}_{}_n{}{}{}.npz".format(
         config.model.lower(),
         (config.output_class or "None").replace(" ", "_"),

@@ -34,8 +34,10 @@ def centered_gram(x: torch.Tensor, mu: torch.Tensor | None = None) -> torch.Tens
     if x.dtype != torch.float32:
         raise TypeError(f"centered_gram: x must be float32, got {x.dtype}")
     n, d = x.shape
-    if n * d >= 2 ** 31:
-        raise ValueError(f"centered_gram: {n} x {d} exceeds the kernel's int sizes")
+    # the kernel counts rows and columns in int (with a stage of headroom
+    # for the per-rank rounding) and addresses X and G in 64 bits
+    if max(n, d) > 2 ** 31 - 2 ** 10:
+        raise ValueError(f"centered_gram: {n} x {d} exceeds the kernel's int row count")
     x = x.contiguous()
     if mu is None:
         mu = x.mean(dim=0)

@@ -322,3 +322,25 @@ def test_biggan_on_card_matches_cpu(gen):
     block = acts_stream_block(models[0], "generator.layers.1", 16, seed=1)
     (acts, lat), again = block(2), block(2)
     assert float(lat.abs().max()) <= 1.4 and torch.equal(again[0], acts)
+
+
+@pytest.mark.parametrize("name", ["pca", "ica"])
+def test_full_batch_estimators_take_kernel_a_on_card(gen, name):
+    """PCA's Gram and ICA's whitening covariance: one kernel-A launch over
+    the whole matrix (n >= d, 512 <= d <= 8192), components as on the CPU.
+    ICA on planted Laplace sources, where its answer is unique."""
+    import numpy as np
+    from ganspace_tpu_torch.estimators import get_estimator
+    rs = np.random.RandomState(0)
+    src = rs.laplace(size=(8192, 16)) if name == "ica" else rs.randn(8192, 64)
+    x = torch.from_numpy((src @ rs.randn(src.shape[1], 512)).astype(np.float32)).cuda()
+    x -= x.mean(dim=0, keepdim=True)
+    launches = centered_gram.launches
+    card = get_estimator(name, 16, device="cuda")
+    card.fit(x)
+    assert centered_gram.launches == launches + 1
+    cpu = get_estimator(name, 16, device="cpu")
+    cpu.fit(x.cpu())
+    cos = np.abs(np.sum(card.components_.astype(np.float64) * cpu.components_, axis=1))
+    assert cos.min() > 0.999
+    np.testing.assert_allclose(card.stdev, cpu.stdev, rtol=1e-4)

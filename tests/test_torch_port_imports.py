@@ -21,6 +21,10 @@ MODULES = [
     "ganspace_tpu_torch.estimators",
     "ganspace_tpu_torch.estimators.utils",
     "ganspace_tpu_torch.estimators.ipca",
+    "ganspace_tpu_torch.estimators.pca",
+    "ganspace_tpu_torch.estimators.rsvd",
+    "ganspace_tpu_torch.estimators.ica",
+    "ganspace_tpu_torch.estimators.spca",
     "ganspace_tpu_torch.models",
     "ganspace_tpu_torch.models.base",
     "ganspace_tpu_torch.models.checkpoints",

@@ -70,8 +70,9 @@ def test_refusals():
     big = IPCAEstimator(4)
     assert big.fit_partial(np.zeros((8, 8193), np.float32))
     assert big._moments is None and big._nystrom is not None
-    with pytest.raises(NotImplementedError):
-        get_estimator("pca", 4)
+    # every estimator of the JAX package is ported; an unknown name is refused
+    with pytest.raises(RuntimeError, match="Unknown estimator"):
+        get_estimator("nope", 4)
 
 
 def test_svd_flip_makes_largest_coordinate_positive():
