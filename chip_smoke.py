@@ -27,8 +27,13 @@ Phases, each of which raises on failure:
    channels) in the plain mode and its seven nearest-up convs as the
    stride-2 mode with composite 4x4 kernels, at the render's batch and the
    ``generator.layers.1`` fit's, beside cuDNN (``conv2d``, and ``conv2d`` of
-   the nearest-upsampled map for the up-convs).  Every case repeats bit for bit.  The lists are built
-   from the paths' own batches and configurations;
+   the nearest-upsampled map for the up-convs); ProGAN-256's seven 3x3
+   and six nearest-up convs the same way, at the render's batch and at the
+   layer2 and layer6 fits'; DCGAN's four transposed convs (the last to 3
+   channels) at the render's batch and the deconv1 fit's; kernel A at
+   ProGAN's layer2 block, 2048 rows of 8192.  Every case repeats bit for
+   bit.  The lists are built from the paths' own batches and
+   configurations;
 6. a full-width StyleGAN2-FFHQ-1024 checkpoint in the reference's rosinality
    format, written from a seeded init into a temporary
    ``$GANCONTROL_CHECKPOINT_DIR`` and built on the card through
@@ -110,7 +115,20 @@ Phases, each of which raises on failure:
    ``generator.layers.1`` at n = 20000 on the fused stream (kernel B and
    the stride-2 mode inside the fit); then two 512-px images and the gen_z
    and layers.1 taps on the card against the CPU;
-18. every kernel shape launched over the run (recorded in front of the
+18. ProGAN-256 (class bedroom) and the pytorch_GAN_zoo DCGAN at full
+   width: a GANDissect ``.pth`` and a zoo hub ``.pth`` written from seeded
+   inits and loaded through ``get_instrumented_model`` (images bit for bit
+   against the models built in memory); ``visualize --model ProGAN --class
+   bedroom --layer layer2 --est ipca -c 80`` at the default n = 300000 (the
+   fused stream into the moments tier, kernel A at [2048, 8192] per block,
+   24 grids at 256 px), its host-RNG fits under seeds 1 and 7 and the
+   flat-spectrum gate of the device stream against them; the ``layer6``
+   fit at n = 20000 on the fused stream, twice, bit for bit; ``visualize
+   --model DCGAN --layer deconv1 --est ipca -c 80`` at n = 300000 (the
+   sketch tier, the stride-2 kernel at k = 4 in the fit, 24 grids at 64
+   px); then both models' images and every tap on the card against the
+   CPU;
+19. every kernel shape launched over the run (recorded in front of the
    kernel library) that phase 5 did not cover, such as the fits' batch-1
    probes, held against its plain version by the same bars.
 
@@ -258,10 +276,11 @@ SG1_BLOCKS = -(-(SG1_N // SG1_BATCH * SG1_BATCH) // SG1_BATCH)         # 73
 # the --use_w fit: the fused W stream, 8 blocks of 37376
 SG1_W_BLOCKS = (SG1_N // W_BATCH * W_BATCH) // w_stream_nb(SG1_N)
 # kernel A's blocks on the paths, the block mean given: the fused W streams
-# (n = 40960, 1M and StyleGAN's --use_w at 300000) and 4096 (the host
-# streams, the remainders, StyleGAN's g_mapping activation stream)
+# (n = 40960, 1M and StyleGAN's --use_w at 300000), 4096 (the host
+# streams, the remainders, StyleGAN's g_mapping activation stream) and
+# ProGAN's layer2 block, 2048 rows of 8192 (PG_BATCH, PG_D below)
 GRAM_STREAM_SHAPES = sorted({(w_stream_nb(n), 512) for n in (W_N, W_N_1M, SG1_N)}
-                            | {(W_BATCH, 512)})
+                            | {(W_BATCH, 512), (2048, 8192)})
 # a conv tap through the sketch tier: blocks.16x16, D = 512 * 16 * 16
 SG1_TAP, SG1_TAP_N, SG1_TAP_BATCH = "g_synthesis.blocks.16x16", 50_000, 128
 SG1_TAP_BLOCKS = SG1_TAP_N // SG1_TAP_BATCH                           # 390
@@ -346,9 +365,9 @@ BG_ARGS = ["--model", "BigGAN-512", "--class", "husky", "--layer", "generator.ge
 BG_TAP_D = 4 * 4 * 2048
 BG_STRIPS = 2 * 12 * 14                 # activation and latent mode, 12 grids of 14 rows
 # the stream gate: the host gen_z fits under seeds 1 and 7 and a device one,
-# at the heuristic batch 512 (256 MiB / (32768 * 16 B)); the gate's bar on
-# act_stdev (the truncation sets the scale, which the directions cannot show)
-BG_GATE_N, BG_STDEV_BAR = 40960, 4.0
+# at the heuristic batch 512 (256 MiB / (32768 * 16 B)); the flat-spectrum
+# gate's bar on act_stdev (check_flat_gate)
+BG_GATE_N, STDEV_BAR = 40960, 4.0
 # a conv tap with kernel B and B-up inside the fused fit: generator.layers.1
 # (8 px, 2048 channels, D = 131072) at n = 20000, the fused stream forced
 # (156 blocks of the heuristic batch 128)
@@ -396,6 +415,89 @@ def bg_up_cases() -> dict:
     the render's batch and the layers.1 fit's one at B = 128."""
     return {"bg_render": bg_shapes(RENDER_BATCH)[1],
             "bg_tap": bg_shapes(BG_TAP_BATCH, upto=1)[1]}
+
+
+def pg_plain_cases() -> dict:
+    """Kernel B's plain-mode groups of ProGAN-256: its render's seven 3x3
+    shapes at B = 5, the layer2 CLI fit's one at B = 2048 and the layer6
+    fit's three at B = 128."""
+    return {"pg_render": pg_shapes(RENDER_BATCH)[0],
+            "pg_l2_fit": pg_shapes(PG_BATCH, upto="layer2")[0],
+            "pg_l6_fit": pg_shapes(PG_TAP_BATCH, upto=PG_TAP)[0]}
+
+
+def up_groups() -> dict:
+    """Every stride-2 group: StyleGAN2's and StyleGAN's, BigGAN-512's and
+    ProGAN-256's nearest-up convs (composite kernels), ProGAN's at its
+    render's batch and the layer6 fit's, and DCGAN's transposed convs at
+    its render's batch (the last to three channels) and the deconv1 fit's."""
+    return {**UP_CASES, **bg_up_cases(),
+            "pg_render": pg_shapes(RENDER_BATCH)[1],
+            "pg_l6_fit": pg_shapes(PG_TAP_BATCH, upto=PG_TAP)[1],
+            "dc_render": dc_shapes(RENDER_BATCH), "dc_fit": dc_shapes(DC_BATCH, upto=1)}
+
+
+#: the stride-2 groups whose cases are nearest 2x + 3x3 as a composite kernel
+NEAREST_UP_GROUPS = ("bg_", "pg_")
+
+
+# ProGAN-256 (GANDissect ProgressiveGenerator, models/proggan.SIZES_FOR_RESOLUTION
+# [256]: 512 channels from 4 to 16 px, then 256, 128, 64 and 32 to 256 px),
+# class bedroom: the CLI at layer2 (D = 512 * 4 * 4 = 8192, the moments tier:
+# kernel A once per block of the fused activation stream) at the config's
+# default n, its batch the heuristic's 256 MiB / (8192 * 16 B) = 2048: 146
+# blocks; 24 grids of 14 strips at 256 px.  Then layer6 (16 px, D = 131072,
+# the sketch tier) at n = 20000: 156 fused blocks of 128
+PG_N, PG_BATCH, PG_D = 300_000, 2048, 512 * 4 * 4
+PG_ARGS = ["--model", "ProGAN", "--class", "bedroom", "--layer", "layer2", "--est", "ipca",
+           "-c", "80", "-n", str(PG_N)]
+PG_BLOCKS = PG_N // PG_BATCH                                     # 146
+PG_STRIPS = 2 * 12 * 14                 # activation and latent mode, 12 grids of 14 rows
+PG_TAP, PG_TAP_N, PG_TAP_BATCH = "layer6", 20_000, 128
+PG_TAP_BLOCKS = PG_TAP_N // PG_TAP_BATCH                         # 156
+# the pytorch_GAN_zoo DCGAN (models/dcgan.DCGANConfig(): 140-dim latent, 512
+# channels at 4 px to 64 at 32 px, RGB at 64 px): the CLI at deconv1 (8 px,
+# D = 256 * 8 * 8 = 16384, the sketch tier) at the default n, its batch
+# 256 MiB / (16384 * 16 B) = 1024: 292 fused blocks; 24 grids at 64 px.
+# Its partial_forward is a full forward, as the reference's is
+DC_N, DC_BATCH, DC_D = 300_000, 1024, 256 * 8 * 8
+DC_ARGS = ["--model", "DCGAN", "--layer", "deconv1", "--est", "ipca", "-c", "80",
+           "-n", str(DC_N)]
+DC_BLOCKS = DC_N // DC_BATCH                                     # 292
+DC_STRIPS = 2 * 12 * 14
+
+
+def pg_shapes(batch: int, upto: str | None = None) -> tuple[list, list]:
+    """Kernel B's calls in one ProGAN-256 forward at ``batch``, through the
+    layer ``upto`` or all of them: the plain mode's (B, C, Co, H, W) (every
+    stride-1 3x3) and the stride-2 mode's (B, C, Co, H, W, 4, 1, False)
+    (every up layer, its composite 4x4 kernel)."""
+    from ganspace_tpu_torch.models.proggan import ProGANConfig
+    plain, up, r = [], [], 4
+    for name, cin, cout, k, _, is_up in ProGANConfig.for_resolution(256).layer_plan():
+        if is_up:
+            up.append((batch, cin, cout, r, r, 4, 1, False))
+            r *= 2
+        elif k == 3:
+            plain.append((batch, cin, cout, r, r))
+        if name == upto:
+            break
+    return plain, up
+
+
+def dc_shapes(batch: int, upto: int | None = None) -> list:
+    """The stride-2 mode's calls in one DCGAN forward at ``batch``, through
+    ``deconv{upto}`` or all of them: (B, C, Co, H, W, 4, 1, False)."""
+    from ganspace_tpu_torch.models.dcgan import DCGANConfig
+    ch = DCGANConfig().channels()
+    return [(batch, ch[i - 1], ch[i], 2 ** (i + 1), 2 ** (i + 1), 4, 1, False)
+            for i in range(1, len(ch)) if upto is None or i <= upto]
+
+
+def pg_counts(upto: str | None = None) -> tuple[int, int]:
+    """(plain 3x3, stride-2) launches of one ProGAN-256 forward."""
+    plain, up = pg_shapes(1, upto)
+    return len(plain), len(up)
 
 
 # wide-range cases: X = 1e3 randn + 1e2 for A, s spanning 1e-2..1e2 for B
@@ -763,12 +865,12 @@ def check_conv3x3(gen: torch.Generator) -> dict:
     """Kernel B's plain mode (no scale, no demodulation: the TPU kernel's own
     function) at StyleGAN-1024's ten 3x3 shapes at the render's batch, at
     the other paths' batches (``PLAIN_PATH_CASES``), at BigGAN-512's
-    (``bg_plain_cases``), and at two ragged shapes (Co <= 16 takes the
-    16-channel tile)."""
+    (``bg_plain_cases``) and ProGAN-256's (``pg_plain_cases``), and at two
+    ragged shapes (Co <= 16 takes the 16-channel tile)."""
     import torch.nn.functional as F
     from ganspace_tpu_torch.ops.modconv import conv3x3, conv3x3_plain
     groups = {"render": PLAIN_CASES, **PLAIN_PATH_CASES, **bg_plain_cases(),
-              "ragged": [(3, 20, 16, 9, 13), (2, 16, 7, 5, 5)]}
+              **pg_plain_cases(), "ragged": [(3, 20, 16, 9, 13), (2, 16, 7, 5, 5)]}
     out, worst = {}, 0.0
     for group, cases in groups.items():
         rows = []
@@ -838,17 +940,17 @@ def check_upsample_conv(gen: torch.Generator) -> dict:
     map they replace.  The kernel is timed with its split weight kept,
     as a layer keeps it (``UpsampleWeights``)."""
     import torch.nn.functional as F
-    from ganspace_tpu_torch.models.biggan import nearest_up_kernel
     from ganspace_tpu_torch.ops.modconv import (
-        UpsampleWeights, upsample_conv, upsample_conv_plain)
+        UpsampleWeights, nearest_up_kernel, upsample_conv, upsample_conv_plain)
     out, worst = {}, 0.0
-    for group, cases in {**UP_CASES, **bg_up_cases()}.items():
+    for group, cases in up_groups().items():
+        nearest = group.startswith(NEAREST_UP_GROUPS)
         rows = []
         for case in cases:
             b, c, co, h, w, k, pad, modulated = case
             x, wt, s, d = up_inputs(gen, case)
-            if group.startswith("bg_"):
-                # BigGAN's nearest 2x + 3x3 conv, as the composite kernel
+            if nearest:
+                # BigGAN's and ProGAN's nearest 2x + 3x3 conv, as the composite kernel
                 w3 = torch.randn(co, c, 3, 3, generator=gen, device="cuda") / (9 * c) ** 0.5
                 wt = nearest_up_kernel(w3)
             got = upsample_conv(x, wt, s, d, pad=pad)
@@ -862,7 +964,7 @@ def check_upsample_conv(gen: torch.Generator) -> dict:
             wt_t = wt.transpose(0, 1)
 
             def cudnn():
-                if group.startswith("bg_"):
+                if nearest:
                     return F.conv2d(F.interpolate(xs, scale_factor=2, mode="nearest"), w3,
                                     padding=1)
                 return F.conv_transpose2d(xs, wt_t, stride=2, padding=pad)
@@ -1042,6 +1144,16 @@ def expect_launches(launches: dict, what: str, **want) -> None:
     want = {name: want.get(name, 0) for name in launches}
     if launches != want:
         raise AssertionError(f"{what}: kernel launches {launches}, expected {want}")
+
+
+def expect_state(model, params: dict, what: str) -> None:
+    """The model's weights are ``params``, key for key and bit for bit."""
+    loaded = model.state_dict()
+    if set(loaded) != set(params):
+        raise AssertionError(f"{what}: the loaded keys differ from the file's")
+    for k, v in params.items():
+        if not torch.equal(loaded[k].cpu(), torch.from_numpy(v)):
+            raise AssertionError(f"{what}: {k} differs from the file's")
 
 
 def load_cache(path, c: int = 80, orthonormal: bool = True) -> tuple[dict, dict]:
@@ -1586,16 +1698,15 @@ def report_conv_stream_gate(gpu: str, fused: dict, host: dict, ctrl: dict) -> No
                                   for k, v in ratios.items()) + f" [{gpu}]")
 
 
-def check_fused_fit_repeats(first: dict, again: dict) -> None:
-    """The fused conv-tap fit at n = 20000 twice: every array of the two
-    caches equal bit for bit (every kernel of the tap forward sums in a
-    fixed order)."""
+def check_fit_repeats(what: str, first: dict, again: dict) -> None:
+    """A fused fit run twice: every array of the two caches equal bit for
+    bit (every kernel of the tap forward sums in a fixed order)."""
     same = {k: np.array_equal(first["arrays"][k], again["arrays"][k])
             for k in NPZ_KEYS - {"_meta"}}
-    log(f"fused conv-tap fit at n = {CONV_N}, run twice: caches bit for bit "
+    log(f"{what}, run twice: caches bit for bit "
         f"{all(same.values())} ({', '.join(k for k, v in sorted(same.items()) if v)})")
     if not all(same.values()):
-        raise AssertionError(f"the two fused fits differ in "
+        raise AssertionError(f"{what}: the two fits differ in "
                              f"{sorted(k for k, v in same.items() if not v)}")
 
 
@@ -1838,7 +1949,6 @@ def run_biggan_cli(gpu: str) -> tuple[dict, dict]:
     truncated device latents (100 blocks of 10000) into the sketch tier, the
     regression and the random moments riding it; then 24 grids of 14 strips
     at 512 px through kernel B's plain and stride-2 modes."""
-    from PIL import Image
     from ganspace_tpu_torch.apps import visualize
     with tempfile.TemporaryDirectory() as out, environ(GANSPACE_OUTPUT_DIR=out), \
             TruncationRecorder() as drawn:
@@ -1858,18 +1968,11 @@ def run_biggan_cli(gpu: str) -> tuple[dict, dict]:
         lat = arrays["lat_comp"].reshape(80, -1)
         if np.abs(np.linalg.norm(lat, axis=1) - 1.0).max() > 1e-5:
             raise AssertionError("BigGAN lat_comp rows are not unit rows")
-        summ = Path(out, "out", "BigGAN-512-husky-t1.0", "generator.gen_z", "ipca", "summ")
-        grids = sorted(p.name for p in summ.glob("*.jpg"))
-        names = ["components", "random_dirs"] + [f"samp{i}_real" for i in range(10)]
-        if grids != sorted(f"{n}_{m}.jpg" for n in names for m in ("ACT", "Z")):
-            raise AssertionError(f"BigGAN summ grids {grids}")
-        with Image.open(summ / "components_Z.jpg") as grid:
-            size = grid.size
-        if size != (5 * 512 + 4 * 8, 14 * 512) or not (summ / "+lightbox.html").is_file():
-            raise AssertionError(f"BigGAN grid of {size} or no lightbox page")
+        grids = check_grids(Path(out, "out", "BigGAN-512-husky-t1.0", "generator.gen_z",
+                                 "ipca", "summ"), 512, "BigGAN CLI")
         log(f"BigGAN npz ok: act_comp (80, 1, {BG_TAP_D}), |C C^T - I| = "
             f"{arrays['gram_err']:.2e}, unit lat_comp rows; _meta {json.dumps(meta)}; "
-            f"{len(grids)} grids of {size[0]} x {size[1]} px and the lightbox page; {bound}")
+            f"{grids}; {bound}")
     log(f"BigGAN CLI fit (n = {BG_N}, b = {BG_BATCH}): {result.fit_seconds:.3f} s, "
         f"{BG_N / result.fit_seconds:.1f} samples/s; phases: {fmt_phases(result.phases)} "
         f"[{gpu}]")
@@ -1878,17 +1981,52 @@ def run_biggan_cli(gpu: str) -> tuple[dict, dict]:
     return launches, arrays
 
 
+def check_flat_gate(gpu: str, what: str, device: dict, host: dict, ctrl: dict) -> None:
+    """The device stream's components against the host stream's, judged by
+    the host seed-1-vs-7 control, where seeded random weights give a nearly
+    flat spectrum (BigGAN's gen_z, ProGAN's layer2): the principal-angle
+    cuts exist only where it has a relative gap of GATE_GAP, so the gate
+    always holds ``median_cos`` and ``var_ratio`` to GATE_RATIOS and
+    ``stdev``, the largest relative difference of ``act_stdev``, to
+    STDEV_BAR, and the cuts where there are any."""
+    def errors(a, b):
+        ca, cb = a["act_comp"].reshape(80, -1), b["act_comp"].reshape(80, -1)
+        cos = np.abs(np.sum(ca.astype(np.float64) * cb, axis=1))
+        return {"median_cos": float(np.median(1.0 - cos)),
+                "var_ratio": float(np.abs(a["var_ratio"] - b["var_ratio"]).max()),
+                "stdev": float(np.abs(a["act_stdev"] / b["act_stdev"] - 1.0).max())}
+    err, ctrl_err = errors(host, device), errors(host, ctrl)
+    bars = {**GATE_RATIOS, "stdev": STDEV_BAR}
+    ratios = {k: err[k] / max(ctrl_err[k], 1e-12) for k in err}
+    try:
+        cuts, cut_err, cut_ctrl, cut_ratios = stream_gate((host, device), (host, ctrl),
+                                                          host["act_stdev"])
+        ratios.update({k: cut_ratios[k] for k in ("cut_mean", "cut_max")})
+        err.update({k: cut_err[k] for k in ("cut_mean", "cut_max")})
+        ctrl_err.update({k: cut_ctrl[k] for k in ("cut_mean", "cut_max")})
+        cut_note = f"{len(cuts)} cuts at a relative gap >= {GATE_GAP}: {cuts}"
+    except AssertionError:
+        cut_note = f"no relative gap >= {GATE_GAP} in the host spectrum: no cut"
+    top = host["act_stdev"][0] ** 2
+    log(f"{what} gate (c = 80, {cut_note}; host spectrum lambda_80 / lambda_1 = "
+        f"{host['act_stdev'][-1] ** 2 / top:.4f}): device vs host "
+        + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+        + "; host seed 1 vs 7 " + ", ".join(f"{k} {v:.3e}" for k, v in ctrl_err.items())
+        + "; ratios " + ", ".join(f"{k} {v:.3f} (bar {bars[k]})" for k, v in ratios.items())
+        + f" [{gpu}]")
+    bad = [k for k, v in ratios.items() if not v <= bars[k]]
+    if bad:
+        raise AssertionError(f"{what}: the device stream misses the control's bar on {bad}")
+
+
 def check_biggan_stream_gate(gpu: str, inst) -> dict:
     """The host-RNG gen_z fit under seeds 1 and 7 and the default
     environment's device fit (the fused stream of truncated device latents)
     at n = 40960: the device components against the host's, judged by the
-    host seed-1-vs-7 control.  With seeded random weights gen_z's spectrum
-    is nearly flat (the singular values of a random [32768, 128] map), so the
-    principal-angle cuts exist only where it has a gap; the gate always
-    holds ``median_cos`` and ``var_ratio`` to GATE_RATIOS and ``stdev``, the
-    largest relative difference of ``act_stdev``, to BG_STDEV_BAR: the
-    truncation sets the activations' scale, which the directions cannot
-    show.  Returns the runs' launches."""
+    host seed-1-vs-7 control (:func:`check_flat_gate`: with seeded random
+    weights gen_z's spectrum is nearly flat, the singular values of a random
+    [32768, 128] map, and the truncation sets the activations' scale, which
+    the directions cannot show).  Returns the runs' launches."""
     runs = {}
     for seed in (0, 7):
         run = fit_only(inst, "generator.gen_z", BG_GATE_N, seed=seed, GANSPACE_DEVICE_RNG=0)
@@ -1905,36 +2043,8 @@ def check_biggan_stream_gate(gpu: str, inst) -> dict:
     bound = drawn.check("BigGAN device gen_z fit")
     log(f"BigGAN device gen_z fit: {dev['seconds']:.3f} s, {BG_GATE_N / dev['seconds']:.1f} "
         f"samples/s; {bound}; phases: {fmt_phases(dev['phases'])} [{gpu}]")
-    host, ctrl, device = runs[0]["arrays"], runs[7]["arrays"], dev["arrays"]
-
-    def errors(a, b):
-        ca, cb = a["act_comp"].reshape(80, -1), b["act_comp"].reshape(80, -1)
-        cos = np.abs(np.sum(ca.astype(np.float64) * cb, axis=1))
-        return {"median_cos": float(np.median(1.0 - cos)),
-                "var_ratio": float(np.abs(a["var_ratio"] - b["var_ratio"]).max()),
-                "stdev": float(np.abs(a["act_stdev"] / b["act_stdev"] - 1.0).max())}
-    err, ctrl_err = errors(host, device), errors(host, ctrl)
-    bars = {**GATE_RATIOS, "stdev": BG_STDEV_BAR}
-    ratios = {k: err[k] / max(ctrl_err[k], 1e-12) for k in err}
-    try:
-        cuts, cut_err, cut_ctrl, cut_ratios = stream_gate((host, device), (host, ctrl),
-                                                          host["act_stdev"])
-        ratios.update({k: cut_ratios[k] for k in ("cut_mean", "cut_max")})
-        err.update({k: cut_err[k] for k in ("cut_mean", "cut_max")})
-        ctrl_err.update({k: cut_ctrl[k] for k in ("cut_mean", "cut_max")})
-        cut_note = f"{len(cuts)} cuts at a relative gap >= {GATE_GAP}: {cuts}"
-    except AssertionError:
-        cut_note = f"no relative gap >= {GATE_GAP} in the host spectrum: no cut"
-    top = host["act_stdev"][0] ** 2
-    log(f"BigGAN gen_z gate (n = {BG_GATE_N}, c = 80, {cut_note}; host spectrum lambda_80 / "
-        f"lambda_1 = {host['act_stdev'][-1] ** 2 / top:.4f}): device vs host "
-        + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
-        + "; host seed 1 vs 7 " + ", ".join(f"{k} {v:.3e}" for k, v in ctrl_err.items())
-        + "; ratios " + ", ".join(f"{k} {v:.3f} (bar {bars[k]})" for k, v in ratios.items())
-        + f" [{gpu}]")
-    bad = [k for k, v in ratios.items() if not v <= bars[k]]
-    if bad:
-        raise AssertionError(f"BigGAN gen_z: the device stream misses the control's bar on {bad}")
+    check_flat_gate(gpu, f"BigGAN gen_z (n = {BG_GATE_N})", dev["arrays"], runs[0]["arrays"],
+                    runs[7]["arrays"])
     return {"bg_gate_host": runs[0]["launches"], "bg_gate_host_seed7": runs[7]["launches"],
             "bg_gate_device": dev["launches"]}
 
@@ -2006,12 +2116,7 @@ def check_biggan_checkpoint(gpu: str) -> dict:
     load_s = time.perf_counter() - t0
     del state
     model = inst.model
-    loaded = model.state_dict()
-    if set(loaded) != set(expected):
-        raise AssertionError("BigGAN checkpoint: the loaded keys differ from the file's")
-    for k, v in expected.items():
-        if not torch.equal(loaded[k].cpu(), torch.from_numpy(v)):
-            raise AssertionError(f"BigGAN checkpoint: {k} differs from the baked weight")
+    expect_state(model, expected, "BigGAN checkpoint")
     if np.array_equal(expected["generator.gen_z.weight"], params["generator.gen_z.weight"]):
         raise AssertionError("BigGAN checkpoint: sigma is 1, the bake is not exercised")
     ref = get_model("BigGAN-512", "husky", torch.device("cuda"), params=expected)
@@ -2065,6 +2170,290 @@ def check_biggan_vs_cpu() -> None:
             f"{tap_rel:.3e} (bar {TAP_REL:.0e})")
         if not tap_rel < TAP_REL:
             raise AssertionError(f"card and CPU disagree on the BigGAN {tap} activation")
+
+
+def check_progan_checkpoint(gpu: str) -> dict:
+    """A full-width ProGAN-256 checkpoint in GANDissect's naming (the flat
+    ``layerN.conv.weight`` / ``layerN.wscale.b`` state dict), written from a
+    seeded init (CKPT_SEED) as ``progan/bedroom_lsun.pth`` in a temporary
+    ``$GANCONTROL_CHECKPOINT_DIR``: the model ``get_instrumented_model``
+    builds on the card reads its channel schedule off the file, holds its
+    weights, and its images equal bit for bit those of the model built from
+    the params in memory.  Returns its launches."""
+    from ganspace_tpu_torch.models import get_instrumented_model, get_model
+    from ganspace_tpu_torch.models.proggan import ProGANConfig, init_params
+    params = init_params(ProGANConfig.for_resolution(256), seed=CKPT_SEED)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        Path(root, "progan").mkdir()
+        path = Path(root, "progan", "bedroom_lsun.pth")
+        torch.save({k: torch.from_numpy(v) for k, v in params.items()}, path)
+        mib = path.stat().st_size / 2 ** 20
+        with environ(GANCONTROL_CHECKPOINT_DIR=root):
+            torch.cuda.synchronize()
+            reset_launches()
+            inst = get_instrumented_model("ProGAN", "bedroom", "layer2", torch.device("cuda"))
+    load_s = time.perf_counter() - t0
+    model = inst.model
+    if model.cfg != ProGANConfig.for_resolution(256):
+        raise AssertionError(f"ProGAN checkpoint: schedule {model.cfg.sizes} read off the file")
+    expect_state(model, params, "ProGAN checkpoint")
+    ref = get_model("ProGAN", "bedroom", torch.device("cuda"), params=params)
+    z = model.sample_latent(CKPT_BATCH, seed=3)
+    img, want = model.forward(z), ref.forward(z)
+    launches = read_launches()
+    if not (torch.isfinite(img).all() and img.shape == (CKPT_BATCH, 3, 256, 256)):
+        raise AssertionError(f"ProGAN checkpoint: image {tuple(img.shape)} or non-finite")
+    if not torch.equal(img, want):
+        raise AssertionError("ProGAN checkpoint: images differ from the in-memory model's")
+    plain, up = pg_counts()
+    # the shape annotation's layer2 tap forward, then two full forwards
+    expect_launches(launches, "ProGAN checkpoint", conv3x3=1 + 2 * plain, upsample_conv=2 * up)
+    log(f"ProGAN checkpoint: a {mib:.1f} MiB GANDissect .pth at full 256-px width (seed "
+        f"{CKPT_SEED}) loaded through get_instrumented_model in {load_s:.2f} s: the schedule "
+        f"{model.cfg.sizes} and every weight as in the file; {CKPT_BATCH} images equal bit "
+        f"for bit to the in-memory model's; launches {launches} [{gpu}]")
+    return launches
+
+
+def zoo_state(params: dict, n_up: int) -> dict:
+    """``params`` in a pytorch_GAN_zoo GNet's naming (``formatLayer``,
+    ``main.batchNormI``, ``main.convTransposeI``, ``main.outlayer``; its
+    transposed convs have no bias), in execution order."""
+    def bn(i):
+        return {f"main.batchNorm{i}.{leaf}": torch.from_numpy(params[f"bn{i}.{leaf}"])
+                for leaf in ("weight", "bias", "running_mean", "running_var")} | {
+                f"main.batchNorm{i}.num_batches_tracked": torch.tensor(0)}
+    state = {"formatLayer.weight": torch.from_numpy(params["deconv0.weight"]), **bn(0)}
+    for i in range(1, n_up):
+        state[f"main.convTranspose{i}.weight"] = torch.from_numpy(params[f"deconv{i}.weight"])
+        state.update(bn(i))
+    state["main.outlayer.weight"] = torch.from_numpy(params[f"deconv{n_up}.weight"])
+    return state
+
+
+def check_dcgan_checkpoint(gpu: str) -> dict:
+    """A full-width DCGAN checkpoint in the pytorch_GAN_zoo hub format
+    (``{'config', 'netG', 'netD'}``, the zoo's module names), written from
+    a seeded init with trained-like batch-norm statistics as
+    ``ganzoo/DCGAN.pth`` in a temporary ``$GANCONTROL_CHECKPOINT_DIR``: the
+    model built on the card reads its configuration off the file, holds
+    its weights, and its images equal bit for bit those of the model built
+    from the params in memory.  Returns its launches."""
+    from ganspace_tpu_torch.models import get_instrumented_model, get_model
+    from ganspace_tpu_torch.models.dcgan import DCGANConfig, init_params
+    cfg = DCGANConfig()
+    params = init_params(cfg, seed=CKPT_SEED)
+    rs = np.random.RandomState(CKPT_SEED)
+    for k, v in params.items():
+        if k.startswith("bn"):
+            v = v + 0.2 * rs.randn(*v.shape).astype(np.float32)
+            params[k] = (np.abs(v) + 0.5 if k.endswith("running_var") else v).astype(np.float32)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        Path(root, "ganzoo").mkdir()
+        path = Path(root, "ganzoo", "DCGAN.pth")
+        torch.save({"config": {"dimLatentVector": cfg.z_total},
+                    "netG": zoo_state(params, cfg.n_up), "netD": {}}, path)
+        mib = path.stat().st_size / 2 ** 20
+        with environ(GANCONTROL_CHECKPOINT_DIR=root):
+            torch.cuda.synchronize()
+            reset_launches()
+            inst = get_instrumented_model("DCGAN", None, "deconv1", torch.device("cuda"))
+    load_s = time.perf_counter() - t0
+    model = inst.model
+    if model.cfg != cfg:
+        raise AssertionError(f"DCGAN checkpoint: configuration {model.cfg} read off the file")
+    expect_state(model, params, "DCGAN checkpoint")
+    ref = get_model("DCGAN", None, torch.device("cuda"), params=params)
+    z = model.sample_latent(CKPT_BATCH, seed=3)
+    img, want = model.forward(z), ref.forward(z)
+    launches = read_launches()
+    if not (torch.isfinite(img).all() and img.shape == (CKPT_BATCH, 3, 64, 64)):
+        raise AssertionError(f"DCGAN checkpoint: image {tuple(img.shape)} or non-finite")
+    if not torch.equal(img, want):
+        raise AssertionError("DCGAN checkpoint: images differ from the in-memory model's")
+    # the shape annotation (a full forward: the reference's partial_forward), two more
+    expect_launches(launches, "DCGAN checkpoint", upsample_conv=3 * len(dc_shapes(1)))
+    log(f"DCGAN checkpoint: a {mib:.1f} MiB pytorch_GAN_zoo .pth at full 64-px width (seed "
+        f"{CKPT_SEED}) loaded through get_instrumented_model in {load_s:.2f} s: the "
+        f"configuration and every weight as in the file; {CKPT_BATCH} images equal bit for "
+        f"bit to the in-memory model's; launches {launches} [{gpu}]")
+    return launches
+
+
+def check_grids(summ: Path, res: int, what: str) -> str:
+    """The CLI's 24 activation- and latent-mode grids of 14 strips of 5
+    frames at ``res`` px (white bars of res / 64 px between the frames),
+    and the lightbox page."""
+    from PIL import Image
+    grids = sorted(p.name for p in summ.glob("*.jpg"))
+    names = ["components", "random_dirs"] + [f"samp{i}_real" for i in range(10)]
+    if grids != sorted(f"{n}_{m}.jpg" for n in names for m in ("ACT", "Z")):
+        raise AssertionError(f"{what} summ grids {grids}")
+    with Image.open(summ / "components_Z.jpg") as grid:
+        size = grid.size
+    if size != (5 * res + 4 * (res // 64), 14 * res) or not (summ / "+lightbox.html").is_file():
+        raise AssertionError(f"{what}: a grid of {size} or no lightbox page")
+    return f"{len(grids)} grids of {size[0]} x {size[1]} px and the lightbox page"
+
+
+def run_progan_cli(gpu: str) -> tuple[dict, dict]:
+    """``visualize --model ProGAN --class bedroom --layer layer2 --est ipca -c
+    80`` at the default n = 300000: the fused activation stream (146 blocks
+    of 2048, each a tap forward through kernel B's plain mode) into the
+    moments tier, kernel A once per block at [2048, 8192], the regression
+    and the random moments riding it; then 24 grids of 14 strips at 256 px,
+    each forward seven plain-mode and six stride-2 launches."""
+    from ganspace_tpu_torch.apps import visualize
+    with tempfile.TemporaryDirectory() as out, environ(GANSPACE_OUTPUT_DIR=out):
+        reset_launches()
+        result = visualize.main(list(PG_ARGS))
+        launches = read_launches()
+        log(f"ProGAN CLI launches: {launches}")
+        plain, up = pg_counts()
+        # the shape annotation, the probe, the fit's blocks and the
+        # activation-mode strips' centering: one layer2 tap forward each
+        tap_forwards = 2 + PG_BLOCKS + PG_STRIPS // 2
+        expect_launches(launches, "ProGAN CLI", centered_gram=PG_BLOCKS,
+                        conv3x3=tap_forwards + plain * PG_STRIPS, upsample_conv=up * PG_STRIPS)
+        arrays, meta = load_cache(result.cache)
+        if arrays["act_comp"].shape != (80, 1, 512, 4, 4):
+            raise AssertionError(f"ProGAN act_comp shape {arrays['act_comp'].shape}")
+        expect_meta(meta, "ProGAN CLI", device_rng=True, fused_linreg=True, refine_skipped=None)
+        for k in ("act_stdev", "var_ratio", "lat_stdev", "random_stdevs"):
+            if arrays[k].shape != (80,) or not (arrays[k] > 0).all():
+                raise AssertionError(f"ProGAN {k}: not 80 positive values")
+        grids = check_grids(Path(out, "out", "ProGAN-bedroom", "layer2", "ipca", "summ"), 256,
+                            "ProGAN CLI")
+        log(f"ProGAN npz ok: act_comp (80, 1, 512, 4, 4), |C C^T - I| = "
+            f"{arrays['gram_err']:.2e}, the moments tier, the regression and baselines riding "
+            f"the stream; {grids}")
+    log(f"ProGAN CLI fit (n = {PG_N}): {result.fit_seconds:.3f} s, "
+        f"{PG_N / result.fit_seconds:.1f} samples/s; phases: {fmt_phases(result.phases)} "
+        f"[{gpu}]")
+    log(f"ProGAN render: {result.images} images at 256 px in {result.render_seconds:.3f} s, "
+        f"{result.images / result.render_seconds:.2f} images/s [{gpu}]")
+    return launches, arrays
+
+
+def check_progan_stream_gate(gpu: str, inst, device_arrays: dict) -> dict:
+    """The host-RNG layer2 fits under seeds 1 and 7 at the CLI's n, then the
+    CLI's device stream against the host stream, judged by the host
+    seed-1-vs-7 control (:func:`check_flat_gate`: layer2's spectrum on
+    seeded random weights has no relative gap of GATE_GAP).  Each host fit:
+    146 blocks of one tap forward and one kernel-A launch, then the
+    regression sweep's 146 tap forwards.  Returns the runs' launches."""
+    runs = {}
+    for seed in (0, 7):
+        run = fit_only(inst, "layer2", PG_N, seed=seed, GANSPACE_DEVICE_RNG=0)
+        expect_launches(run["launches"], "ProGAN host layer2 fit", centered_gram=PG_BLOCKS,
+                        conv3x3=1 + 2 * PG_BLOCKS)
+        expect_meta(run["meta"], "ProGAN host layer2 fit", device_rng=False)
+        log(f"ProGAN host-RNG layer2 fit, seed {seed or 1}: {run['seconds']:.3f} s, "
+            f"{PG_N / run['seconds']:.1f} samples/s; phases: {fmt_phases(run['phases'])} "
+            f"[{gpu}]")
+        runs[seed] = run
+    check_flat_gate(gpu, f"ProGAN layer2 (n = {PG_N})", device_arrays, runs[0]["arrays"],
+                    runs[7]["arrays"])
+    return {"pg_gate_host": runs[0]["launches"], "pg_gate_host_seed7": runs[7]["launches"]}
+
+
+def run_progan_tap_fits(gpu: str, inst) -> tuple[dict, dict]:
+    """``layer6`` (16 px, D = 131072) at n = 20000 on the fused stream
+    forced below its threshold (156 blocks of 128, each a tap forward of
+    three plain-mode and two stride-2 launches) into the sketch tier, with
+    its refine pass when the policy keeps it; twice, the caches equal bit
+    for bit."""
+    runs = []
+    for _ in range(2):
+        run = fit_only(inst, PG_TAP, PG_TAP_N, GANSPACE_FUSED_ACTS=1)
+        meta = run["meta"]
+        expect_meta(meta, "ProGAN layer6 fit", device_rng=True, fused_linreg=True)
+        if meta["refine_skipped"] not in (True, False):
+            raise AssertionError(f"ProGAN layer6 fit: _meta {meta}, no sketch-tier decision")
+        forwards = 1 + PG_TAP_BLOCKS * (1 + (not meta["refine_skipped"]))
+        plain, up = pg_counts(PG_TAP)
+        expect_launches(run["launches"], "ProGAN layer6 fit", conv3x3=plain * forwards,
+                        upsample_conv=up * forwards)
+        if run["arrays"]["act_comp"].shape != (80, 1, 512, 16, 16):
+            raise AssertionError(f"act_comp shape {run['arrays']['act_comp'].shape}")
+        log(f"ProGAN {PG_TAP} fit at n = {PG_TAP_N} (fused, {PG_TAP_BLOCKS} blocks of "
+            f"{PG_TAP_BATCH}): {run['seconds']:.3f} s, {PG_TAP_N / run['seconds']:.1f} "
+            f"samples/s; launches {run['launches']}; refine_skipped {meta['refine_skipped']}; "
+            f"phases: {fmt_phases(run['phases'])} [{gpu}]")
+        runs.append(run)
+    check_fit_repeats(f"ProGAN {PG_TAP} fit at n = {PG_TAP_N}", *runs)
+    return runs[0]["launches"], runs[1]["launches"]
+
+
+def run_dcgan_cli(gpu: str) -> dict:
+    """``visualize --model DCGAN --layer deconv1 --est ipca -c 80`` at the
+    default n = 300000: the fused activation stream (292 blocks of 1024,
+    each a tap forward through the stride-2 kernel at k = 4) into the
+    sketch tier with its refine pass when the policy keeps it; then 24
+    grids at 64 px.  DCGAN's partial_forward is a full forward (four
+    stride-2 launches, the last to three channels), as the reference's."""
+    from ganspace_tpu_torch.apps import visualize
+    with tempfile.TemporaryDirectory() as out, environ(GANSPACE_OUTPUT_DIR=out):
+        reset_launches()
+        result = visualize.main(list(DC_ARGS))
+        launches = read_launches()
+        log(f"DCGAN CLI launches: {launches}")
+        arrays, meta = load_cache(result.cache)
+        expect_meta(meta, "DCGAN CLI", device_rng=True, fused_linreg=True)
+        if meta["refine_skipped"] not in (True, False):
+            raise AssertionError(f"DCGAN CLI: _meta {meta}, no sketch-tier decision")
+        # the fit's tap forwards (deconv1: one launch); the full forwards of
+        # the shape annotation, the probe, the activation-mode strips'
+        # centering and every strip
+        tap_forwards = DC_BLOCKS * (1 + (not meta["refine_skipped"]))
+        full_forwards = 2 + DC_STRIPS // 2 + DC_STRIPS
+        expect_launches(launches, "DCGAN CLI",
+                        upsample_conv=tap_forwards + len(dc_shapes(1)) * full_forwards)
+        if arrays["act_comp"].shape != (80, 1, 256, 8, 8):
+            raise AssertionError(f"DCGAN act_comp shape {arrays['act_comp'].shape}")
+        grids = check_grids(Path(out, "out", "DCGAN", "deconv1", "ipca", "summ"), 64,
+                            "DCGAN CLI")
+        log(f"DCGAN npz ok: act_comp (80, 1, 256, 8, 8), |C C^T - I| = "
+            f"{arrays['gram_err']:.2e}; _meta {json.dumps(meta)}; {grids}")
+    log(f"DCGAN CLI fit (n = {DC_N}): {result.fit_seconds:.3f} s, "
+        f"{DC_N / result.fit_seconds:.1f} samples/s; phases: {fmt_phases(result.phases)} "
+        f"[{gpu}]")
+    log(f"DCGAN render: {result.images} images at 64 px in {result.render_seconds:.3f} s, "
+        f"{result.images / result.render_seconds:.2f} images/s [{gpu}]")
+    return launches
+
+
+def check_progan_dcgan_vs_cpu() -> None:
+    """ProGAN-256 and the DCGAN at full width, two images each on the card
+    (kernels) and on the CPU (plain versions), the same seeded weights and
+    host latents: the image and every tap."""
+    from ganspace_tpu_torch.models.base import InstrumentedModel
+    from ganspace_tpu_torch.models.dcgan import DCGANConfig, GANZooModel
+    from ganspace_tpu_torch.models.dcgan import init_params as dc_init
+    from ganspace_tpu_torch.models.proggan import ProGAN, ProGANConfig
+    from ganspace_tpu_torch.models.proggan import init_params as pg_init
+    pg = pg_init(ProGANConfig.for_resolution(256), seed=0)
+    dc = dc_init(DCGANConfig(), seed=0)
+    for what, build in (("ProGAN-256", lambda d: ProGAN("bedroom", params=pg, device=d)),
+                        ("DCGAN", lambda d: GANZooModel(params=dc, device=d))):
+        outs = []
+        for device in ("cuda", "cpu"):
+            model = build(device)
+            inst = InstrumentedModel(model)
+            inst.retain_layers(model.tap_names())
+            img = model.forward(model.sample_latent(2, seed=7))
+            outs.append({"image": 2 * img.cpu() - 1,
+                         **{t: inst.retained_features()[t].cpu() for t in model.tap_names()}})
+        rels = {k: float((outs[0][k] - ref).abs().max() / ref.abs().max())
+                for k, ref in outs[1].items()}
+        log(f"{what} image {tuple(outs[1]['image'].shape)} and {len(rels) - 1} taps, card vs "
+            f"CPU: max rel {max(rels.values()):.3e} at {max(rels, key=rels.get)} (bar "
+            f"{TAP_REL:.0e}); " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()))
+        if not (all(torch.isfinite(t).all() for t in outs[0].values())
+                and max(rels.values()) < TAP_REL):
+            raise AssertionError(f"card and CPU disagree on {what}")
 
 
 def profile_biggan(gpu: str, model) -> None:
@@ -2277,12 +2666,7 @@ def check_checkpoint_load(gpu: str) -> dict:
                                           truncation=0.7)
     load_s = time.perf_counter() - t0
     model = inst.model
-    loaded = model.state_dict()
-    if set(loaded) != set(params):
-        raise AssertionError("checkpoint: the loaded keys differ from the file's")
-    for k, v in params.items():
-        if not torch.equal(loaded[k].cpu(), torch.from_numpy(v)):
-            raise AssertionError(f"checkpoint: {k} differs from the file's")
+    expect_state(model, params, "checkpoint")
     if not torch.equal(model.latent_avg.cpu(), torch.from_numpy(latent_avg)):
         raise AssertionError("checkpoint: latent_avg differs from the file's")
     ref = get_model("StyleGAN2", "ffhq", torch.device("cuda"), params=params,
@@ -2444,7 +2828,8 @@ def main() -> int:
     log(f"conv-tap fit at n = {CONV_N}: fused stream "
         f"{runs['convs2_fit_fused']['seconds']:.3f} s against the device pre-sampled "
         f"stream's {runs['convs2_fit_device']['seconds']:.3f} s [{gpu}]")
-    check_fused_fit_repeats(runs["convs2_fit_fused"], runs["convs2_fit_fused_again"])
+    check_fit_repeats(f"fused conv-tap fit at n = {CONV_N}", runs["convs2_fit_fused"],
+                      runs["convs2_fit_fused_again"])
     report_conv_stream_gate(gpu, runs["convs2_fit_fused"], runs["convs2_fit_host"],
                             runs["convs2_fit_host_seed7"])
     log(f"StyleGAN2 phases wall time: {time.perf_counter() - t_start:.1f} s")
@@ -2482,6 +2867,22 @@ def main() -> int:
     launches["bg_fit_layers1"] = run_biggan_tap_fit(gpu, tap_inst)
     del tap_inst
     log(f"BigGAN phases wall time: {time.perf_counter() - t0:.1f} s")
+
+    # ProGAN-256 (class bedroom) and the GAN-zoo DCGAN at full width
+    t0 = time.perf_counter()
+    with ieee_f32():
+        launches["pg_checkpoint"] = check_progan_checkpoint(gpu)
+        launches["dc_checkpoint"] = check_dcgan_checkpoint(gpu)
+    launches["pg_cli"], pg_device = run_progan_cli(gpu)
+    pg_inst = get_instrumented_model("ProGAN", "bedroom", "layer2", torch.device("cuda"))
+    launches.update(check_progan_stream_gate(gpu, pg_inst, pg_device))
+    del pg_inst
+    tap_inst = get_instrumented_model("ProGAN", "bedroom", PG_TAP, torch.device("cuda"))
+    launches["pg_fit_layer6"], launches["pg_fit_layer6_again"] = run_progan_tap_fits(gpu,
+                                                                                   tap_inst)
+    del tap_inst
+    launches["dc_cli"] = run_dcgan_cli(gpu)
+    log(f"ProGAN and DCGAN phases wall time: {time.perf_counter() - t0:.1f} s")
     conv_npz = runs["convs2_fit_host"]["arrays"]
     with ieee_f32():
         profile_conv_tap_blocks(gpu)
@@ -2490,6 +2891,7 @@ def main() -> int:
         check_vs_cpu(conv_npz)
         check_sg1_vs_cpu()
         check_biggan_vs_cpu()
+        check_progan_dcgan_vs_cpu()
         check_launched_shapes(recorder, gen)
     log(f"total wall time: {time.perf_counter() - t_start:.1f} s")
 

@@ -1,10 +1,11 @@
 """Model registry and instrumented-model factory
 (``ganspace_tpu/models/__init__.py``, reference ``models/wrappers.py:651-735``).
 
-StyleGAN, StyleGAN2 and BigGAN-deep (128, 256 and 512 px) are the families
-ported so far; custom generators can be registered under any name.  Every
-entry point builds its model on the card unless ``device`` names another
-device; it never falls back to the CPU.
+StyleGAN, StyleGAN2, BigGAN-deep (128, 256 and 512 px), ProGAN and the
+pytorch_GAN_zoo DCGAN: every family of the JAX package.  Custom generators
+can be registered under any name.  Every entry point builds its model on
+the card unless ``device`` names another device; it never falls back to
+the CPU.
 """
 
 from __future__ import annotations
@@ -15,13 +16,13 @@ from ganspace_tpu_torch import require_device
 from ganspace_tpu_torch.config import Config
 from ganspace_tpu_torch.models.base import BaseGenerator, InstrumentedModel
 from ganspace_tpu_torch.models.biggan import BigGAN
+from ganspace_tpu_torch.models.dcgan import GANZooModel
+from ganspace_tpu_torch.models.proggan import ProGAN
 from ganspace_tpu_torch.models.stylegan import StyleGAN
 from ganspace_tpu_torch.models.stylegan2 import StyleGAN2
 
 #: user-registered model factories: name -> callable(output_class, device=, **kwargs)
 _CUSTOM_MODELS = {}
-
-_NOT_PORTED = ("ProGAN", "DCGAN")
 
 
 def register_model(name: str, factory) -> None:
@@ -68,9 +69,11 @@ def get_model(name, output_class=None, device="cuda", **kwargs) -> BaseGenerator
             raise ValueError("Please specify BigGAN resolution, e.g. BigGAN-512")
         return BigGAN(name.split("-")[-1], class_name=output_class, device=device,
                       **_only(kwargs, ("truncation", "cfg", "params", "init_seed")))
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP.md, queue 1: the other generator families)")
+    if name == "DCGAN":
+        return GANZooModel("DCGAN", device=device, **_only(kwargs, ("cfg", "params", "init_seed")))
+    if name == "ProGAN":
+        return ProGAN(output_class, device=device,
+                      **_only(kwargs, ("resolution", "cfg", "params", "init_seed")))
     raise RuntimeError(f"Unknown model {name}")
 
 
@@ -123,7 +126,9 @@ __all__ = [
     "annotate_model_shapes",
     "BaseGenerator",
     "BigGAN",
+    "GANZooModel",
     "InstrumentedModel",
+    "ProGAN",
     "StyleGAN",
     "StyleGAN2",
 ]

@@ -52,7 +52,8 @@ from ganspace_tpu_torch.models import checkpoints, imagenet_classes
 from ganspace_tpu_torch.models.base import BaseGenerator, TapState
 from ganspace_tpu_torch.models.tf_import import import_biggan_tf
 from ganspace_tpu_torch.models.torch_import import import_biggan
-from ganspace_tpu_torch.ops.modconv import UpsampleWeights, conv3x3, upsample_conv
+from ganspace_tpu_torch.ops.modconv import (
+    UpsampleWeights, conv3x3, nearest_up_kernel, upsample_conv)
 from ganspace_tpu_torch.ops.precision import ieee_f32
 from ganspace_tpu_torch.sampling import device_truncated, truncated_latents
 
@@ -290,20 +291,6 @@ class PlainBatchNorm(_Stats):
 def _nearest_up(x: torch.Tensor) -> torch.Tensor:
     n, c, h, w = x.shape
     return x[:, :, :, None, :, None].expand(n, c, h, 2, w, 2).reshape(n, c, 2 * h, 2 * w)
-
-
-# Per-axis tap sums of a nearest 2x upsample followed by a 3-tap correlation
-# (``ganspace_tpu/ops/s2d.py:_NEAREST_TAPS``): composite tap e of the 4-tap
-# kernel sums taps u of the 3-tap one where A[e][u] is 1.
-_NEAREST_TAPS = ((1, 0, 0), (1, 1, 0), (0, 1, 1), (0, 0, 1))
-
-
-def nearest_up_kernel(w: torch.Tensor) -> torch.Tensor:
-    """The 4x4 kernel of the stride-2 transposed conv (padding 1) that equals
-    nearest 2x upsampling followed by the 3x3 correlation ``w`` (padding 1):
-    ``upsample_conv(x, nearest_up_kernel(w), pad=1) == conv2d(up2(x), w, padding=1)``."""
-    a = torch.tensor(_NEAREST_TAPS, dtype=w.dtype, device=w.device)
-    return torch.einsum("eu,ocuv,fv->ocef", a, w, a).flip(2, 3).contiguous()
 
 
 class SelfAttention(nn.Module):

@@ -1,5 +1,5 @@
-"""Checkpoint location for the StyleGAN families and BigGAN (the locate
-half of ``ganspace_tpu/models/checkpoints.py``).
+"""Checkpoint location for every generator family (the locate half of
+``ganspace_tpu/models/checkpoints.py``).
 
 A constructor called without ``params`` looks for the reference's file
 under ``$GANCONTROL_CHECKPOINT_DIR`` and loads what it finds; on a miss it
@@ -16,6 +16,9 @@ Layout (the reference's, shared with the JAX package):
       stylegan/karras2019stylegan-<class>-<res>x<res>.pkl
       biggan-deep-<res>/pytorch_model.bin                (HuggingFace format)
       biggan-deep-<res>/tf_weights.npz                   (TF-Hub variable dump)
+      progan/<class>_lsun.pth                            (GANDissect state dict)
+      progan/<class>_lsun.pkl                            (karras2018 tfutil pickle)
+      ganzoo/<name>.pth                                  (pytorch_GAN_zoo hub save)
 
 Without ``$GANCONTROL_CHECKPOINT_DIR`` the root is the JAX package's own
 default, ``ganspace_tpu/models/checkpoints`` of this checkout, so that one
@@ -75,3 +78,19 @@ def locate_biggan(resolution: int) -> Tuple[Optional[Path], Optional[Path], str]
     found = find_checkpoint(rel)
     tf_found = None if found is not None else find_checkpoint(f"{name}/tf_weights.npz")
     return found, tf_found, rel
+
+
+def locate_progan(outclass: str) -> Tuple[Optional[Path], str]:
+    """(the GANDissect ``.pth``, else the karras2018 ``.pkl``, or None; the
+    ``.pth``'s path under the root)."""
+    rel = f"progan/{outclass}_lsun.pth"
+    found = find_checkpoint(rel)
+    if found is None:
+        found = find_checkpoint(f"progan/{outclass}_lsun.pkl")
+    return found, rel
+
+
+def locate_ganzoo(model_name: str) -> Tuple[Optional[Path], str]:
+    """(the pytorch_GAN_zoo ``.pth`` or None, its path under the root)."""
+    rel = f"ganzoo/{model_name}.pth"
+    return find_checkpoint(rel), rel

@@ -1,6 +1,6 @@
-"""TF-era checkpoints read without TensorFlow: the NVlabs StyleGAN pickle
-and BigGAN's TF-Hub variable set (``ganspace_tpu/models/tf_import.py``
-without ProGAN).
+"""TF-era checkpoints read without TensorFlow: the NVlabs StyleGAN and
+ProGAN pickles and BigGAN's TF-Hub variable set
+(``ganspace_tpu/models/tf_import.py``).
 
 NVlabs pickles store every variable as a plain numpy array inside the
 ``Network.__getstate__`` dict (keys ``name`` / ``static_kwargs`` /
@@ -13,7 +13,9 @@ generator's names and layouts into the flat parameter dict that
 as any ``{tf_var_name: ndarray}`` mapping or an ``.npz`` of one (dumped once
 with ``tf.train.load_checkpoint`` where TF is installed): the name map and
 all tensor munging of the reference's converter live in
-:func:`import_biggan_tf`.  The ProGAN importer comes with its model family.
+:func:`import_biggan_tf`.  :func:`import_progan_tf` converts the karras2018
+ProGAN pickle, and :func:`import_progan_old_pt` the old PyTorch naming, into
+GANDissect's names (reference ``netdissect/proggan.py:216-298``).
 """
 
 from __future__ import annotations
@@ -21,9 +23,12 @@ from __future__ import annotations
 import io
 import pickle
 import re
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ganspace_tpu_torch.models.torch_import import import_progan
+
 
 # ---------------------------------------------------------------------------
 # Restricted NVlabs-pickle reader
@@ -186,6 +191,67 @@ def import_stylegan_tf(src) -> Dict[str, np.ndarray]:
                 v = _f32(v.transpose(3, 2, 0, 1))
         params[key] = v
     return params
+
+
+# ---------------------------------------------------------------------------
+# ProGAN (karras2018 tfutil pickle + "old pytorch" naming)
+# ---------------------------------------------------------------------------
+
+def import_progan_tf(src) -> Tuple[Dict[str, np.ndarray], Tuple[int, ...]]:
+    """TF ProGAN variables -> (GANDissect-named params, channel schedule).
+
+    The name walk and weight munging of reference ``proggan.py:216-269``:
+    ``4x4/Dense`` becomes a flipped 4x4 conv, the ``Conv0_up`` transposed-conv
+    weights become flipped convs, ``ToRGB_lod0`` the output block."""
+    tf = _tf_vars(src)
+    state: Dict[str, np.ndarray] = {}
+    i = 0
+    while True:
+        res = 4 * (2 ** (i // 2))
+        tf_layer = "%dx%d/%s" % (res, res, "Dense" if i == 0 else "Conv" if i == 1
+                                 else "Conv0_up" if i % 2 == 0 else "Conv1")
+        if f"{tf_layer}/weight" not in tf:
+            break
+        w = _f32(tf[f"{tf_layer}/weight"])
+        if i == 0:
+            # dense [z, ch * 16] -> conv [ch, z, 4, 4], spatially flipped
+            w = w.reshape(w.shape[0], w.shape[1] // 16, 4, 4)
+            w = _f32(w.transpose(1, 0, 2, 3)[:, :, ::-1, ::-1])
+        elif i % 2 == 0:
+            # transposed conv [kh, kw, out, in] -> conv [out, in, kh, kw], flipped
+            w = _f32(w.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1])
+        else:
+            w = _f32(w.transpose(3, 2, 0, 1))  # HWIO -> OIHW
+        state[f"layer{i + 1}.conv.weight"] = w
+        state[f"layer{i + 1}.wscale.b"] = _f32(tf[f"{tf_layer}/bias"])
+        i += 1
+    if i == 0:
+        raise ValueError("no ProGAN layers found in TF checkpoint")
+    res = 4 * (2 ** ((i - 1) // 2))
+    out = f"output_{res}x{res}"
+    state[f"{out}.conv.weight"] = _f32(tf["ToRGB_lod0/weight"].transpose(3, 2, 0, 1))
+    state[f"{out}.wscale.b"] = _f32(tf["ToRGB_lod0/bias"])
+    return import_progan(state)
+
+
+def import_progan_old_pt(state) -> Tuple[Dict[str, np.ndarray], Tuple[int, ...]]:
+    """The old PyTorch ProGAN naming (``features.N.*`` and ``output.*``) ->
+    (GANDissect-named params, channel schedule).  Reference
+    ``proggan.py:271-298``."""
+    src = {k: _f32(v if isinstance(v, np.ndarray) else v.detach().cpu().numpy())
+           for k, v in state.items()}
+    out: Dict[str, np.ndarray] = {}
+    i = 0
+    while f"features.{i}.conv.weight" in src:
+        out[f"layer{i + 1}.conv.weight"] = src[f"features.{i}.conv.weight"]
+        out[f"layer{i + 1}.wscale.b"] = src[f"features.{i}.wscale.b"]
+        i += 1
+    if i == 0:
+        raise ValueError("no ProGAN layers found in old-pt state dict")
+    res = 4 * (2 ** ((i - 1) // 2))
+    out[f"output_{res}x{res}.conv.weight"] = src["output.conv.weight"]
+    out[f"output_{res}x{res}.wscale.b"] = src["output.wscale.b"]
+    return import_progan(out)
 
 
 # ---------------------------------------------------------------------------

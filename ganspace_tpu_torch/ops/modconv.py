@@ -1,4 +1,4 @@
-"""Kernel B's modes: the 3x3 convolutions of StyleGAN and StyleGAN2 synthesis.
+"""Kernel B's modes: the 3x3 and stride-2 convolutions of every generator.
 
 Counterpart of ``ganspace_tpu/ops/modconv.py`` and of the TPU kernel
 ``ops/pallas/blockconv.py::conv3x3_blocks_pallas``.  Modulation is per
@@ -15,11 +15,14 @@ plain PyTorch version, which is the CPU path and the kernel's oracle:
   StyledConvs), the style scale applied as the kernel forms its input
   fragments and ``d`` in its epilogue (``csrc/modconv3x3.cu``);
 * :func:`conv3x3`: the plain 3x3 conv, the TPU kernel's own function
-  (StyleGAN's ``conv``, ``conv1`` and sub-128-px ``conv0_up``), the same
-  kernel with no scale and no demodulation;
+  (StyleGAN's ``conv``, ``conv1`` and sub-128-px ``conv0_up``, BigGAN's
+  and ProGAN's stride-1 3x3 convs), the same kernel with no scale and no
+  demodulation;
 * :func:`upsample_conv`: the stride-2 transposed conv, with optional ``s``
   and ``d`` (StyleGAN2's upsampling StyledConvs, StyleGAN's fused
-  ``conv0_up``), as one dense product of pixels by (tap, output channel) on
+  ``conv0_up``, BigGAN's and ProGAN's nearest-up convs through
+  :func:`nearest_up_kernel`, DCGAN's transposed convs), as one dense
+  product of pixels by (tap, output channel) on
   Hopper's wgmma and an overlap-add of the taps (``csrc/upconv2x.cu``): a
   fixed summation order, so a repeated call gives identical bits, which
   cuDNN's transposed convolution does not.  A layer splits its weight into
@@ -230,6 +233,21 @@ class UpsampleWeights:
             self._value = upsample_weight_image(w_scaled)
             self._key = key
         return self._value
+
+
+# Per-axis tap sums of a nearest 2x upsample followed by a 3-tap correlation
+# (``ganspace_tpu/ops/s2d.py:_NEAREST_TAPS``): composite tap e of the 4-tap
+# kernel sums taps u of the 3-tap one where A[e][u] is 1.
+_NEAREST_TAPS = ((1, 0, 0), (1, 1, 0), (0, 1, 1), (0, 0, 1))
+
+
+def nearest_up_kernel(w: torch.Tensor) -> torch.Tensor:
+    """The 4x4 kernel of the stride-2 transposed conv (padding 1) that equals
+    nearest 2x upsampling followed by the 3x3 correlation ``w`` (padding 1):
+    ``upsample_conv(x, nearest_up_kernel(w), pad=1) == conv2d(up2(x), w, padding=1)``.
+    BigGAN's and ProGAN's up-convs run so, on 4/9 of the products."""
+    a = torch.tensor(_NEAREST_TAPS, dtype=w.dtype, device=w.device)
+    return torch.einsum("eu,ocuv,fv->ocef", a, w, a).flip(2, 3).contiguous()
 
 
 def upsample_conv(x: torch.Tensor, w_scaled: torch.Tensor,

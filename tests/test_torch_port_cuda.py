@@ -281,7 +281,7 @@ def test_nearest_up_conv_on_card(gen, c, r):
     """An up-block's conv_1 through the stride-2 mode with the composite 4x4
     kernel (padding 1) against cuDNN's conv of the nearest-upsampled map."""
     import torch.nn.functional as F
-    from ganspace_tpu_torch.models.biggan import nearest_up_kernel
+    from ganspace_tpu_torch.ops.modconv import nearest_up_kernel
     x = torch.randn(2, c, r, r, generator=gen, device="cuda")
     wt = torch.randn(c, c, 3, 3, generator=gen, device="cuda") / (9 * c) ** 0.5
     with ieee_f32():
@@ -322,6 +322,91 @@ def test_biggan_on_card_matches_cpu(gen):
     block = acts_stream_block(models[0], "generator.layers.1", 16, seed=1)
     (acts, lat), again = block(2), block(2)
     assert float(lat.abs().max()) <= 1.4 and torch.equal(again[0], acts)
+
+
+# ProGAN-256's stride-1 3x3 convs (C, resolution) and its up layers (C, Co,
+# input resolution); DCGAN-64's stride-2 transposed convs (C, Co, input
+# resolution), the last to three channels (5 of the 8 columns of its k = 4
+# channel group are padding)
+PROGAN_3X3 = [(512, 4), (512, 8), (512, 16), (256, 32), (128, 64), (64, 128), (32, 256)]
+PROGAN_UP = [(512, 512, 4), (512, 512, 8), (512, 256, 16), (256, 128, 32), (128, 64, 64),
+             (64, 32, 128)]
+DCGAN_UP = [(512, 256, 4), (256, 128, 8), (128, 64, 16), (64, 3, 32), (16, 1, 5)]
+
+
+@pytest.mark.parametrize("c,r", PROGAN_3X3)
+def test_conv3x3_progan_shapes_on_card(gen, c, r):
+    x = torch.randn(2, c, r, r, generator=gen, device="cuda")
+    wt = torch.randn(c, c, 3, 3, generator=gen, device="cuda") / (9 * c) ** 0.5
+    with ieee_f32():
+        got, ref = conv3x3(x, wt), conv3x3_plain(x, wt)
+        assert float((got - ref).abs().max() / ref.abs().max()) < 1e-5
+        assert torch.equal(got, conv3x3(x, wt))
+
+
+@pytest.mark.parametrize("c,co,r", PROGAN_UP)
+def test_progan_up_conv_on_card(gen, c, co, r):
+    """An up layer through the stride-2 mode with the composite kernel of
+    its scaled 3x3 weight, against cuDNN's conv of the nearest-upsampled map."""
+    import torch.nn.functional as F
+    from ganspace_tpu_torch.ops.modconv import nearest_up_kernel
+    x = torch.randn(2, c, r, r, generator=gen, device="cuda")
+    wt = torch.randn(co, c, 3, 3, generator=gen, device="cuda") / (9 * c) ** 0.5
+    with ieee_f32():
+        got = upsample_conv(x, nearest_up_kernel(wt), pad=1)
+        ref = F.conv2d(F.interpolate(x, scale_factor=2, mode="nearest"), wt, padding=1)
+        assert got.shape == ref.shape == (2, co, 2 * r, 2 * r)
+        assert float((got - ref).abs().max() / ref.abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("c,co,r", DCGAN_UP)
+def test_dcgan_transposed_conv_on_card(gen, c, co, r):
+    """The zoo's ConvTranspose2d (k = 4, stride 2, padding 1) through the
+    stride-2 mode, its [in, out, 4, 4] weight read as [out, in, 4, 4],
+    against the plain version and cuDNN's transposed conv; Co below one
+    channel group (3, 1) included."""
+    import torch.nn.functional as F
+    x = torch.randn(3, c, r, r, generator=gen, device="cuda")
+    w = torch.randn(c, co, 4, 4, generator=gen, device="cuda") / (16 * c) ** 0.5
+    with ieee_f32():
+        got = upsample_conv(x, w.transpose(0, 1), pad=1)
+        ref = F.conv_transpose2d(x, w, stride=2, padding=1)
+        plain = upsample_conv_plain(x, w.transpose(0, 1), pad=1)
+        assert got.shape == ref.shape == (3, co, 2 * r, 2 * r)
+        for want in (ref, plain):
+            assert float((got - want).abs().max() / want.abs().max()) < 1e-5
+        assert torch.equal(got, upsample_conv(x, w.transpose(0, 1), pad=1))
+
+
+@pytest.mark.parametrize("family", ["ProGAN", "DCGAN"])
+def test_progan_and_dcgan_on_card_match_cpu(gen, family):
+    """Small ProGAN and DCGAN on the card (kernels) and on the CPU (plain
+    versions): the image and every tap, the launches per forward."""
+    from ganspace_tpu_torch.models import dcgan, proggan
+    from ganspace_tpu_torch.models.base import InstrumentedModel
+    if family == "ProGAN":
+        cfg = proggan.ProGANConfig((64, 64, 64, 32))
+        params = proggan.init_params(cfg, seed=3)
+        models = [proggan.ProGAN("bedroom", cfg=cfg, params=params, device=d)
+                  for d in ("cuda", "cpu")]
+        want = (3, 2)           # layer2, layer4, layer6; layer3, layer5
+    else:
+        cfg = dcgan.DCGANConfig(resolution=16, base_channels=64)
+        params = dcgan.init_params(cfg, seed=3)
+        models = [dcgan.GANZooModel(cfg=cfg, params=params, device=d) for d in ("cuda", "cpu")]
+        want = (0, 2)           # deconv1, deconv2
+    z = models[1].sample_latent(4, seed=2)
+    taps = models[0].tap_names()
+    out = []
+    launches = (conv3x3.launches, upsample_conv.launches)
+    for m in models:
+        inst = InstrumentedModel(m)
+        inst.retain_layers(taps)
+        img = m.forward(z.to(m.device))
+        out.append([img.cpu()] + [inst.retained_features()[t].cpu() for t in taps])
+    assert (conv3x3.launches - launches[0], upsample_conv.launches - launches[1]) == want
+    for got, ref in zip(*out):
+        assert float((got - ref).abs().max() / ref.abs().max()) < 1e-4
 
 
 @pytest.mark.parametrize("name", ["pca", "ica"])

@@ -33,6 +33,8 @@ MODULES = [
     "ganspace_tpu_torch.models.stylegan",
     "ganspace_tpu_torch.models.stylegan2",
     "ganspace_tpu_torch.models.biggan",
+    "ganspace_tpu_torch.models.proggan",
+    "ganspace_tpu_torch.models.dcgan",
     "ganspace_tpu_torch.models.imagenet_classes",
     "ganspace_tpu_torch.models._imagenet_wnids",
     "ganspace_tpu_torch.decomposition",
