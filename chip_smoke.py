@@ -130,11 +130,42 @@ Phases, each of which raises on failure:
    CPU;
 19. every kernel shape launched over the run (recorded in front of the
    kernel library) that phase 5 did not cover, such as the fits' batch-1
-   probes, held against its plain version by the same bars.
+   probes and the viewer's batch-1 frames, held against its plain version
+   by the same bars, on the datapath it was launched on.
+
+The preview policy (``ops/precision.py``), in phase 5 and after phases 7
+and 11:
+
+* kernel B's modulated and plain modes and the stride-2 mode on the bf16
+  datapath, in both storages (float32 on bf16 operands, the ``--dtype
+  bfloat16`` fit's; bf16, the viewer's), at StyleGAN2's render shapes and
+  the ``convs.2`` tap shapes, StyleGAN's ten plain and four fused shapes,
+  beside cuDNN on bf16 tensors: a float32 output to the float32 bar, a
+  bf16 one within one bf16 rounding flip elementwise, repeats bit for bit;
+* the viewer, ``python -m ganspace_tpu_torch interactive --model StyleGAN2
+  --class ffhq --layer style --use_w``: its ``Session`` on the W CLI's
+  cache (phase 7) in the preview policy and in float32, the warmup,
+  ``time_frame`` and ``time_frame_speculative``, a latent, an activation
+  and a layer-window edit, the HTTP endpoints on an ephemeral port, and
+  the preview frame against the float32 frame of the same state (mean
+  |d| in uint8 levels held to ``PREVIEW_ERR_RATIO`` times the JAX
+  package's figure on a 256-px model), and a profile of one frame's
+  synthesis in each precision; then StyleGAN-FFHQ-1024's viewer at
+  ``g_mapping`` (kernel B's plain mode and the fused stride-2 convs), the
+  same way;
+* ``visualize --layer convs.2 -n 50000 --dtype bfloat16``: the _bf16
+  cache, its 80 cosine bounds and the grade they imply, its components
+  beside the float32 CLI's (reported);
+* the bf16 first pass: the float32 ``convs.2`` fit at n = 20000 on the
+  fused stream twice, the registry in a temporary directory: the second
+  run streams bf16 first and stays within 0.99 |cos| of the first.  The
+  rest of the run has the registry off (``GANSPACE_COMPILE_CACHE`` unset,
+  the default), so its fits stay all float32.
 
 Every path reads the launch counts of the four kernel entries (kernel A;
-kernel B's modulated, plain and stride-2 modes, one launch per call), set
-to 0 just before it and read just after, and holds them to the counts its
+kernel B's modulated, plain and stride-2 modes, one launch per call; the
+last three counted apart on the bf16 datapath, ``<name>_bf16``), set to 0
+just before it and read just after, and holds them to the counts its
 shapes give.
 
 Kernel times are medians over launches by CUDA events, each launch after a
@@ -145,7 +176,10 @@ its plain version, the one PyTorch call that computes the same function
 the larger of its FLOP over the 3xTF32 peak (495 / 3 = 165 TFLOP/s; the
 kernels compute float32 products as 3xTF32) and its bytes (each input read
 once, each output written once) over 3.35 TB/s, the H100 SXM's published
-peaks at 700 W.  The FFMA bound (67 TFLOP/s) is printed beside it.
+peaks at 700 W.  The FFMA bound (67 TFLOP/s) is printed beside it.  On
+the bf16 datapath the bound is the dense bf16 peak (989 TFLOP/s: bf16
+products with float32 sums), the activations counted at their storage's
+size.
 
 The last lines are a JSON summary of the kernels, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -517,6 +551,35 @@ PEAK_FFMA = 67e12                       # float32 outside the tensor cores
 PEAK_BYTES = 3.35e12
 FLUSH_BYTES = 128 << 20                 # > the 50 MB L2
 SLEEP_CYCLES = 200_000                  # ~0.1 ms at the H100's clock
+# the bf16 datapath of kernel B and the stride-2 kernel (ops/modconv.py's
+# modes): float32 storage on bf16 operands (the preview precision, the
+# --dtype bfloat16 fit) and bf16 storage (the viewer's preview policy).
+# The function is bf16 x bf16 products with float32 sums, so the bound is
+# the card's dense bf16 tensor peak, whatever pass the kernel runs it in (one
+# TF32 pass); a bf16 output may differ from its plain version by one rounding
+# flip, one bf16 ulp (2^-7 of |ref| at most, 8 significant bits), beside the
+# float32 summation's 1e-6 of max|ref|
+MODE_F32, MODE_BF16_OPS, MODE_BF16 = 0, 1, 2
+PEAK_BF16 = 989e12
+# the viewer's preview frame against its float32 frame of the same state,
+# mean |d| in uint8 levels: the JAX package's on 256-px CPU models, its
+# contractions on the one-pass bf16 datapath of its TPU
+# (tests/test_torch_port_interactive.py measures them and holds these
+# values, and the port's within 0.8-1.25x of them there), and the most the
+# port's full-width 1024-px frame may show on the card, as a multiple of
+# them: 2x, room for the full model's depth and width
+PREVIEW_JAX_MEAN_LEVELS = {"StyleGAN2": 1.7537, "StyleGAN": 3.5613}
+PREVIEW_ERR_RATIO = 2.0
+BF16_ABS = 1e-6
+# StyleGAN2's modulated 3x3 shapes: the render's nine at B = 5, the conv-tap
+# path's two at B = 128; StyleGAN's ten plain shapes at B = 5; the stride-2
+# mode at StyleGAN2's eight render shapes and StyleGAN's four fused ones
+PREVIEW_GROUPS = {
+    "modconv3x3": {"sg2_render": CONV_CASES, "sg2_tap": CONV_TAP_CASES},
+    "conv3x3": {"sg1_render": PLAIN_CASES},
+    "upsample_conv": {"sg2_render": UP_CASES["sg2_render"],
+                      "sg1_fused": UP_CASES["sg1_fused"]},
+}
 
 
 def log(msg: str) -> None:
@@ -774,6 +837,41 @@ def conv_err(got: torch.Tensor, ref: torch.Tensor, case, what: str):
     return err, rel
 
 
+@contextlib.contextmanager
+def precision_for(mode: int):
+    """The policy under which a float32 ``x`` takes datapath ``mode``: the
+    preview precision for MODE_BF16_OPS, else the float32 one (a bf16 ``x``
+    takes MODE_BF16 under either)."""
+    from ganspace_tpu_torch.ops.precision import precision
+    with precision("default" if mode == MODE_BF16_OPS else "highest"):
+        yield
+
+
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each |t|: 2^(floor(log2 |t|) - 7)."""
+    e = torch.floor(torch.log2(t.abs().float().clamp_min(torch.finfo(torch.float32).tiny)))
+    return torch.exp2(e - 7)
+
+
+def datapath_err(got: torch.Tensor, ref: torch.Tensor, case, what: str, mode: int):
+    """(max|d|, max|d| / max|ref|) of a kernel against its plain version on
+    datapath ``mode``; raises above its bar: float32 output, CONV_REL
+    relative (only the summation order differs); bf16 output, elementwise
+    one bf16 rounding flip plus BF16_ABS of max|ref|."""
+    if mode != MODE_BF16:
+        return conv_err(got, ref, case, what)
+    if got.dtype != torch.bfloat16:
+        raise AssertionError(f"{case}{what}: bf16 storage gave a {got.dtype} output")
+    g, r = got.float(), ref.float()
+    d = (g - r).abs()
+    top = float(r.abs().max())
+    over = d > bf16_ulp(r) + BF16_ABS * top
+    if bool(over.any()):
+        raise AssertionError(f"{case}{what} bf16: {int(over.sum())} of {d.numel()} outputs "
+                             f"past one bf16 flip (max|d| {float(d.max())})")
+    return float(d.max()), float(d.max()) / top
+
+
 def conv_bound(case, scaled: bool = True) -> dict:
     b, c, co, h, w = case
     sd = (b * c + b * co) if scaled else 0
@@ -808,7 +906,7 @@ def check_modconv3x3(gen: torch.Generator) -> dict:
         err, rel = conv_err(got, ref, case, "")
         if not torch.equal(got, modconv3x3(x, wt, s, d)):
             raise AssertionError(f"modconv3x3 {case}: two launches differ")
-        CHECKED.add(("modconv3x3", *case, True))
+        CHECKED.add(("modconv3x3", *case, True, MODE_F32))
         worst, worst_rel = max(worst, err), max(worst_rel, rel)
         b, c, co, h, w = case
         line = (f"modconv3x3 B={b} C={c} Co={co} {h}x{w}"
@@ -882,7 +980,7 @@ def check_conv3x3(gen: torch.Generator) -> dict:
             err, rel = conv_err(got, conv3x3_plain(x, wt), case, " plain mode")
             if not torch.equal(got, conv3x3(x, wt)):
                 raise AssertionError(f"conv3x3 {case}: two launches differ")
-            CHECKED.add(("conv3x3", *case, False))
+            CHECKED.add(("conv3x3", *case, False, MODE_F32))
             worst = max(worst, err)
             line = (f"conv3x3 (plain mode, {group}) B={b} C={c} Co={co} {h}x{w}: "
                     f"rel={rel:.3e}, repeat bit-identical")
@@ -938,10 +1036,10 @@ def check_upsample_conv(gen: torch.Generator) -> dict:
     without this kernel).  BigGAN's up-convs take the composite kernel of a
     3x3 weight, and cuDNN's call for them is the conv of the nearest-upsampled
     map they replace.  The kernel is timed with its split weight kept,
-    as a layer keeps it (``UpsampleWeights``)."""
+    as a layer keeps it (``LayerWeights``)."""
     import torch.nn.functional as F
     from ganspace_tpu_torch.ops.modconv import (
-        UpsampleWeights, nearest_up_kernel, upsample_conv, upsample_conv_plain)
+        LayerWeights, nearest_up_kernel, upsample_conv, upsample_conv_plain)
     out, worst = {}, 0.0
     for group, cases in up_groups().items():
         nearest = group.startswith(NEAREST_UP_GROUPS)
@@ -958,7 +1056,7 @@ def check_upsample_conv(gen: torch.Generator) -> dict:
                                 " stride-2 mode")
             if not all(torch.equal(got, upsample_conv(x, wt, s, d, pad=pad)) for _ in range(3)):
                 raise AssertionError(f"upsample_conv {case}: repeats differ")
-            CHECKED.add(("upsample_conv", *case[:7], modulated, modulated))
+            CHECKED.add(("upsample_conv", *case[:7], modulated, modulated, MODE_F32))
             worst = max(worst, err)
             xs = x if s is None else x * s[:, :, None, None]
             wt_t = wt.transpose(0, 1)
@@ -971,7 +1069,7 @@ def check_upsample_conv(gen: torch.Generator) -> dict:
             ho = 2 * h + k - 2 - 2 * pad
             nbytes = 4.0 * (b * c * h * w + co * c * k * k + b * co * ho * ho
                             + ((b * c + b * co) if modulated else 0))
-            cache = UpsampleWeights(wt)     # as a layer keeps its split weight
+            cache = LayerWeights(wt)     # as a layer keeps its split weight
             row = timed(median_ms(lambda: upsample_conv(x, wt, s, d, pad=pad, cache=cache)),
                         median_ms(lambda: upsample_conv_plain(x, wt, s, d, pad=pad)),
                         median_ms(cudnn), bound(up_flop(case), nbytes))
@@ -997,6 +1095,109 @@ def check_upsample_conv(gen: torch.Generator) -> dict:
             f"share {t['bound_share']:.3f}")
     # the JSON row: the conv-tap path's shapes, where the mode spends most
     return {"max_abs_err": worst, **out["sg2_tap"], "groups": out}
+
+
+def preview_bound(flop: float, act_elems: int, f32_elems: int, mode: int) -> dict:
+    """The least time of a bf16-datapath call: its FLOP over the dense bf16
+    tensor-core peak, or its bytes over 3.35 TB/s, the activations (x and
+    y) in the storage of ``mode``, the weight, s and d in float32."""
+    nbytes = (2 if mode == MODE_BF16 else 4) * act_elems + 4 * f32_elems
+    t_flop, t_bytes = flop / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_flop, t_bytes),
+            "bound_by": "operations" if t_flop >= t_bytes else "bytes",
+            "bound_ffma_ms": max(flop / PEAK_FFMA * 1e3, t_bytes)}
+
+
+def preview_case(gen: torch.Generator, kernel: str, case, mode: int) -> tuple[dict, str]:
+    """One shape of a kernel's bf16 datapath (``mode``): against its plain
+    version by the datapath's bar, three launches bit-identical, then the
+    kernel, the plain version and cuDNN on bf16 tensors timed beside the
+    bound."""
+    import torch.nn.functional as F
+    from ganspace_tpu_torch.ops.modconv import (
+        LayerWeights, conv3x3, conv3x3_plain, modconv3x3, modconv3x3_plain,
+        upsample_conv, upsample_conv_plain)
+    store = torch.bfloat16 if mode == MODE_BF16 else torch.float32
+    bf = torch.bfloat16
+    if kernel == "upsample_conv":
+        b, c, co, h, w, k, pad, modulated = case
+        x, wt, s, d = up_inputs(gen, case)
+        x = x.to(store)
+        cache = LayerWeights(wt)
+        fn = lambda: upsample_conv(x, wt, s, d, pad=pad, cache=cache)  # noqa: E731
+        plain = lambda: upsample_conv_plain(x, wt, s, d, pad=pad)  # noqa: E731
+        xs = (x if s is None else x * s[:, :, None, None]).to(bf)
+        wt_t = wt.transpose(0, 1).to(bf)
+        library = lambda: F.conv_transpose2d(xs, wt_t, stride=2, padding=pad)  # noqa: E731
+        ho = 2 * h + k - 2 - 2 * pad
+        bnd = preview_bound(up_flop(case), b * c * h * w + b * co * ho * ho,
+                            co * c * k * k + ((b * c + b * co) if modulated else 0), mode)
+        key = ("upsample_conv", *case[:7], modulated, modulated, mode)
+        label = f"B={b} C={c} Co={co} {h}->{ho} px k={k}"
+    else:
+        b, c, co, h, w = case
+        x, wt, s, d = conv_inputs(gen, case)
+        x = x.to(store)
+        wt_b = wt.to(bf)
+        if kernel == "modconv3x3":
+            fn = lambda: modconv3x3(x, wt, s, d)  # noqa: E731
+            plain = lambda: modconv3x3_plain(x, wt, s, d)  # noqa: E731
+            xs = (x * s[:, :, None, None]).to(bf)
+            sd = b * c + b * co
+        else:
+            fn = lambda: conv3x3(x, wt)  # noqa: E731
+            plain = lambda: conv3x3_plain(x, wt)  # noqa: E731
+            xs, sd = x.to(bf), 0
+        library = lambda: F.conv2d(xs, wt_b, padding=1)  # noqa: E731
+        bnd = preview_bound(2.0 * b * h * w * co * 9 * c, b * c * h * w + b * co * h * w,
+                            co * c * 9 + sd, mode)
+        key = (kernel, *case, kernel == "modconv3x3", mode)
+        label = f"B={b} C={c} Co={co} {h}x{w}"
+    with precision_for(mode):
+        got = fn()
+        err, rel = datapath_err(got, plain(), case, f" {kernel}", mode)
+        if not all(torch.equal(got, fn()) for _ in range(2)):
+            raise AssertionError(f"{kernel} {case} mode {mode}: repeats differ")
+        CHECKED.add(key)
+        row = timed(median_ms(fn), median_ms(plain), median_ms(library), bnd)
+    row["max_abs_err"] = err
+    line = (f"{kernel} bf16 datapath, {'bf16' if mode == MODE_BF16 else 'float32'} storage, "
+            f"{label}: max|d| {err:.3e} (rel {rel:.3e}), 3 launches bit-identical; kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, cuDNN bf16 "
+            f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}),"
+            f" share {row['bound_share']:.3f}")
+    del x, got
+    return row, line
+
+
+def check_preview_kernels(gen: torch.Generator, gpu: str) -> dict:
+    """Kernel B's modulated and plain modes and the stride-2 mode on the bf16
+    datapath, in both storages, at the viewer's StyleGAN2 and StyleGAN
+    render shapes and the convs.2 tap shapes (PREVIEW_GROUPS).  The JSON
+    rows are the bf16 storage's (the viewer's policy); the float32 storage's
+    stand beside them."""
+    out = {}
+    for kernel, groups in PREVIEW_GROUPS.items():
+        by_mode = {}
+        for mode in (MODE_BF16, MODE_BF16_OPS):
+            worst, res = 0.0, {}
+            for group, cases in groups.items():
+                rows = []
+                for case in cases:
+                    row, line = preview_case(gen, kernel, case, mode)
+                    rows.append(row)
+                    worst = max(worst, row["max_abs_err"])
+                    log(line)
+                res[group] = t = sum_rows(rows)
+                log(f"{kernel} bf16 datapath, {'bf16' if mode == MODE_BF16 else 'float32'} "
+                    f"storage, {group} ({len(rows)} shapes): kernel {t['ms']:.4f} ms, plain "
+                    f"{t['plain_ms']:.4f} ms, cuDNN bf16 {t['library_ms']:.4f} ms, bound "
+                    f"{t['bound_ms']:.4f} ms ({t['bound_by']}), share "
+                    f"{t['bound_share']:.3f} [{gpu}]")
+            first = next(iter(groups))
+            by_mode[mode] = {"max_abs_err": worst, **res[first], "groups": res}
+        out[kernel] = {**by_mode[MODE_BF16], "float32_storage": by_mode[MODE_BF16_OPS]}
+    return out
 
 
 def conv_tap_launches(refined: bool, fused_blocks: int, cli: bool,
@@ -1057,16 +1258,17 @@ class LaunchRecorder:
         self.seen.add(("centered_gram", n, d))
         return self.lib.ganspace_centered_gram(x, mu, g, n, d, stream)
 
-    def ganspace_modconv3x3(self, x, wt, s, dmod, y, b, c, h, w, co, stream):
-        self.seen.add(("modconv3x3" if s else "conv3x3", b, c, co, h, w, dmod is not None))
-        return self.lib.ganspace_modconv3x3(x, wt, s, dmod, y, b, c, h, w, co, stream)
+    def ganspace_modconv3x3(self, x, wt, s, dmod, y, b, c, h, w, co, mode, stream):
+        self.seen.add(("modconv3x3" if s else "conv3x3", b, c, co, h, w, dmod is not None,
+                       mode))
+        return self.lib.ganspace_modconv3x3(x, wt, s, dmod, y, b, c, h, w, co, mode, stream)
 
     def ganspace_upsample_conv(self, x, wimg, s, dmod, y, tiling, b, c, h, w, co, k, pad,
-                               stream):
+                               mode, stream):
         self.seen.add(("upsample_conv", b, c, co, h, w, k, pad, s is not None,
-                       dmod is not None))
+                       dmod is not None, mode))
         return self.lib.ganspace_upsample_conv(x, wimg, s, dmod, y, tiling, b, c, h, w, co, k,
-                                               pad, stream)
+                                               pad, mode, stream)
 
 
 def record_launches() -> LaunchRecorder:
@@ -1080,47 +1282,59 @@ def record_launches() -> LaunchRecorder:
 def check_launched_shapes(recorder: LaunchRecorder, gen: torch.Generator) -> None:
     """Every shape the paths launched that the kernel checks did not cover
     (the fits' batch-1 probes, the vs-CPU forwards, ...), held against its
-    plain version by the same bars, two launches bit-identical."""
-    from ganspace_tpu_torch.ops.modconv import (
-        conv3x3, conv3x3_plain, modconv3x3, modconv3x3_plain, upsample_conv,
-        upsample_conv_plain)
-    from ganspace_tpu_torch.ops.moments import centered_gram, centered_gram_plain
+    plain version by the same bars, on the datapath it was launched on,
+    two launches bit-identical."""
     left = sorted(recorder.seen - CHECKED, key=str)
     for key in left:
         kind, *shape = key
-        if kind == "centered_gram":
-            x = torch.randn(*shape, generator=gen, device="cuda") * 2.0 + 0.5
-            mu = x.mean(dim=0)
-            got, ref = centered_gram(x, mu), centered_gram_plain(x, mu)
-            if not float((got - ref).abs().max()) <= gram_bar(ref):
-                raise AssertionError(f"centered_gram {shape}: above the bar")
-            again = centered_gram(x, mu)
-        elif kind == "upsample_conv":
-            case = (*shape[:7], shape[7])
-            if shape[7] != shape[8]:
-                raise AssertionError(f"upsample_conv {shape}: s without d or d without s")
-            x, wt, s, d = up_inputs(gen, case)
-            pad = case[6]
-            got = upsample_conv(x, wt, s, d, pad=pad)
-            conv_err(got, upsample_conv_plain(x, wt, s, d, pad=pad), case, " stride-2 mode")
-            again = upsample_conv(x, wt, s, d, pad=pad)
-        else:
-            x, wt, s, d = conv_inputs(gen, tuple(shape[:5]))
-            d = d if shape[5] else None
-            if kind == "conv3x3":
-                got = conv3x3(x, wt)
-                conv_err(got, conv3x3_plain(x, wt), shape, " plain mode")
-                again = conv3x3(x, wt)
-            else:
-                got = modconv3x3(x, wt, s, d)
-                conv_err(got, modconv3x3_plain(x, wt, s, d), shape, "")
-                again = modconv3x3(x, wt, s, d)
+        mode = shape.pop() if kind != "centered_gram" else MODE_F32
+        with precision_for(mode):
+            got, again = check_launched_shape(gen, kind, shape, mode)
         if not torch.equal(got, again):
             raise AssertionError(f"{key}: two launches differ")
         CHECKED.add(key)
     log(f"launched shapes: {len(recorder.seen)} distinct over the run, all held against "
         f"their plain versions; {len(left)} of them here, beyond the kernel checks: "
         + "; ".join(f"{k[0]} {k[1:]}" for k in left))
+
+
+def check_launched_shape(gen: torch.Generator, kind: str, shape: list, mode: int):
+    """(got, again): one recorded launch shape against its plain version by
+    its datapath's bar, launched twice."""
+    from ganspace_tpu_torch.ops.modconv import (
+        conv3x3, conv3x3_plain, modconv3x3, modconv3x3_plain, upsample_conv,
+        upsample_conv_plain)
+    from ganspace_tpu_torch.ops.moments import centered_gram, centered_gram_plain
+    store = torch.bfloat16 if mode == MODE_BF16 else torch.float32
+    if kind == "centered_gram":
+        x = torch.randn(*shape, generator=gen, device="cuda") * 2.0 + 0.5
+        mu = x.mean(dim=0)
+        got, ref = centered_gram(x, mu), centered_gram_plain(x, mu)
+        if not float((got - ref).abs().max()) <= gram_bar(ref):
+            raise AssertionError(f"centered_gram {shape}: above the bar")
+        again = centered_gram(x, mu)
+    elif kind == "upsample_conv":
+        case = (*shape[:7], shape[7])
+        if shape[7] != shape[8]:
+            raise AssertionError(f"upsample_conv {shape}: s without d or d without s")
+        x, wt, s, d = up_inputs(gen, case)
+        x, pad = x.to(store), case[6]
+        got = upsample_conv(x, wt, s, d, pad=pad)
+        datapath_err(got, upsample_conv_plain(x, wt, s, d, pad=pad), case,
+                     " stride-2 mode", mode)
+        again = upsample_conv(x, wt, s, d, pad=pad)
+    else:
+        x, wt, s, d = conv_inputs(gen, tuple(shape[:5]))
+        x, d = x.to(store), (d if shape[5] else None)
+        if kind == "conv3x3":
+            got = conv3x3(x, wt)
+            datapath_err(got, conv3x3_plain(x, wt), shape, " plain mode", mode)
+            again = conv3x3(x, wt)
+        else:
+            got = modconv3x3(x, wt, s, d)
+            datapath_err(got, modconv3x3_plain(x, wt, s, d), shape, "", mode)
+            again = modconv3x3(x, wt, s, d)
+    return got, again
 
 
 def _wrappers() -> dict:
@@ -1130,13 +1344,24 @@ def _wrappers() -> dict:
             "conv3x3": conv3x3, "upsample_conv": upsample_conv}
 
 
+#: kernel B's and the stride-2 kernel's counts of the bf16 datapath
+BF16_COUNTS = ("modconv3x3", "conv3x3", "upsample_conv")
+
+
 def reset_launches() -> None:
-    for fn in _wrappers().values():
+    for name, fn in _wrappers().items():
         fn.launches = 0
+        if name in BF16_COUNTS:
+            fn.launches_bf16 = 0
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Every count: the float32 datapath's under the kernel's name, the bf16
+    datapath's under ``<name>_bf16``."""
+    wrappers = _wrappers()
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    counts.update({f"{name}_bf16": wrappers[name].launches_bf16 for name in BF16_COUNTS})
+    return counts
 
 
 def expect_launches(launches: dict, what: str, **want) -> None:
@@ -1233,12 +1458,13 @@ def fmt_phases(phases: dict) -> str:
     return ", ".join(f"{k} {v:.3f} s" for k, v in phases.items())
 
 
-def run_main_path(gpu: str) -> tuple[dict, dict]:
-    """The W CLI run in the default environment: (its launch counts, its
-    npz arrays)."""
+def run_main_path(gpu: str, out: str) -> tuple[dict, dict]:
+    """The W CLI run in the default environment, its output under ``out``
+    (the viewer phase reuses its cache): (its launch counts, its npz
+    arrays)."""
     from ganspace_tpu_torch.apps import visualize
 
-    with tempfile.TemporaryDirectory() as out, environ(GANSPACE_OUTPUT_DIR=out):
+    with environ(GANSPACE_OUTPUT_DIR=out):
         reset_launches()
         result = visualize.main(list(MAIN_ARGS))
         launches = read_launches()
@@ -2456,6 +2682,269 @@ def check_progan_dcgan_vs_cpu() -> None:
             raise AssertionError(f"card and CPU disagree on {what}")
 
 
+# -- the preview policy: --dtype bfloat16, the bf16 first pass, the viewer ---
+
+def run_bf16_cli(gpu: str, f32_arrays: dict) -> dict:
+    """``visualize ... --layer convs.2 -n 50000 --dtype bfloat16``: the fit at
+    the preview precision (kernel B and the stride-2 kernel on the bf16
+    datapath, float32 storage), the _bf16 cache and its 80 cosine bounds
+    with the grade they imply; the render after it runs at full precision.
+    Its components beside the float32 CLI's of this run (reported, not
+    gated: random weights give a flat spectrum)."""
+    from ganspace_tpu_torch import decomposition
+    from ganspace_tpu_torch.apps import visualize
+
+    def no_sweep(*args, **kwargs):
+        raise AssertionError("the regression sweep ran on the fused stream")
+    sweep = decomposition.regression
+    with tempfile.TemporaryDirectory() as out, environ(GANSPACE_OUTPUT_DIR=out):
+        decomposition.regression = no_sweep
+        try:
+            reset_launches()
+            result = visualize.main(list(CONV_ARGS) + ["--dtype", "bfloat16"])
+            launches = read_launches()
+        finally:
+            decomposition.regression = sweep
+        if not result.cache.name.endswith("_bf16.npz"):
+            raise AssertionError(f"--dtype bfloat16 cache {result.cache.name}: no _bf16 tag")
+        arrays, meta = load_cache(result.cache)
+    expect_meta(meta, "--dtype bfloat16 CLI", dtype="bfloat16", device_rng=True,
+                fused_linreg=True, bf16_pass1=False)
+    bounds = meta.get("bf16_cos_bounds")
+    if not bounds or len(bounds) != 80 or meta["bf16_analysis_grade"] != (min(bounds) >= 0.99):
+        raise AssertionError(f"--dtype bfloat16 CLI: bounds {bounds} and grade "
+                             f"{meta.get('bf16_analysis_grade')} disagree")
+    shape = dict(refined=not meta["refine_skipped"], fused_blocks=CONV50_BLOCKS)
+    fit_b = conv_tap_launches(cli=False, **shape)
+    fit_up = conv_tap_launches(cli=False, per_tap=UP_PER_TAP_FORWARD,
+                               per_full=UP_PER_FORWARD, **shape)
+    expect_launches(launches, "--dtype bfloat16 CLI",
+                    modconv3x3_bf16=fit_b,
+                    modconv3x3=conv_tap_launches(cli=True, **shape) - fit_b,
+                    upsample_conv_bf16=fit_up,
+                    upsample_conv=conv_tap_launches(cli=True, per_tap=UP_PER_TAP_FORWARD,
+                                                    per_full=UP_PER_FORWARD, **shape) - fit_up)
+    cos = _min_abs_cos(*(torch.from_numpy(a["act_comp"].reshape(80, -1))
+                         for a in (arrays, f32_arrays)))
+    n_low = sum(b < 0.99 for b in bounds)
+    log(f"--dtype bfloat16 CLI: {result.cache.name}; refine_skipped {meta['refine_skipped']}; "
+        f"bounds min {min(bounds):.6f} median {float(np.median(bounds)):.6f}, {n_low}/80 "
+        f"below 0.99, analysis grade {meta['bf16_analysis_grade']}; min |cos| against the "
+        f"float32 CLI's components {cos:.6f} (not gated); fit {result.fit_seconds:.3f} s "
+        f"({CONV50_N / result.fit_seconds:.1f} samples/s) against the float32 CLI's in "
+        f"this run; phases: {fmt_phases(result.phases)}; launches {launches} [{gpu}]")
+    return launches
+
+
+def run_bf16_pass1(gpu: str, inst) -> dict:
+    """The float32 convs.2 fit at n = 20000 on the fused stream, twice, with
+    the registry in a temporary directory: run 1 is all float32 and records
+    that the policy refines; run 2 takes the bf16 first pass (bf16 storage,
+    kernel B and the stride-2 kernel in their bf16 mode), its float32 refine
+    pass determining the estimate, within 0.99 per-component |cos| of run 1
+    (the bar of tests/test_bf16_pass1.py:121)."""
+    from ganspace_tpu_torch import decomposition
+    with tempfile.TemporaryDirectory() as reg, environ(GANSPACE_COMPILE_CACHE=reg):
+        runs = [fit_only(inst, "convs.2", CONV_N, GANSPACE_DEVICE_RNG=1, GANSPACE_FUSED_ACTS=1)
+                for _ in range(2)]
+        recorded = json.loads(decomposition._fused_acts_registry().read_text())
+    first, second = (r["meta"] for r in runs)
+    expect_meta(first, "bf16 first pass, run 1", bf16_pass1=False, refine_skipped=False)
+    expect_meta(second, "bf16 first pass, run 2", bf16_pass1=True, refine_skipped=False,
+                bf16_pass1_aborted=False, dtype="float32")
+    if list(recorded.values()) != [{"policy_refines": True}]:
+        raise AssertionError(f"registry {recorded}")
+    b, up = B_PER_TAP_FORWARD, UP_PER_TAP_FORWARD
+    expect_launches(runs[1]["launches"], "bf16 first pass, run 2",
+                    modconv3x3_bf16=b * CONV20_FUSED_BLOCKS,
+                    modconv3x3=b * (1 + CONV20_FUSED_BLOCKS),
+                    upsample_conv_bf16=up * CONV20_FUSED_BLOCKS,
+                    upsample_conv=up * (1 + CONV20_FUSED_BLOCKS))
+    cos = _min_abs_cos(*(torch.from_numpy(r["arrays"]["act_comp"].reshape(80, -1))
+                         for r in runs))
+    log(f"bf16 first pass at convs.2, n = {CONV_N}: run 1 (float32) "
+        f"{runs[0]['seconds']:.3f} s, run 2 (bf16 first pass) {runs[1]['seconds']:.3f} s; "
+        f"min |cos| of run 2 against run 1 {cos:.6f} (bar 0.99); phases run 1: "
+        f"{fmt_phases(runs[0]['phases'])}; run 2: {fmt_phases(runs[1]['phases'])} [{gpu}]")
+    if not cos >= 0.99:
+        raise AssertionError(f"bf16 first pass: min |cos| {cos} < 0.99")
+    return runs[1]["launches"]
+
+
+def frame_levels(a: np.ndarray, b: np.ndarray) -> tuple[float, int]:
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    return float(d.mean()), int(d.max())
+
+
+def http_round_trip(session) -> None:
+    """The viewer's server on an ephemeral port: the page, a JPEG frame,
+    a resample and a state POST, every request with a timeout."""
+    import threading
+    import urllib.request
+    from ganspace_tpu_torch.apps.interactive import make_server
+    server = make_server(session, port=0)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        def get(path):
+            with urllib.request.urlopen(base + path, timeout=120) as r:
+                return r.read()
+        if b"ganspace-tpu" not in get("/"):
+            raise AssertionError("viewer page")
+        if get("/frame.jpg")[:2] != b"\xff\xd8":
+            raise AssertionError("viewer frame is no JPEG")
+        if get("/resample?seed=7") != b"ok" or session.state.seed != 7:
+            raise AssertionError("viewer resample")
+        req = urllib.request.Request(base + "/state", method="POST",
+                                     data=json.dumps({"sliders": [1.5], "mode": "latent"}).encode())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            if r.read() != b"ok":
+                raise AssertionError("viewer state POST")
+        if get("/frame.jpg")[:2] != b"\xff\xd8":
+            raise AssertionError("viewer frame after the POST is no JPEG")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    session.sliders[:] = 0.0
+
+
+def viewer_policy(dtype):
+    """The viewer process's policy for ``--dtype`` (apply_preview_precision),
+    restored on exit."""
+    from ganspace_tpu_torch.apps.interactive import apply_preview_precision
+    from ganspace_tpu_torch.ops import precision
+
+    @contextlib.contextmanager
+    def scope():
+        old = precision.get_precision(), precision.get_synth_dtype()
+        apply_preview_precision(type("Args", (), {"dtype": dtype})())
+        try:
+            yield
+        finally:
+            precision.set_precision(old[0])
+            precision.set_synth_dtype(old[1])
+    return scope()
+
+
+def drive_viewer(gpu: str, session, what: str, per_forward: dict, family: str) -> dict:
+    """One viewer Session in the preview policy and in float32: the warmup
+    (five frames), ``time_frame`` and ``time_frame_speculative``, a latent,
+    an activation and a layer-window edit, a profile of one frame's
+    synthesis, the HTTP endpoints (preview), and the preview frame against
+    the float32 frame of the same state, held to PREVIEW_ERR_RATIO times
+    the JAX package's figure for ``family`` (PREVIEW_JAX_MEAN_LEVELS).
+    Kernel B's launches of the warmup and of ``time_frame`` are counted
+    exactly: ``per_forward`` of them per forward, on the bf16 datapath in
+    preview and the float32 one under ``--dtype float32``."""
+    out, frames, launches = {}, {}, {}
+    n_lat = session.model.get_max_latents()
+    for name, dtype in (("preview", None), ("float32", "float32")):
+        bf16 = dtype is None
+        with viewer_policy(dtype):
+            session.sliders[:] = 0.0
+            session.mode = "latent"
+            reset_launches()
+            t0 = time.perf_counter()
+            session.warmup()
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+            synth, read, total = session.time_frame(iters=11)
+            counted = read_launches()
+            forwards = 5 + 1 + 2 * 11          # the warmup, time_frame's warm render and iterations
+            want = {(f"{k}_bf16" if bf16 else k): v * forwards for k, v in per_forward.items()}
+            expect_launches(counted, f"{what} viewer ({name}): warmup and time_frame", **want)
+            spec = session.time_frame_speculative(iters=9)
+            base = session.render(force=True).copy()
+            edits = {}
+            for mode, window, slider in (("latent", (0, n_lat), 0), ("activation", (0, n_lat), 1),
+                                         ("latent", (n_lat // 4, n_lat // 2), 2)):
+                v = np.zeros(session.n_sliders, np.float32)
+                v[slider] = 2.0
+                session.mode = mode
+                edits[(mode, window)] = session._compute_frame(v, *window)
+            session.mode = "latent"
+            frames[name] = (base, edits)
+            profile_run(gpu, f"{what} viewer synthesis, {name}",
+                        lambda: session.model.forward(session.state.z))
+            launches[name] = read_launches()
+            wrong = [k for k, n in launches[name].items()
+                     if n and k in BF16_COUNTS and bf16]
+            wrong += [k for k, n in launches[name].items()
+                      if n and k.endswith("_bf16") and not bf16]
+            if wrong:
+                raise AssertionError(f"{what} viewer ({name}): launches on the other "
+                                     f"datapath: {wrong} {launches[name]}")
+        changed = {f"{m} {w}": frame_levels(f, base)[1] > 0 for (m, w), f in edits.items()}
+        out[name] = dict(warmup_s=warm, synth_ms=synth, readback_ms=read, total_ms=total,
+                         speculative_ms=spec, edits_change_frame=changed)
+        log(f"{what} viewer, {name}: warmup {warm:.3f} s; frame median of 11: synthesis "
+            f"{synth:.3f} ms, readback {read:.3f} ms, render {total:.3f} ms; speculative hit "
+            f"{spec:.4f} ms; edits change the frame: {changed}; launches {launches[name]} "
+            f"[{gpu}]")
+        if not changed[f"latent {(0, n_lat)}"] or not changed[f"latent {(n_lat // 4, n_lat // 2)}"]:
+            raise AssertionError(f"{what} viewer ({name}): a latent edit left the frame as it was")
+    with viewer_policy(None):
+        reset_launches()
+        http_round_trip(session)          # it resamples: after the frames compared
+        counted = read_launches()
+    wrong = [k for k, n in counted.items() if n and k in BF16_COUNTS]
+    if wrong or not any(n for k, n in counted.items() if k.endswith("_bf16")):
+        raise AssertionError(f"{what} viewer HTTP: launches {counted}")
+    launches["preview_http"] = counted
+    (pre, pre_edits), (f32, f32_edits) = frames["preview"], frames["float32"]
+    levels = [frame_levels(pre, f32)] + [frame_levels(pre_edits[k], f32_edits[k])
+                                         for k in pre_edits]
+    mean = float(np.mean([m for m, _ in levels]))
+    worst = max(x for _, x in levels)
+    ratio = mean / PREVIEW_JAX_MEAN_LEVELS[family]
+    out.update(preview_vs_f32_mean_levels=mean, preview_vs_f32_max_levels=worst,
+               preview_error_ratio=ratio, launches=launches)
+    log(f"{what} viewer: the preview frame against the float32 frame of the same state, "
+        f"over the base frame and the three edits: mean |d| {mean:.4f} levels, max {worst} "
+        f"levels; {ratio:.3f}x the JAX package's figure on a small {family} "
+        f"({PREVIEW_JAX_MEAN_LEVELS[family]} levels; bar {PREVIEW_ERR_RATIO}x) [{gpu}]")
+    if not 0 < mean or ratio > PREVIEW_ERR_RATIO:
+        raise AssertionError(f"{what} viewer: preview error {mean} levels, ratio {ratio}")
+    return out
+
+
+def run_viewer(gpu: str, w_out: str) -> tuple[dict, dict]:
+    """``python -m ganspace_tpu_torch interactive --model StyleGAN2 --class
+    ffhq --layer style --use_w`` at full FFHQ-1024 width, its Session on the
+    W CLI's cache of this run (``-n 40960``, no fit: no kernel-A launch),
+    driven in both precisions; then StyleGAN-FFHQ-1024's viewer at
+    ``g_mapping`` (its fit at n = 4096), whose frames run kernel B's plain
+    mode and the fused stride-2 convs."""
+    from ganspace_tpu_torch.apps.interactive import Session
+    from ganspace_tpu_torch.config import Config
+    launches, results = {}, {}
+    with environ(GANSPACE_OUTPUT_DIR=w_out):
+        with viewer_policy(None):
+            reset_launches()
+            t0 = time.perf_counter()
+            session = Session(Config().from_args(list(MAIN_ARGS)))
+            built = time.perf_counter() - t0
+            expect_launches(read_launches(), "StyleGAN2 viewer Session", centered_gram=0)
+        log(f"StyleGAN2 viewer: Session on the W CLI's cache in {built:.3f} s "
+            f"({session.n_sliders} sliders, {session.model.get_max_latents()} W slots)")
+        results["sg2"] = drive_viewer(gpu, session, "StyleGAN2-FFHQ-1024",
+                                      {"modconv3x3": B_PER_FORWARD,
+                                       "upsample_conv": UP_PER_FORWARD}, "StyleGAN2")
+        launches.update({f"viewer_sg2_{k}": v for k, v in results["sg2"].pop("launches").items()})
+        del session
+    plain, up = sg1_counts(1024)
+    with tempfile.TemporaryDirectory() as out, environ(GANSPACE_OUTPUT_DIR=out):
+        with viewer_policy(None):
+            session = Session(Config().from_args(list(SG1_ARGS) + ["-n", "4096"]))
+        results["sg1"] = drive_viewer(gpu, session, "StyleGAN-FFHQ-1024",
+                                      {"conv3x3": plain, "upsample_conv": up}, "StyleGAN")
+        launches.update({f"viewer_sg1_{k}": v for k, v in results["sg1"].pop("launches").items()})
+        del session
+    return launches, results
+
+
 def profile_biggan(gpu: str, model) -> None:
     """Four blocks of the BigGAN CLI's fused stream at gen_z (each 10000
     truncated latents drawn, the embedding and gen_z, and the sketch,
@@ -2755,6 +3244,10 @@ def main() -> int:
     # fails outside a checkout: the package sits beside this script
     from ganspace_tpu_torch.ops.precision import ieee_f32
 
+    # The policy registry off, its default: every fit is all float32; the
+    # first-pass phase gives the registry a temporary directory of its own.
+    os.environ.pop("GANSPACE_COMPILE_CACHE", None)
+
     gpu = gpu_line()
     log(f"device: {torch.cuda.get_device_name(0)} [{gpu}], torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
@@ -2769,14 +3262,20 @@ def main() -> int:
         conv = check_modconv3x3(gen)
         plain = check_conv3x3(gen)
         up = check_upsample_conv(gen)
+        preview = check_preview_kernels(gen, gpu)
     log(f"kernel checks wall time: {time.perf_counter() - t_start:.1f} s")
     from ganspace_tpu_torch.models import get_instrumented_model
     launches = {}
     with ieee_f32():
         launches["checkpoint_load"] = check_checkpoint_load(gpu)
     t0 = time.perf_counter()
-    launches["w_style_cli"], w_device = run_main_path(gpu)
-    log(f"W path wall time: {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as w_out:
+        launches["w_style_cli"], w_device = run_main_path(gpu, w_out)
+        log(f"W path wall time: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        viewer_launches, _ = run_viewer(gpu, w_out)
+        launches.update(viewer_launches)
+        log(f"viewer phases wall time: {time.perf_counter() - t0:.1f} s")
     # one model per latent space for the fit-only runs (the CLI's weights)
     w_inst = get_instrumented_model("StyleGAN2", "ffhq", "style", torch.device("cuda"),
                                     use_w=True)
@@ -2804,6 +3303,9 @@ def main() -> int:
     t0 = time.perf_counter()
     launches["convs2_cli"], conv50 = run_conv_tap_path(gpu)
     log(f"conv-tap path wall time: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["convs2_cli_bf16"] = run_bf16_cli(gpu, conv50)
+    log(f"--dtype bfloat16 CLI wall time: {time.perf_counter() - t0:.1f} s")
     conv_inst = get_instrumented_model("StyleGAN2", "ffhq", "convs.2", torch.device("cuda"))
     with ieee_f32():
         check_fused_regression(gpu, conv_inst.model, conv50)
@@ -2830,6 +3332,11 @@ def main() -> int:
         f"stream's {runs['convs2_fit_device']['seconds']:.3f} s [{gpu}]")
     check_fit_repeats(f"fused conv-tap fit at n = {CONV_N}", runs["convs2_fit_fused"],
                       runs["convs2_fit_fused_again"])
+    t0 = time.perf_counter()
+    conv_inst = get_instrumented_model("StyleGAN2", "ffhq", "convs.2", torch.device("cuda"))
+    launches["convs2_fit_bf16_pass1"] = run_bf16_pass1(gpu, conv_inst)
+    del conv_inst
+    log(f"bf16 first pass wall time: {time.perf_counter() - t0:.1f} s")
     report_conv_stream_gate(gpu, runs["convs2_fit_fused"], runs["convs2_fit_host"],
                             runs["convs2_fit_host_seed7"])
     log(f"StyleGAN2 phases wall time: {time.perf_counter() - t_start:.1f} s")
@@ -2896,7 +3403,7 @@ def main() -> int:
     log(f"total wall time: {time.perf_counter() - t_start:.1f} s")
 
     def counts(name):
-        by_path = {path: n[name] for path, n in launches.items()}
+        by_path = {path: n.get(name, 0) for path, n in launches.items()}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     kernels = [
@@ -2916,7 +3423,24 @@ def main() -> int:
              source="ganspace_tpu_torch/csrc/upconv2x.cu",
              replaces="ganspace_tpu/models/stylegan.py:164",
              **counts("upsample_conv"), **up),
+        # the bf16 datapath (the preview policy): times at bf16 storage, the
+        # viewer's, at StyleGAN2's and StyleGAN's render shapes at B = 5
+        dict(name="modconv3x3_bf16", route="cuda",
+             source="ganspace_tpu_torch/csrc/modconv3x3.cu",
+             replaces="ganspace_tpu/ops/pallas/blockconv.py:178",
+             **counts("modconv3x3_bf16"), **preview["modconv3x3"]),
+        dict(name="conv3x3_bf16", route="cuda",
+             source="ganspace_tpu_torch/csrc/modconv3x3.cu",
+             replaces="ganspace_tpu/ops/pallas/blockconv.py:178",
+             **counts("conv3x3_bf16"), **preview["conv3x3"]),
+        dict(name="upsample_conv_bf16", route="cuda",
+             source="ganspace_tpu_torch/csrc/upconv2x.cu",
+             replaces="ganspace_tpu/models/stylegan.py:164",
+             **counts("upsample_conv_bf16"), **preview["upsample_conv"]),
     ]
+    for row in kernels:
+        if row["launches"] == 0:
+            raise AssertionError(f"{row['name']}: launched no time on the paths")
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

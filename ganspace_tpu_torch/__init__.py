@@ -1,12 +1,14 @@
 """ganspace_tpu_torch: the PyTorch + CUDA port of ganspace_tpu.
 
 A second package beside the JAX one, for one NVIDIA Hopper GPU.  It covers
-the visualize CLI on StyleGAN, StyleGAN2 and BigGAN-deep: sample latents,
-run the generator to a tap on the card, fit the streaming IPCA estimator
-(exact moments or the Nystrom sketch) or a full-batch one (PCA, randomized
-SVD, FastICA, sparse PCA), regress the components to latent space,
-write the ``.npz`` component cache and render the edit grids, sweep videos
-and gallery pages.  The two Pallas kernels of the JAX package are
+the visualize CLI on StyleGAN, StyleGAN2, BigGAN-deep, ProGAN and DCGAN:
+sample latents, run the generator to a tap on the card, fit the streaming
+IPCA estimator (exact moments or the Nystrom sketch) or a full-batch one
+(PCA, randomized SVD, FastICA, sparse PCA), regress the components to
+latent space, write the ``.npz`` component cache and render the edit
+grids, sweep videos and gallery pages; the web viewer; and the bf16
+preview policy (``ops/precision.py``).  ``python -m ganspace_tpu_torch``
+dispatches to the CLIs.  The two Pallas kernels of the JAX package are
 hand-written CUDA kernels here (``csrc/``), each beside its plain PyTorch
 version.
 Models are built on the card unless the caller names another device.

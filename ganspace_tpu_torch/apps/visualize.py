@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import sys
 import time
 from os import makedirs
 from pathlib import Path
@@ -145,6 +146,12 @@ def main(args=None):
     fit_seconds = time.perf_counter() - t_fit
     t = load_components(dump_name)
     n_comp = t.X_comp.shape[0]
+    if t.meta and t.meta.get("bf16_analysis_grade") is False:
+        # the spectrum-derived grading of a _bf16 cache, written by the fit
+        bad = sum(b < 0.99 for b in t.meta.get("bf16_cos_bounds", []))
+        print(f"WARNING: visualizing NON-analysis-grade bfloat16 components "
+              f"({bad}/{n_comp} below the 0.99 cosine bound; see _meta "
+              f"bf16_cos_bounds)", file=sys.stderr)
 
     max_batch = args.batch_size or RENDER_MAX_BATCH
     print("Batch size:", max_batch)

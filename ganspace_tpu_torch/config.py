@@ -48,7 +48,10 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", dest="mesh_shape", type=str, default=None,
                    help="Device mesh shape; this port runs on one device")
     p.add_argument("--dtype", dest="dtype", type=str, default=None,
-                   help="Synthesis compute dtype; this port runs float32 only")
+                   help="Synthesis precision: float32 (the default for fits) or "
+                        "bfloat16 (preview: the bf16 datapath, a _bf16 cache graded "
+                        "by its spectrum); the viewer defaults to bfloat16 storage "
+                        "and precision, --dtype float32 pins full precision there")
     p.add_argument("--device", dest="device", type=str, default="cuda",
                    help="torch device to run on (cuda | cpu); cuda refuses "
                         "to fall back to the CPU")

@@ -1,5 +1,5 @@
-// Kernel B, 3x3 mode: a 3x3 convolution, stride 1, zero padding 1, NCHW
-// float32, with an optional style scale and demodulation:
+// Kernel B, 3x3 mode: a 3x3 convolution, stride 1, zero padding 1, NCHW,
+// with an optional style scale and demodulation:
 //
 //   y[b,o,h,w] = d[b,o] * sum_{c,u,v} wt[o,c,u,v] * s[b,c] * x[b,c,h+u-1,w+v-1]
 //
@@ -20,25 +20,46 @@
 // the plain NCHW maps.  The implicit GEMM itself, and what bounds it, are
 // described in implicit_conv.cuh; this mode reads a 3x3 window (K = 9C per
 // output pixel), which makes it compute-bound at every synthesis shape but
-// the 4-8 px ones, where reading the weight once is the bound.
+// the 4-8 px ones, where reading the weight once is the bound.  Under the
+// preview policy (ops/precision.py) it runs the TPU kernel's bf16 case:
+// operands rounded to bf16, float32 accumulation, y in x's storage (float32
+// or bf16); see implicit_conv.cuh for the datapath.
 
 #include <cstdint>
 
 #include "implicit_conv.cuh"
 
 // x [b, c, h, w], wt [co, c, 3, 3], s [b, c] or null, dmod [b, co] or null,
-// y [b, co, h, w]: contiguous float32 device buffers.
+// y [b, co, h, w]: contiguous device buffers.  mode 0: x and y float32,
+// 3xTF32; mode 1: x and y float32, the bf16 datapath (x * s rounded to bf16
+// in the kernel, wt rounded to bf16 by the caller); mode 2: x and y bf16,
+// the bf16 datapath.  wt, s and dmod are float32 in every mode.
 // Launches on `stream` and returns cudaGetLastError() as an int.
-extern "C" int ganspace_modconv3x3(const float* x, const float* wt, const float* s,
-                                   const float* dmod, float* y, int b, int c,
-                                   int h, int w, int co, void* stream) {
+extern "C" int ganspace_modconv3x3(const void* x, const float* wt, const float* s,
+                                   const float* dmod, void* y, int b, int c,
+                                   int h, int w, int co, int mode, void* stream) {
   implicit_conv::Launch L = {};
   L.b = b, L.c = c, L.h = h, L.w = w, L.co = co;
   implicit_conv::Geometry& q = L.g;
   q.wt = wt, q.krow = static_cast<long long>(c) * 9;
   q.oh = h, q.ow = w;
-  q.xvec = (w % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
+  // 16-byte copies of four float32 values, or 8-byte loads of four bf16
+  q.xvec = (w % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % (mode == 2 ? 8 : 16) == 0);
   q.wvec = (c % 4 == 0) && (reinterpret_cast<uintptr_t>(wt) % 16 == 0);
-  return static_cast<int>(
-      implicit_conv::launch_for(x, s, dmod, y, L, static_cast<cudaStream_t>(stream)));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using implicit_conv::launch_for;
+  switch (mode) {
+    case 0:
+      return static_cast<int>(launch_for<float, false>(
+          static_cast<const float*>(x), s, dmod, static_cast<float*>(y), L, st));
+    case 1:
+      return static_cast<int>(launch_for<float, true>(
+          static_cast<const float*>(x), s, dmod, static_cast<float*>(y), L, st));
+    case 2:
+      return static_cast<int>(launch_for<__nv_bfloat16, true>(
+          static_cast<const __nv_bfloat16*>(x), s, dmod, static_cast<__nv_bfloat16*>(y), L,
+          st));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -26,10 +26,23 @@ The path is chosen as the JAX package's ``_compute`` chooses it
   ``spca``) the same blocks are collected into one sample matrix on the
   model's device (the "Collecting" sweep) and fitted at once.
 
-``GANSPACE_DEVICE_RNG=0`` is the JAX package's bit-exact host path.  Not
-ported: the fused-acts sentinel registry (``auto`` is the sample-count rule
-alone), the bf16 first pass, block grouping (a TPU dispatch lever), the
-XLA memory-analysis batch autotune and ``_stream_npz``.
+``GANSPACE_DEVICE_RNG=0`` is the JAX package's bit-exact host path.
+
+Precision (``compute``, JAX ``decomposition.py:608-620``): ``--dtype
+float32`` (the default) fits at the highest precision, ``--dtype bfloat16``
+at the preview precision (the bf16 datapath of the synthesis ops, float32
+activation storage) and writes a ``_bf16`` cache graded by its own
+spectrum (:func:`bf16_component_bounds`).  The float32 fit of a conv tap on
+the fused stream takes a bf16 first pass (bf16 storage) once a prior run of
+the same workload recorded that the adaptive policy keeps the refine pass:
+the mandatory float32 refine pass then determines the estimate.  That one
+fact lives in a JSON registry (:func:`_fused_acts_registry`), which is off
+unless ``GANSPACE_COMPILE_CACHE`` names its directory: on an H100 the first
+pass has not made a fit faster, and with it off a fit does not depend on
+what earlier runs recorded.  Not ported:
+the rest of the JAX package's sentinel registry (``auto`` is the
+sample-count rule alone), block grouping (a TPU dispatch lever), the XLA
+memory-analysis batch autotune and ``_stream_npz``.
 """
 
 from __future__ import annotations
@@ -50,13 +63,62 @@ from ganspace_tpu_torch import require_device
 from ganspace_tpu_torch.estimators import get_estimator
 from ganspace_tpu_torch.models import get_instrumented_model
 from ganspace_tpu_torch.models.base import InstrumentedModel
-from ganspace_tpu_torch.ops.precision import ieee_f32
+from ganspace_tpu_torch.ops.precision import ieee_f32, precision, synth_dtype
 from ganspace_tpu_torch.sampling import (
     SEED_LINREG, SEED_SAMPLING, STREAM_LINREG, STREAM_MAIN, STREAM_W_TAIL,
     block_generator, random_directions, random_directions_device)
 
 #: latent stream block size when ``-b`` is not given (the JAX package's W path)
 W_BATCH = 4096
+
+#: --dtype -> the synthesis precision of ``ops/precision.py``: float32 fits
+#: at the highest precision (component parity with the reference), bfloat16
+#: on the bf16-operand datapath (previews, big sweeps)
+_DTYPE_PRECISION = {"float32": "highest", "bfloat16": "default"}
+
+def _fused_acts_registry() -> Optional[Path]:
+    """The JSON registry of facts about fused-stream workloads, in the
+    directory ``GANSPACE_COMPILE_CACHE`` names (``.ganspace_torch_cache``
+    of a checkout is git-ignored for it); None when the variable is unset
+    or empty, as the JAX package runs without a compile cache."""
+    cache_dir = os.environ.get("GANSPACE_COMPILE_CACHE", "")
+    return Path(cache_dir) / "ganspace_fused_acts.json" if cache_dir else None
+
+
+def _fused_acts_info(key: str) -> dict:
+    """What a prior run recorded about a fused-stream workload: {} when
+    unseen, else ``{"policy_refines": bool}``, whether the adaptive policy
+    kept the refine pass there (JAX ``decomposition.py:71-113``)."""
+    path = _fused_acts_registry()
+    if path is None or not path.is_file():
+        return {}
+    try:
+        with open(path) as f:
+            value = json.load(f).get(key)
+    except (OSError, ValueError):
+        return {}
+    return value if isinstance(value, dict) else {}
+
+
+def _record_fused_acts(key: str, info: dict) -> None:
+    """Merge ``info`` into the workload's record: read, update, write a
+    temporary file and replace the registry with it (atomic)."""
+    path = _fused_acts_registry()
+    if path is None:
+        return
+    try:
+        entries = {}
+        if path.is_file():
+            with open(path) as f:
+                entries = json.load(f)
+        entries[key] = {**entries.get(key, {}), **info}
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
+        with open(tmp, "w") as f:
+            json.dump(entries, f)
+        os.replace(tmp, path)
+    except (OSError, ValueError):
+        pass
 
 
 def _env_on(name: str) -> bool:
@@ -226,6 +288,34 @@ def regression(comp, mean, stdev, inst, config):
     return linreg_lstsq(comp, mean, stdev, inst, config)
 
 
+#: bf16-datapath sensitivity constant (JAX ``decomposition.py:454-466``):
+#: activation rounding is relative noise (bf16 half-ulp 2^-9), so component
+#: i rotates by about eps_rel / rel_gap_i under it.  The JAX package's
+#: calibration: 2e-3 covers its CPU sweep (5 spectrum shapes x 3 seeds,
+#: measured eps_rel 1e-5 .. 2.4e-4) and its two production datapoints.
+BF16_EPS_REL = 2e-3
+
+
+def bf16_component_bounds(evals, n_components: int) -> np.ndarray:
+    """Per-component |cos| lower-bound estimates for bf16-datapath runs
+    (JAX ``decomposition.py:467-489``).  ``evals``: descending eigenvalue
+    estimates of the fitted scatter (ideally >= n_components + 1).
+    Component i's bound is cos(min(BF16_EPS_REL / rel_gap_i, pi / 2)), with
+    rel_gap_i the smaller adjacent relative eigengap; a component whose
+    lower neighbour is unresolved gets 0 (no information)."""
+    ev = np.maximum(np.asarray(evals, np.float64), 1e-300)
+    n = len(ev)
+    bounds = np.zeros(n_components)
+    for i in range(min(n_components, n)):
+        rel_lo = 1.0 - ev[i] / ev[i - 1] if i > 0 else np.inf
+        rel_hi = 1.0 - ev[i + 1] / ev[i] if i + 1 < n else np.nan
+        if np.isnan(rel_hi):          # the spectrum stops at c: no lower gap
+            continue
+        rel_gap = max(min(rel_lo, rel_hi), 1e-12)
+        bounds[i] = np.cos(min(BF16_EPS_REL / rel_gap, np.pi / 2.0))
+    return bounds
+
+
 def _partial_dump_name(dump_name: Path, config_n: int, n_fitted: int) -> Path:
     """Interrupt-time filename: swap the ``_n{N}`` token for the fitted count
     (reference ``decomposition.py:268-274``).  The cache name encodes
@@ -236,17 +326,18 @@ def _partial_dump_name(dump_name: Path, config_n: int, n_fitted: int) -> Path:
 
 def compute(config, dump_name: Path,
             instrumented_model: Optional[InstrumentedModel]) -> dict:
-    """Run the decomposition in IEEE float32 (the only precision ported);
-    returns the wall seconds of its phases."""
+    """Run the decomposition under the config's precision policy (--dtype,
+    unset meaning float32); returns the wall seconds of its phases.  The
+    activation storage is pinned to float32: a viewer process sets the bf16
+    preview policy for itself, and components fitted on preview-grade
+    activations must never reach a cache."""
     dtype = getattr(config, "dtype", None) or "float32"
-    if dtype != "float32":
-        raise NotImplementedError(
-            f"--dtype {dtype!r}: only float32 is ported (bf16 preview is a "
-            "ROADMAP item)")
+    if dtype not in _DTYPE_PRECISION:
+        raise ValueError(f"--dtype {dtype!r}: expected 'float32' or 'bfloat16'")
     if getattr(config, "mesh_shape", None) not in (None, "1"):
         raise NotImplementedError("--mesh: the port runs on one device "
                                   "(multi-GPU is a ROADMAP item)")
-    with ieee_f32():
+    with ieee_f32(), precision(_DTYPE_PRECISION[dtype]), synth_dtype(None):
         return _compute(config, dump_name, instrumented_model)
 
 
@@ -428,6 +519,7 @@ def _compute(config, dump_name: Path,
         return True
 
     canceled = False
+    bf16_pass1 = bf16_pass1_aborted = False
     x_block = None   # the zeros fallback below covers an interrupted sweep
     if fused:
         # Large blocks (a W block is one mapping, ~ms of GEMMs); small runs
@@ -461,20 +553,63 @@ def _compute(config, dump_name: Path,
         n_stream_blocks = -(-n_total // batch)
         print(f"Fitting fused activation stream: {n_stream_blocks} blocks of "
               f"{batch}" + (" (+regression moments)" if want_reg else ""), flush=True)
+        # The workload's identity in the registry (JAX decomposition.py:794-800)
+        fused_key = "|".join([
+            config.model, str(config.output_class), layer_key, f"b{batch}",
+            f"D{sample_dims}", transformer.get_param_str(),
+            getattr(config, "dtype", None) or "float32",
+            "reg2" if want_reg else "reg0",
+            "rand2" if _env_on("GANSPACE_FUSED_RAND") else "rand0"])
+        # The bf16 first pass (JAX decomposition.py:1008-1036): when a prior
+        # run of this workload recorded that the adaptive policy keeps the
+        # refine pass (a flat spectrum), pass 1 streams bf16-stored
+        # activations to find the sketch's subspace and the mandatory
+        # float32 refine pass determines the estimate.  The first run is
+        # all float32; GANSPACE_BF16_PASS1=0 opts out; a never-refine
+        # policy and a model without the preview storage rule it out.
+        bf16_pass1 = (
+            _env_on("GANSPACE_BF16_PASS1")
+            and (getattr(config, "dtype", None) or "float32") == "float32"
+            and transformer._use_nystrom(sample_dims)
+            and transformer.refine_policy not in ("0", "never", "off", "false")
+            and model.preview_policy
+            and _fused_acts_info(fused_key).get("policy_refines") is True)
+        pass1_block, refine_stream = acts_block, None
+        if bf16_pass1:
+            with synth_dtype("bfloat16"):
+                pass1_block = acts_stream_block(model, layer_key, batch, seed0,
+                                                with_latents=want_reg)
+            refine_stream = acts_block
+            print("bf16 first pass (subspace discovery); float32 refine pass "
+                  "determines the estimate", flush=True)
         try:
-            if not transformer.fit_stream(acts_block, n_stream_blocks,
-                                          with_reg=want_reg, rand_dirs=rand_dirs):
+            if not transformer.fit_stream(pass1_block, n_stream_blocks,
+                                          with_reg=want_reg, rand_dirs=rand_dirs,
+                                          refine_stream=refine_stream):
                 raise RuntimeError("fused activation stream unavailable for "
                                    "this estimator")
             if transformer.rand_moments() is None:
                 x_block = acts_block(0)
                 x_block = x_block[0] if want_reg else x_block
+            # The policy's decision, for the next run's choice of pass 1
+            pws = transformer.policy_would_skip
+            if pws is not None:
+                _record_fused_acts(fused_key, {"policy_refines": not pws})
         except KeyboardInterrupt:
             # fit_stream refines inside: an interrupt in its second pass falls
             # back to the completed first pass and its accumulators.
             transformer.abort_refine()
             canceled = interrupted()
             x_block = None
+            if bf16_pass1 and not transformer._refined:
+                # The save derives from the bf16 first pass: preview grade,
+                # so it takes the _bf16 tag and never an f32 cache's name.
+                bf16_pass1_aborted = True
+                dump_name = dump_name.with_name(dump_name.name.replace(".npz", "_bf16.npz"))
+                print("WARNING: interrupted before the float32 refine pass completed — "
+                      "the partial save derives from the bf16 first pass (preview "
+                      "grade; saved under the _bf16 tag, _meta records "
+                      "bf16_pass1_aborted)", file=sys.stderr)
     elif full_batch:
         def collect(gi, xb):
             samples[gi:gi + nb] = xb
@@ -625,19 +760,35 @@ def _compute(config, dump_name: Path,
         print(f'Interrupted result claims the full-run name — saving as '
               f'"{dump_name.name}" instead', file=sys.stderr)
     os.makedirs(dump_name.parent, exist_ok=True)
+    # bf16 datapath: grade the cache from its own fitted spectrum
+    # (bf16_component_bounds), full precision in _meta, so that the grade
+    # and the list always agree.
+    dtype = getattr(config, "dtype", None) or "float32"
+    bf16_meta = {}
+    if dtype == "bfloat16":
+        spec_ev = getattr(transformer, "component_spectrum", lambda: None)()
+        if spec_ev is not None:
+            bounds = bf16_component_bounds(spec_ev, n_components)
+            bf16_meta = {"bf16_cos_bounds": [float(b) for b in bounds],
+                         "bf16_analysis_grade": bool((bounds >= 0.99).all())}
     # Provenance sidecar with the JAX package's fields: which RNG stream
-    # produced the samples, whether the regression rode it, and which
-    # estimator options shaped the result.
+    # produced the samples, whether the regression rode it, which estimator
+    # options shaped the result, the precision.
     meta = json.dumps({
         "device_rng": device_rng_used,
-        "dtype": "float32",
+        "dtype": dtype,
         "mesh": None,
         "fused_linreg": fused_linreg_used,
         "refine_skipped": getattr(transformer, "refine_skipped", None),
         "refine_stats": getattr(transformer, "refine_stats", None),
-        "bf16_pass1": False,
-        "bf16_pass1_aborted": False,
+        # the float32 refine pass determined the estimate, unless it was cut
+        # (bf16_pass1_aborted: then the save is filed under _bf16)
+        "bf16_pass1": bf16_pass1,
+        "bf16_pass1_aborted": bf16_pass1_aborted,
+        **bf16_meta,
     })
+    if dtype == "bfloat16":
+        _print_bf16_verdict(bf16_meta, n_components)
     # Compression pays only for small caches (float components are
     # near-incompressible).
     cache_bytes = x_comp.nbytes + z_comp.nbytes + x_global_mean.nbytes
@@ -666,16 +817,40 @@ def _compute(config, dump_name: Path,
     return phases
 
 
+def _print_bf16_verdict(bf16_meta: dict, n_components: int) -> None:
+    """The stderr verdict on a bf16-datapath cache (JAX
+    ``decomposition.py:1424-1446``): certified when every bound is at least
+    0.99, else NOT analysis-grade."""
+    if bf16_meta.get("bf16_analysis_grade") is True:
+        print("Note: bfloat16-datapath components — the fitted spectrum's eigengaps "
+              "bound every component's cosine vs float32 at >= 0.99 (per-component "
+              "bounds in _meta bf16_cos_bounds)", file=sys.stderr)
+    elif bf16_meta:
+        bad = sum(b < 0.99 for b in bf16_meta["bf16_cos_bounds"])
+        print(f"WARNING: bfloat16-datapath components are NOT analysis-grade here: "
+              f"{bad}/{n_components} components sit on eigengaps too small to bound "
+              f"their rotation under bf16 rounding (per-component bounds in _meta "
+              f"bf16_cos_bounds).  Re-run without --dtype bfloat16 for "
+              f"analysis-grade components", file=sys.stderr)
+    else:
+        print("Note: bfloat16-datapath components (preview precision) — "
+              "per-component cosine vs float32 can dip below 0.99 on flat-spectrum "
+              "models; re-run without --dtype bfloat16 for analysis-grade "
+              "components", file=sys.stderr)
+
+
 # ---------------------------------------------------------------------------
 # Cache layer (reference decomposition.py:360-402)
 # ---------------------------------------------------------------------------
 
 def component_cache_name(config) -> str:
-    """The reference filename scheme (``decomposition.py:384-392``)."""
+    """The reference filename scheme (``decomposition.py:384-392``); a
+    ``--dtype bfloat16`` run appends ``_bf16``, so that preview-precision
+    components never answer a float32 cache lookup."""
     # the parameter string alone: the estimator is never fitted here
     transformer = get_estimator(config.estimator, config.components, config.sparsity,
                                 device="cpu")
-    return "{}-{}_{}_{}_n{}{}{}.npz".format(
+    return "{}-{}_{}_{}_n{}{}{}{}.npz".format(
         config.model.lower(),
         (config.output_class or "None").replace(" ", "_"),
         config.layer.lower(),
@@ -683,6 +858,7 @@ def component_cache_name(config) -> str:
         config.n,
         "_w" if config.use_w else "",
         f"_seed{config.seed}" if config.seed else "",
+        "_bf16" if getattr(config, "dtype", None) == "bfloat16" else "",
     )
 
 

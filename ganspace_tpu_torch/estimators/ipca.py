@@ -553,7 +553,7 @@ class IPCAEstimator:
         return True
 
     def fit_stream(self, block_fn, n_blocks: int, *, with_reg: bool = False,
-                   rand_dirs=None) -> bool:
+                   rand_dirs=None, refine_stream=None) -> bool:
         """Fit over a regenerable block stream (``ipca.py:780-897``).
 
         ``block_fn(i)`` returns block ``i``: ``x [nb, D]``, or ``(x, z
@@ -565,7 +565,15 @@ class IPCAEstimator:
         (:meth:`rand_moments`).  Only the moments and sketch tiers stream
         (their updates are associative); the sklearn tier returns False.
         Each block is one eager update; on the sketch tier the adaptive
-        refine pass follows the main pass."""
+        refine pass follows the main pass.
+
+        ``refine_stream``: another block function for the sketch tier's
+        refine pass, over the same samples (the JAX package's ``(block_fn2,
+        consts2, cache_token2)``; the port is eager, so the function alone).
+        The refine pass then runs whatever the policy says, and its decision
+        is still computed and recorded (``policy_would_skip``,
+        ``refine_stats``): the reduced-precision first pass, whose
+        full-precision refine pass determines the estimate."""
         if n_blocks <= 0:
             return True
         first = block_fn(0)        # the shape probe, kept as block 0 of pass 1
@@ -586,18 +594,20 @@ class IPCAEstimator:
             if self._rand is None:
                 zc = torch.zeros((rand_dirs.shape[0],), dtype=torch.float32, device=dev)
                 self._rand = (zc, zc, 0)
-        self._run_stream(block_fn, n_blocks, with_reg, rand_dirs, first)
+        self._run_stream(block_fn, n_blocks, with_reg, rand_dirs, first, refine_stream)
         return True
 
-    def _run_stream(self, block_fn, n_blocks, with_reg, rand_dirs, first) -> None:
+    def _run_stream(self, block_fn, n_blocks, with_reg, rand_dirs, first,
+                    refine_stream=None) -> None:
         """The main pass, then on the sketch tier the adaptive refine pass
-        over the regenerated stream (``ipca.py:899-964``)."""
+        over the regenerated stream, or the mandatory one over
+        ``refine_stream`` (``ipca.py:899-964``)."""
         def on_device(a):
             return torch.as_tensor(a, dtype=torch.float32).to(self._device)
 
-        def run_pass(first):
+        def run_pass(first, fn=block_fn):
             for i in range(n_blocks):
-                out = block_fn(i) if first is None else first
+                out = fn(i) if first is None else first
                 first = None
                 x, z = out if with_reg else (out, None)
                 x = on_device(x)
@@ -618,7 +628,23 @@ class IPCAEstimator:
                 self.n_samples_seen_ += x.shape[0]
 
         run_pass(first)
-        if self._nystrom is not None and self.should_refine() and self.begin_refine():
+        if self._nystrom is None:
+            return
+        if refine_stream is not None:
+            # The full-precision refine pass is load-bearing: the adaptive
+            # skip is bypassed, its decision recorded for the caller.
+            stats = self.sketch_convergence()
+            self.refine_stats = stats
+            self.policy_would_skip = bool(
+                stats is not None
+                and stats["sketch_tail_frac"] <= self.REFINE_TAIL_FRAC
+                and stats["min_rel_gap_topc"] >= self.REFINE_MIN_GAP)
+            if self.begin_refine(force=True):
+                self.refine_skipped = False
+                run_pass(None, refine_stream)
+                self._pre_refine = None   # completed: no abort may roll it back
+            return
+        if self.should_refine() and self.begin_refine():
             run_pass(None)
             self._pre_refine = None   # completed: no abort may roll it back
 

@@ -1,10 +1,22 @@
-"""Small host-side image helpers (copy of ``ganspace_tpu/utils/imaging.py``'s
-host functions, which cannot be imported without JAX)."""
+"""Small image helpers: copies of ``ganspace_tpu/utils/imaging.py``'s host
+functions, which cannot be imported without JAX, and the viewer's frame
+quantiser (the counterpart of ``ganspace_tpu/apps/interactive.py:_frame_u8``).
+"""
 
 from __future__ import annotations
 
+import string
+
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+_VALID = set("-_" + string.ascii_letters + string.digits)
+
+
+def prettify_name(name: str) -> str:
+    """Filesystem-safe name: replace anything outside [-_a-zA-Z0-9] with '_'."""
+    return "".join(c if c in _VALID else "_" for c in name)
 
 
 def pad_frames(strip):
@@ -34,3 +46,17 @@ def uint8_nhwc(img: torch.Tensor) -> np.ndarray:
     same clip-and-round rule as :func:`to_uint8`)."""
     x = torch.clamp(img.permute(0, 2, 3, 1), 0.0, 1.0)
     return (x * 255.0 + 0.5).to(torch.uint8).cpu().numpy()
+
+
+def frame_u8(img: torch.Tensor, max_hw: int | None = None) -> np.ndarray:
+    """The viewer's frame: :func:`uint8_nhwc` of ``img``, first resized on
+    its device so that max(H, W) <= ``max_hw`` where given (clipped, then
+    bilinear, antialiased when it shrinks, as ``jax.image.resize`` is)."""
+    h, w = img.shape[2], img.shape[3]
+    if max_hw is None or max(h, w) <= max_hw:
+        return uint8_nhwc(img.float())
+    scale = max_hw / max(h, w)
+    x = F.interpolate(torch.clamp(img.float(), 0.0, 1.0),
+                      size=(int(h * scale), int(w * scale)), mode="bilinear",
+                      align_corners=False, antialias=True)
+    return uint8_nhwc(x)

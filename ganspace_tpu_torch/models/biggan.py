@@ -53,7 +53,7 @@ from ganspace_tpu_torch.models.base import BaseGenerator, TapState
 from ganspace_tpu_torch.models.tf_import import import_biggan_tf
 from ganspace_tpu_torch.models.torch_import import import_biggan
 from ganspace_tpu_torch.ops.modconv import (
-    UpsampleWeights, conv3x3, nearest_up_kernel, upsample_conv)
+    LayerWeights, conv3x3, nearest_up_kernel, upsample_conv)
 from ganspace_tpu_torch.ops.precision import ieee_f32
 from ganspace_tpu_torch.sampling import device_truncated, truncated_latents
 
@@ -333,7 +333,7 @@ class GenBlock(nn.Module):
         self.conv_3 = _Conv(mid, cout, 1)
         self.up = up
         # the up-conv's composite kernel and the stride-2 kernel's weight image
-        self.up_weights = UpsampleWeights(self.conv_1.weight) if up else None
+        self.up_weights = LayerWeights(self.conv_1.weight) if up else None
         self._ck_key = None
         self._ck = None
 
@@ -449,6 +449,15 @@ class BigGAN(BaseGenerator):
         v = np.zeros((1, self.cfg.num_classes), np.float32)
         v[0, class_id] = 1.0
         return torch.from_numpy(v).to(self.device)
+
+    def is_valid_class(self, class_id) -> bool:
+        """Any of the 1000 ImageNet classes by index, name or WNID (JAX
+        ``models/biggan.py:527-537``): the viewer's class box."""
+        if isinstance(class_id, int):
+            return class_id < self.cfg.num_classes
+        if isinstance(class_id, str):
+            return imagenet_classes.is_valid(class_id, aliases=CLASS_ALIASES)
+        raise RuntimeError(f"Unknown class identifier {class_id}")
 
     def set_output_class(self, class_id):
         if class_id is None:          # "no preference": keep the current class
@@ -592,6 +601,7 @@ class BigGAN(BaseGenerator):
 
     @torch.no_grad()
     def _run(self, x, stop_at: Optional[str], layer_name: Optional[str] = None):
+        self.require_full_precision()
         zs = x if isinstance(x, list) else self.cfg.n_latents * [x]
         if len(zs) != self.cfg.n_latents:
             raise ValueError(f"Expected {self.cfg.n_latents} latents, got {len(zs)}")
@@ -626,6 +636,7 @@ class BigGAN(BaseGenerator):
 
         @torch.no_grad()
         def fn(z):
+            self.require_full_precision()
             ts = TapState((tap,), None, stop_at)
             with ieee_f32():
                 self.synthesize(self.cfg.n_latents * [z], ts, n_run)

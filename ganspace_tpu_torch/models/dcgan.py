@@ -36,7 +36,7 @@ from ganspace_tpu_torch import require_device
 from ganspace_tpu_torch.models import checkpoints
 from ganspace_tpu_torch.models.base import BaseGenerator, TapState
 from ganspace_tpu_torch.models.torch_import import import_ganzoo_dcgan
-from ganspace_tpu_torch.ops.modconv import UpsampleWeights, upsample_conv
+from ganspace_tpu_torch.ops.modconv import LayerWeights, upsample_conv
 from ganspace_tpu_torch.ops.precision import ieee_f32
 from ganspace_tpu_torch.sampling import gaussian_latents
 
@@ -148,7 +148,7 @@ class GANZooModel(BaseGenerator):
             self.add_module(f"deconv{i}", _Deconv(cin, cout))
             if i != self.cfg.n_up:
                 self.add_module(f"bn{i}", _EvalBatchNorm(cout))
-        self.up_weights = [UpsampleWeights(getattr(self, f"deconv{i}").weight)
+        self.up_weights = [LayerWeights(getattr(self, f"deconv{i}").weight)
                            for i in range(1, self.cfg.n_up + 1)]
         self.params_from_jax(params)
         self.to(device)
@@ -206,6 +206,7 @@ class GANZooModel(BaseGenerator):
 
     @torch.no_grad()
     def _run(self, x, stop_at: Optional[str]):
+        self.require_full_precision()
         if isinstance(x, list):
             if len(x) != 1:
                 raise ValueError("DCGAN only supports a single global latent")
@@ -237,6 +238,7 @@ class GANZooModel(BaseGenerator):
 
         @torch.no_grad()
         def fn(z):
+            self.require_full_precision()
             ts = TapState((tap,), None, tap)
             with ieee_f32():
                 self.synthesize(z, ts)

@@ -50,7 +50,7 @@ from ganspace_tpu_torch.models.base import BaseGenerator, TapState
 from ganspace_tpu_torch.models.tf_import import import_progan_tf
 from ganspace_tpu_torch.models.torch_import import import_progan
 from ganspace_tpu_torch.ops.modconv import (
-    UpsampleWeights, conv3x3, nearest_up_kernel, upsample_conv)
+    LayerWeights, conv3x3, nearest_up_kernel, upsample_conv)
 from ganspace_tpu_torch.ops.precision import ieee_f32
 from ganspace_tpu_torch.sampling import gaussian_latents
 
@@ -136,7 +136,7 @@ class ProGANLayer(nn.Module):
         # WScaleLayer (proggan.py:110-121): gain / sqrt(fan_in) with gain
         # sqrt(2) / kernel size for the conv blocks, 1 for the output block
         self.scale = (1.0 if is_output else math.sqrt(2.0) / k) / math.sqrt(cin)
-        self.up_weights = UpsampleWeights(self.conv.weight) if up else None
+        self.up_weights = LayerWeights(self.conv.weight) if up else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = _pixel_norm(x)
@@ -226,6 +226,7 @@ class ProGAN(BaseGenerator):
 
     @torch.no_grad()
     def _run(self, x, stop_at: Optional[str]):
+        self.require_full_precision()
         if isinstance(x, list):
             if len(x) != 1:
                 raise ValueError("ProGAN only supports a single global latent")
@@ -254,6 +255,7 @@ class ProGAN(BaseGenerator):
 
         @torch.no_grad()
         def fn(z):
+            self.require_full_precision()
             ts = TapState((tap,), None, tap)
             with ieee_f32():
                 self.synthesize(z, ts)

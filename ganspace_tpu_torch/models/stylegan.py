@@ -25,7 +25,13 @@ and is not ported.  Its 3x3 convs go through kernel B (``ops/modconv.py``):
   stride-2 mode, :func:`upsample_conv`.
 
 The [1, 2, 1] blur after each ``conv0_up`` and the 1x1 ``torgb`` stay stock
-PyTorch ops.
+PyTorch ops.  Under the preview policy (``ops/precision.py``) the
+activations are stored in bf16 from the first block of at most 64 channels
+at 128 px and up, where the JAX package's storage dtype engages
+(``ganspace_tpu/models/stylegan.py:245-307``): the low-resolution blocks
+keep float32, since bf16 input rounding there destroys what the instance
+norm amplifies.  The instance statistics stay float32, and the image is
+float32.
 """
 
 from __future__ import annotations
@@ -44,9 +50,10 @@ from ganspace_tpu_torch.models import checkpoints
 from ganspace_tpu_torch.models.base import BaseGenerator, TapState
 from ganspace_tpu_torch.models.tf_import import import_stylegan_tf
 from ganspace_tpu_torch.models.torch_import import import_stylegan
+from ganspace_tpu_torch.ops import precision
 from ganspace_tpu_torch.ops.linear import equal_linear, pixel_norm
-from ganspace_tpu_torch.ops.modconv import UpsampleWeights, conv3x3, upsample_conv
-from ganspace_tpu_torch.ops.precision import ieee_f32
+from ganspace_tpu_torch.ops.modconv import LayerWeights, conv3x3, upsample_conv
+from ganspace_tpu_torch.ops.precision import ieee_f32, synth_dtype_name
 from ganspace_tpu_torch.sampling import gaussian_latents
 
 # Reference wrapper class->resolution table (wrappers.py:276-291).
@@ -69,6 +76,10 @@ N_BROADCAST_LATENTS = 18  # reference hardcodes 18 W slots (wrappers.py:361-362)
 #: the fused upscale + transposed conv from this output resolution on
 #: (reference model.py:82)
 FUSED_MIN_RES = 128
+
+#: the preview storage engages at the blocks of at most this many channels
+#: (at FUSED_MIN_RES and up): the JAX package's space-to-depth entry
+PREVIEW_MAX_CH = 64
 
 
 @dataclass(frozen=True)
@@ -144,7 +155,7 @@ def _blur121(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Depthwise [1, 2, 1] blur with ``k`` from :func:`blur121_kernel`,
     stride 1 (reference model.py:145-169)."""
     c = x.shape[1]
-    return F.conv2d(x, k.expand(c, 1, 3, 3), padding=1, groups=c)
+    return precision.conv2d(x, k.expand(c, 1, 3, 3), padding=1, groups=c)
 
 
 class EqualizedLinear(nn.Module):
@@ -177,7 +188,7 @@ class EqualizedConv2d(nn.Module):
         return self.weight * (self.gain * ((in_ch * k * k) ** -0.5))
 
     def add_bias(self, y: torch.Tensor) -> torch.Tensor:
-        return y + self.bias.reshape(1, -1, 1, 1)
+        return y + self.bias.reshape(1, -1, 1, 1).to(y.dtype)
 
 
 class MappingNetwork(nn.Module):
@@ -222,19 +233,22 @@ class LayerEpilogue(nn.Module):
         self.style_mod = _StyleMod(w_dim, ch)
 
     def forward(self, name: str, x, w_lat, noise, ts: TapState):
-        x = x + self.top_epi.noise.weight.reshape(1, -1, 1, 1) * noise
+        nw = self.top_epi.noise.weight.reshape(1, -1, 1, 1)
+        x = x + nw.to(x.dtype) * noise.to(x.dtype)
         x = ts.tap(f"{name}.top_epi.noise", x)
         if ts.stopped:
             return x
         x = F.leaky_relu(x, 0.2)
-        # InstanceNorm2d, affine=False, eps=1e-5, float32 statistics.
-        mu = torch.mean(x, dim=(2, 3), keepdim=True)
-        var = torch.var(x, dim=(2, 3), keepdim=True, correction=0)
-        x = (x - mu) * torch.rsqrt(var + 1e-5)
+        # InstanceNorm2d, affine=False, eps=1e-5, float32 statistics (also
+        # under bf16 storage).
+        xf = x.float()
+        mu = torch.mean(xf, dim=(2, 3), keepdim=True)
+        var = torch.var(xf, dim=(2, 3), keepdim=True, correction=0)
+        x = ((xf - mu) * torch.rsqrt(var + 1e-5)).to(x.dtype)
         style = ts.tap(f"{name}.style_mod.lin", self.style_mod.lin(w_lat))
         if ts.stopped:
             return x
-        style = style.reshape(-1, 2, x.shape[1], 1, 1)
+        style = style.reshape(-1, 2, x.shape[1], 1, 1).to(x.dtype)
         x = x * (style[:, 0] + 1.0) + style[:, 1]
         return ts.tap(name, x)
 
@@ -249,13 +263,15 @@ class InputBlock(nn.Module):
         self.epi1 = LayerEpilogue(ch, w_dim)
         self.conv = EqualizedConv2d(ch, ch, 3)
         self.epi2 = LayerEpilogue(ch, w_dim)
+        self.weight_cache = LayerWeights(self.conv.weight)
 
     def forward(self, base: str, batch: int, lat0, lat1, noise, ts: TapState):
         x = self.const.expand(batch, -1, -1, -1) + self.bias.reshape(1, -1, 1, 1)
         x = self.epi1(f"{base}.epi1", x, lat0, noise, ts)
         if ts.stopped:
             return x
-        x = ts.tap(f"{base}.conv", self.conv.add_bias(conv3x3(x, self.conv.scaled_weight())))
+        x = ts.tap(f"{base}.conv", self.conv.add_bias(
+            conv3x3(x, self.conv.scaled_weight(), cache=self.weight_cache)))
         if ts.stopped:
             return x
         return self.epi2(f"{base}.epi2", x, lat1, noise, ts)
@@ -271,7 +287,10 @@ class UpBlock(nn.Module):
         self.conv1 = EqualizedConv2d(ch, ch, 3)
         self.epi2 = LayerEpilogue(ch, w_dim)
         self.fused = res >= FUSED_MIN_RES
-        self.weight_cache = UpsampleWeights(self.conv0_up.weight) if self.fused else None
+        self.weight_cache = LayerWeights(self.conv0_up.weight)
+        self.conv1_cache = LayerWeights(self.conv1.weight)
+        #: the block takes the preview storage (bf16) under that policy
+        self.preview_storage = self.fused and ch <= PREVIEW_MAX_CH
 
     def upconv(self, x: torch.Tensor) -> torch.Tensor:
         """``conv0_up`` before its blur and bias."""
@@ -285,7 +304,7 @@ class UpBlock(nn.Module):
             return upsample_conv(x, w4, pad=1, cache=self.weight_cache)
         n, c, h, w = x.shape
         x = x[:, :, :, None, :, None].expand(n, c, h, 2, w, 2).reshape(n, c, 2 * h, 2 * w)
-        return conv3x3(x, wm)
+        return conv3x3(x, wm, cache=self.weight_cache)
 
     def forward(self, base: str, x, lat0, lat1, noise, blur_k, ts: TapState):
         x = ts.tap(f"{base}.conv0_up",
@@ -296,7 +315,8 @@ class UpBlock(nn.Module):
         if ts.stopped:
             return x
         x = ts.tap(f"{base}.conv1",
-                   self.conv1.add_bias(conv3x3(x, self.conv1.scaled_weight())))
+                   self.conv1.add_bias(conv3x3(x, self.conv1.scaled_weight(),
+                                               cache=self.conv1_cache)))
         if ts.stopped:
             return x
         return self.epi2(f"{base}.epi2", x, lat1, noise, ts)
@@ -321,6 +341,8 @@ class StyleGAN(BaseGenerator):
     """Drop-in equivalent of the reference ``StyleGAN`` wrapper
     (``models/wrappers.py:270-436``) on one torch device, the card unless
     ``device`` says otherwise."""
+
+    preview_policy = True
 
     def __init__(self, class_name: Optional[str] = None, truncation: float = 1.0,
                  use_w: bool = False, cfg: Optional[SG1Config] = None,
@@ -406,7 +428,8 @@ class StyleGAN(BaseGenerator):
         names.append("g_synthesis.torgb")
         return tuple(names)
 
-    def sample_latent(self, n_samples=1, seed=None):
+    def sample_latent(self, n_samples=1, seed=None, truncation=None):
+        # ``truncation`` is BigGAN's; StyleGAN truncates in synthesis
         if seed is None:
             seed = self.host_rng.next_seed()
         z = torch.from_numpy(gaussian_latents(n_samples, self.cfg.w_dim, seed))
@@ -423,9 +446,11 @@ class StyleGAN(BaseGenerator):
             return self.g_mapping(z)
 
     # -- execution ----------------------------------------------------------
-    def synthesize(self, styles, ts: TapState):
+    def synthesize(self, styles, ts: TapState, act_dtype: Optional[str] = None):
         """One call of the reference's synthesis; returns the raw [-1, 1]
-        image, or None when ``ts`` stopped at a tap."""
+        image in float32, or None when ``ts`` stopped at a tap.
+        ``act_dtype`` (``'bfloat16'`` or None): the activation storage of the
+        blocks that take it (``UpBlock.preview_storage``)."""
         if self.w_primary:
             # The mapping does not run, so its tap never fires.
             ws = list(styles)
@@ -453,6 +478,8 @@ class StyleGAN(BaseGenerator):
             if bi == 0:
                 x = block(base, latent.shape[0], lat0, lat1, noise, ts)
             else:
+                if act_dtype is not None and block.preview_storage:
+                    x = x.to(getattr(torch, act_dtype))
                 x = block(base, x, lat0, lat1, noise, self.blur_kernel, ts)
             if ts.stopped:
                 return None
@@ -460,8 +487,8 @@ class StyleGAN(BaseGenerator):
             if ts.stopped:
                 return None
         torgb = self.g_synthesis.torgb
-        rgb = torgb.add_bias(F.conv2d(x, torgb.scaled_weight()))
-        return ts.tap("g_synthesis.torgb", rgb)
+        rgb = torgb.add_bias(precision.conv2d(x, torgb.scaled_weight()))
+        return ts.tap("g_synthesis.torgb", rgb.float())
 
     @torch.no_grad()
     def _run(self, x, stop_at: Optional[str]):
@@ -470,7 +497,7 @@ class StyleGAN(BaseGenerator):
         retain, edits, store = self._instrumentation()
         ts = TapState(retain, edits, stop_at)
         with ieee_f32():
-            img = self.synthesize(styles, ts)
+            img = self.synthesize(styles, ts, synth_dtype_name())
         if store is not None:
             store(ts.retained)
         return img
@@ -485,13 +512,15 @@ class StyleGAN(BaseGenerator):
     def pure_acts_fn(self, layer_name: str):
         """``fn(latents [n, w_dim]) -> activations [n, -1]`` at the tap:
         ``synthesize`` with a ``TapState`` that retains only the tap and
-        stops there, the kernels exactly as in ``partial_forward``."""
+        stops there, the kernels exactly as in ``partial_forward``, in the
+        activation storage the policy names when it is built."""
         tap = self.resolve_tap(layer_name)
+        act_dtype = synth_dtype_name()
 
         @torch.no_grad()
         def fn(lat):
             ts = TapState((tap,), None, tap)
             with ieee_f32():
-                self.synthesize([lat], ts)
+                self.synthesize([lat], ts, act_dtype)
             return ts.retained[tap].reshape(lat.shape[0], -1)
         return fn

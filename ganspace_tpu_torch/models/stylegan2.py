@@ -19,6 +19,10 @@ runs NCHW at every stage; the JAX package's space-to-depth tail
 (``ops/s2d.py``) exists only for TPU lanes and is not ported.  Every
 non-upsampling 3x3 StyledConv goes through kernel B's modulated mode and
 every upsampling one through its stride-2 mode (``ops/modconv.py``).
+Under the preview policy (``ops/precision.py``) synthesis stores its
+activations in bf16 from the latent on, as the JAX package does
+(``ganspace_tpu/models/stylegan2.py:270-285``), and returns a float32
+image.
 """
 
 from __future__ import annotations
@@ -36,8 +40,8 @@ from ganspace_tpu_torch.models import checkpoints
 from ganspace_tpu_torch.models.base import BaseGenerator, TapState
 from ganspace_tpu_torch.models.torch_import import import_stylegan2
 from ganspace_tpu_torch.ops.linear import equal_linear, fused_leaky_relu, pixel_norm
-from ganspace_tpu_torch.ops.modconv import UpsampleWeights, modulated_conv2d
-from ganspace_tpu_torch.ops.precision import ieee_f32
+from ganspace_tpu_torch.ops.modconv import LayerWeights, modulated_conv2d
+from ganspace_tpu_torch.ops.precision import ieee_f32, synth_dtype_name
 from ganspace_tpu_torch.ops.upfirdn import make_fir_kernel, upsample2x
 from ganspace_tpu_torch.sampling import gaussian_latents
 
@@ -191,7 +195,7 @@ class StyledConv(nn.Module):
         self.noise = NoiseInjection()
         self.activate = FusedLeakyReLU(out_ch)
         self.upsample = upsample
-        self.weight_cache = UpsampleWeights(self.conv.weight) if upsample else None
+        self.weight_cache = LayerWeights(self.conv.weight)
 
     def forward(self, name: str, x, w_lat, noise, blur_k, ts: TapState):
         s = self.conv.modulation(w_lat)
@@ -201,7 +205,7 @@ class StyledConv(nn.Module):
         x = ts.tap(f"{name}.conv", x)
         if ts.stopped:
             return x
-        x = x + self.noise.weight[0] * noise
+        x = x + self.noise.weight[0].to(x.dtype) * noise.to(x.dtype)
         x = fused_leaky_relu(x, self.activate.bias, channel_dim=1)
         return ts.tap(name, x)
 
@@ -215,7 +219,7 @@ class ToRGB(nn.Module):
     def forward(self, name: str, x, w_lat, skip, blur_k, ts: TapState):
         s = self.conv.modulation(w_lat)
         out = modulated_conv2d(x, self.conv.weight, s, demodulate=False)
-        out = out + self.bias
+        out = out + self.bias.to(out.dtype)
         if skip is not None:
             out = out + upsample2x(skip, blur_k)
         return ts.tap(name, out)
@@ -235,6 +239,8 @@ class StyleGAN2(BaseGenerator):
     """Drop-in equivalent of the reference ``StyleGAN2`` wrapper
     (``models/wrappers.py:97-267``) on one torch device, the card unless
     ``device`` says otherwise."""
+
+    preview_policy = True
 
     def __init__(self, class_name: Optional[str] = None, truncation: float = 1.0,
                  use_w: bool = False, cfg: Optional[SG2Config] = None,
@@ -327,7 +333,8 @@ class StyleGAN2(BaseGenerator):
             i += 2
         return tuple(names)
 
-    def sample_latent(self, n_samples=1, seed=None):
+    def sample_latent(self, n_samples=1, seed=None, truncation=None):
+        # ``truncation`` is BigGAN's; StyleGAN truncates in synthesis
         if seed is None:
             seed = self.host_rng.next_seed()
         z = torch.from_numpy(gaussian_latents(n_samples, self.cfg.w_dim, seed))
@@ -344,9 +351,12 @@ class StyleGAN2(BaseGenerator):
             return self.style(z)
 
     # -- execution ----------------------------------------------------------
-    def synthesize(self, styles, ts: TapState, inject_index: Optional[int]):
+    def synthesize(self, styles, ts: TapState, inject_index: Optional[int],
+                   act_dtype: Optional[str] = None):
         """The staged walk of ``wrappers.py:194-259`` for one call; returns
-        the raw [-1, 1] image, or None when ``ts`` stopped at a tap."""
+        the raw [-1, 1] image in float32, or None when ``ts`` stopped at a
+        tap.  ``act_dtype`` (``'bfloat16'`` or None): the activation
+        storage, from the latent on."""
         cfg = self.cfg
         n_latent = cfg.n_latent
         if self.w_primary:
@@ -368,10 +378,14 @@ class StyleGAN2(BaseGenerator):
             latent = torch.stack(ws, dim=1)
         if ts.stop_at == "style":
             return None
+        dt = getattr(torch, act_dtype) if act_dtype is not None else None
+        if dt is not None:
+            latent = latent.to(dt)
 
         blur_k = self.blur_kernel
         batch = latent.shape[0]
-        out = ts.tap("input", self.input.input.expand(batch, -1, -1, -1))
+        const = self.input.input if dt is None else self.input.input.to(dt)
+        out = ts.tap("input", const.expand(batch, -1, -1, -1))
         if ts.stopped:
             return None
         out = self.conv1("conv1", out, latent[:, 0], self.noise_0, blur_k, ts)
@@ -394,7 +408,7 @@ class StyleGAN2(BaseGenerator):
             if ts.stopped:
                 return None
             i += 2
-        return skip
+        return skip.float()
 
     @torch.no_grad()
     def _run(self, x, stop_at: Optional[str]):
@@ -407,7 +421,7 @@ class StyleGAN2(BaseGenerator):
         retain, edits, store = self._instrumentation()
         ts = TapState(retain, edits, stop_at)
         with ieee_f32():
-            img = self.synthesize(styles, ts, inject_index)
+            img = self.synthesize(styles, ts, inject_index, synth_dtype_name())
         if store is not None:
             store(ts.retained)
         return img
@@ -423,13 +437,16 @@ class StyleGAN2(BaseGenerator):
     def pure_acts_fn(self, layer_name: str):
         """``fn(latents [n, w_dim]) -> activations [n, -1]`` at the tap:
         ``synthesize`` with a ``TapState`` that retains only the tap and
-        stops there (kernel B exactly as in ``partial_forward``)."""
+        stops there (kernel B exactly as in ``partial_forward``), in the
+        activation storage the policy names when it is built (its
+        activations then in that dtype)."""
         tap = self.resolve_tap(layer_name)
+        act_dtype = synth_dtype_name()
 
         @torch.no_grad()
         def fn(lat):
             ts = TapState((tap,), None, tap)
             with ieee_f32():
-                self.synthesize([lat], ts, None)
+                self.synthesize([lat], ts, None, act_dtype)
             return ts.retained[tap].reshape(lat.shape[0], -1)
         return fn

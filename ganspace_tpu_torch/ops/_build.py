@@ -34,8 +34,8 @@ _I = ctypes.c_int
 # C signatures: every pointer and the stream are c_void_p, sizes are c_int.
 _SIGNATURES = {
     "ganspace_centered_gram": [_P, _P, _P, _I, _I, _P],
-    "ganspace_modconv3x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "ganspace_upsample_conv": [_P] * 6 + [_I] * 7 + [_P],
+    "ganspace_modconv3x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "ganspace_upsample_conv": [_P] * 6 + [_I] * 8 + [_P],
     "ganspace_tf32x3_tile": [_P, _P, _P, _P],
     "ganspace_wgmma_tile": [_P, _P, _P, _P, _I, _P],
 }

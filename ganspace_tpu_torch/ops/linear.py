@@ -2,7 +2,10 @@
 
 Counterparts of ``ganspace_tpu/ops/linear.py``: the StyleGAN2
 ``EqualLinear`` and ``fused_bias_act`` as plain PyTorch expressions.
-Weights are stored [out, in] as in the checkpoints.
+Weights are stored [out, in] as in the checkpoints.  The product follows
+JAX's ``jnp.matmul``: the operands promote to a common dtype, and the
+``default`` precision of ``ops/precision.py`` rounds them to bf16 (the
+MXU's one pass) with float32 accumulation.
 """
 
 from __future__ import annotations
@@ -11,6 +14,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from ganspace_tpu_torch.ops.precision import get_precision, round_bf16
 
 
 def pixel_norm(x: torch.Tensor) -> torch.Tensor:
@@ -24,7 +29,12 @@ def equal_linear(x: torch.Tensor, weight: torch.Tensor,
     """y = x @ (weight * gain * lr_mul / sqrt(fan_in)).T + bias * lr_mul: the
     JAX package's ``equal_linear``; ``gain=1`` is StyleGAN2's ``EqualLinear``
     and StyleGAN's StyleMod, ``sqrt(2)`` StyleGAN's mapping layers."""
-    y = F.linear(x, weight * (gain * weight.shape[1] ** -0.5 * lr_mul))
+    w = weight * (gain * weight.shape[1] ** -0.5 * lr_mul)
+    dt = torch.promote_types(x.dtype, w.dtype)
+    if get_precision() == "default":
+        y = F.linear(round_bf16(x), round_bf16(w)).to(dt)
+    else:
+        y = F.linear(x.to(dt), w.to(dt))
     if bias is not None:
         y = y + bias * lr_mul
     return y

@@ -27,11 +27,21 @@ plain PyTorch version, which is the CPU path and the kernel's oracle:
   fixed summation order, so a repeated call gives identical bits, which
   cuDNN's transposed convolution does not.  A layer splits its weight into
   TF32 hi and lo once, in the layout the kernel reads
-  (:class:`UpsampleWeights`).
+  (:class:`LayerWeights`).
+
+Each mode has two datapaths, chosen per call by ``ops/precision.py``'s
+rule (:func:`~ganspace_tpu_torch.ops.precision.bf16_operands`): 3xTF32 on
+float32 operands, or, under the preview policy or on a bf16 ``x``, the
+TPU kernel's bf16 case: ``x * s`` and the weight rounded to bf16, float32
+accumulation, ``d`` in float32, and the output in ``x``'s dtype (float32
+or bf16).  The plain version of the bf16 datapath is that function
+exactly: the operands rounded, then ``F.conv2d`` / ``conv_transpose2d``
+in float32 on the rounded values, then the output rounded to ``x``'s
+dtype.
 
 The blur after an upsampling conv and the 1x1 ``to_rgb`` conv stay stock
 PyTorch ops, as the JAX package leaves them to XLA; they run under the
-float32 policy of ``ops/precision.py``.
+same policy (``ops/precision.conv2d``).
 """
 
 from __future__ import annotations
@@ -43,9 +53,22 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ganspace_tpu_torch.ops import precision
 from ganspace_tpu_torch.ops._build import check, load_kernels, stream_handle
+from ganspace_tpu_torch.ops.precision import bf16_operands, round_bf16
 from ganspace_tpu_torch.ops.tf32x3 import split_tf32, sw128_image
 from ganspace_tpu_torch.ops.upfirdn import upfirdn2d
+
+#: the kernels' datapath modes (the C entries' ``mode``)
+MODE_F32, MODE_BF16_OPS, MODE_BF16 = 0, 1, 2
+
+
+def datapath_mode(x: torch.Tensor) -> int:
+    """The kernels' mode for ``x``: float32 storage in 3xTF32, float32
+    storage on the bf16 datapath (the preview precision), or bf16 storage."""
+    if x.dtype == torch.bfloat16:
+        return MODE_BF16
+    return MODE_BF16_OPS if bf16_operands(x) else MODE_F32
 
 
 def demodulation(w_scaled: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -56,13 +79,16 @@ def demodulation(w_scaled: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 def _cuda_operands(name: str, x: torch.Tensor, w: torch.Tensor, s, d,
                    out_elems: int) -> None:
-    """Raise on what the kernels do not take: a non-CUDA device, another
-    dtype or device among the operands, a wrong s or d shape, int overflow."""
+    """Raise on what the kernels do not take: a non-CUDA device, x neither
+    float32 nor bf16, another dtype than float32 or another device among the
+    other operands, a wrong s or d shape, int overflow."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    tensors = [x, w] + [t for t in (s, d) if t is not None]
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: x must be float32 or bfloat16, got {x.dtype}")
+    tensors = [w] + [t for t in (s, d) if t is not None]
     if any(t.dtype != torch.float32 or t.device != x.device for t in tensors):
-        raise TypeError(f"{name}: all operands must be float32 on one CUDA device")
+        raise TypeError(f"{name}: w, s and d must be float32 on x's CUDA device")
     b, c = x.shape[:2]
     if (s is not None and s.shape != (b, c)) or (d is not None and d.shape != (b, w.shape[0])):
         raise ValueError(f"{name}: s must be [B, C] and d [B, Co]")
@@ -81,73 +107,118 @@ def _check_3x3(name: str, x, w_scaled) -> None:
                          f"match {c} input channels with a 3x3 kernel")
 
 
-def _launch_3x3(name: str, x, w_scaled, s, d) -> torch.Tensor:
+def _scale(t):
+    """s as the kernels read it: float32, a bf16 s (x's storage) widened
+    exactly; another dtype is left for :func:`_cuda_operands` to refuse."""
+    if t is None:
+        return None
+    return (t.float() if t.dtype == torch.bfloat16 else t).contiguous()
+
+
+def _count(wrapper, x) -> None:
+    """One more launch of ``wrapper``'s kernel on ``x``'s datapath:
+    ``launches`` (3xTF32) or ``launches_bf16`` (the bf16 datapath)."""
+    if datapath_mode(x) == MODE_F32:
+        wrapper.launches += 1
+    else:
+        wrapper.launches_bf16 += 1
+
+
+def _launch_3x3(name: str, x, w_scaled, s, d, cache) -> torch.Tensor:
     b, c, h, w = x.shape
     co = w_scaled.shape[0]
+    mode = datapath_mode(x)
+    s = _scale(s)
     _cuda_operands(name, x, w_scaled, s, d, b * co * h * w)
     x, w_scaled = x.contiguous(), w_scaled.contiguous()
-    s = None if s is None else s.contiguous()
+    if mode != MODE_F32:
+        w_scaled = _rounded(w_scaled, cache)
     d = None if d is None else d.contiguous()
-    y = torch.empty((b, co, h, w), dtype=torch.float32, device=x.device)
+    y = torch.empty((b, co, h, w), dtype=x.dtype, device=x.device)
     check(load_kernels().ganspace_modconv3x3(
         x.data_ptr(), w_scaled.data_ptr(), _ptr(s), _ptr(d), y.data_ptr(),
-        b, c, h, w, co, stream_handle(x)), name)
+        b, c, h, w, co, mode, stream_handle(x)), name)
     return y
+
+
+def _bf16_plain(conv, x, w_scaled, s, d) -> torch.Tensor:
+    """The bf16 datapath's plain version: ``x * s`` and the weight rounded
+    to bf16, ``conv`` in float32 on the rounded values, ``d`` in float32,
+    the output rounded to ``x``'s dtype."""
+    xs = x.float() if s is None else x.float() * s.float()[:, :, None, None]
+    y = conv(round_bf16(xs), round_bf16(w_scaled.float()))
+    if d is not None:
+        y = y * d.float()[:, :, None, None]
+    return y.to(x.dtype)
 
 
 def modconv3x3_plain(x: torch.Tensor, w_scaled: torch.Tensor, s: torch.Tensor,
                      d: torch.Tensor | None) -> torch.Tensor:
     """Plain PyTorch version of the modulated mode: the CPU path and its oracle."""
+    if bf16_operands(x):
+        return _bf16_plain(lambda a, k: F.conv2d(a, k, padding=1), x, w_scaled, s, d)
     y = F.conv2d(x * s[:, :, None, None], w_scaled, padding=1)
     return y if d is None else y * d[:, :, None, None]
 
 
 def modconv3x3(x: torch.Tensor, w_scaled: torch.Tensor, s: torch.Tensor,
-               d: torch.Tensor | None) -> torch.Tensor:
-    """d * conv3x3(x * s, w_scaled), stride 1, zero padding 1, NCHW float32.
+               d: torch.Tensor | None, *, cache: LayerWeights | None = None) -> torch.Tensor:
+    """d * conv3x3(x * s, w_scaled), stride 1, zero padding 1, NCHW.
 
-    x [B, C, H, W], w_scaled [Co, C, 3, 3] (the He scale already applied),
-    s [B, C], d [B, Co] or None.  A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises."""
+    x [B, C, H, W] float32 or bf16, w_scaled [Co, C, 3, 3] (the He scale
+    already applied), s [B, C], d [B, Co] or None; the output is in x's
+    dtype, on the datapath ``ops/precision.py`` picks.  A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel or raises.
+    ``cache``, the layer's :class:`LayerWeights`, keeps the rounded weight
+    of the bf16 datapath between calls."""
     _check_3x3("modconv3x3", x, w_scaled)
     if x.device.type == "cpu":
         return modconv3x3_plain(x, w_scaled, s, d)
     if s is None:
         raise ValueError("modconv3x3: s is required (conv3x3 is the plain mode)")
-    y = _launch_3x3("modconv3x3", x, w_scaled, s, d)
-    modconv3x3.launches += 1
+    y = _launch_3x3("modconv3x3", x, w_scaled, s, d, cache)
+    _count(modconv3x3, x)
     return y
 
 
-#: kernel launches since the last reset (CPU calls do not count)
-modconv3x3.launches = 0
+#: kernel launches since the last reset, on the float32 datapath and on the
+#: bf16 one (CPU calls do not count)
+modconv3x3.launches = modconv3x3.launches_bf16 = 0
 
 
 def conv3x3_plain(x: torch.Tensor, w_scaled: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the plain mode: the CPU path and its oracle."""
+    if bf16_operands(x):
+        return _bf16_plain(lambda a, k: F.conv2d(a, k, padding=1), x, w_scaled, None, None)
     return F.conv2d(x, w_scaled, padding=1)
 
 
-def conv3x3(x: torch.Tensor, w_scaled: torch.Tensor) -> torch.Tensor:
-    """conv3x3(x, w_scaled), stride 1, zero padding 1, NCHW float32: the TPU
-    kernel's own function, with no scale and no demodulation.  A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel or raises."""
+def conv3x3(x: torch.Tensor, w_scaled: torch.Tensor, *,
+            cache: LayerWeights | None = None) -> torch.Tensor:
+    """conv3x3(x, w_scaled), stride 1, zero padding 1, NCHW, the output in
+    x's dtype: the TPU kernel's own function, with no scale and no
+    demodulation.  A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises.  ``cache`` as for :func:`modconv3x3`."""
     _check_3x3("conv3x3", x, w_scaled)
     if x.device.type == "cpu":
         return conv3x3_plain(x, w_scaled)
-    y = _launch_3x3("conv3x3", x, w_scaled, None, None)
-    conv3x3.launches += 1
+    y = _launch_3x3("conv3x3", x, w_scaled, None, None, cache)
+    _count(conv3x3, x)
     return y
 
 
-#: kernel launches since the last reset (CPU calls do not count)
-conv3x3.launches = 0
+#: kernel launches since the last reset, by datapath (CPU calls do not count)
+conv3x3.launches = conv3x3.launches_bf16 = 0
 
 
 def upsample_conv_plain(x: torch.Tensor, w_scaled: torch.Tensor,
                         s: torch.Tensor | None = None, d: torch.Tensor | None = None,
                         pad: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the stride-2 mode: the CPU path and its oracle."""
+    if bf16_operands(x):
+        return _bf16_plain(lambda a, k: F.conv_transpose2d(a, k.transpose(0, 1), stride=2,
+                                                           padding=pad),
+                           x, w_scaled, s, d)
     xs = x if s is None else x * s[:, :, None, None]
     y = F.conv_transpose2d(xs, w_scaled.transpose(0, 1), stride=2, padding=pad)
     return y if d is None else y * d[:, :, None, None]
@@ -214,25 +285,38 @@ def upsample_weight_image(w_scaled: torch.Tensor) -> torch.Tensor:
     return sw128_image(torch.stack((hi, lo), dim=2)).contiguous()
 
 
-class UpsampleWeights:
-    """One layer's :func:`upsample_weight_image`, split and laid out when its
-    weight first reaches the stride-2 kernel and again only after that weight
-    changes: a load, an in-place edit or a move changes its storage or its
-    version."""
+class LayerWeights:
+    """One layer's weight as the kernels read it, made when the weight first
+    reaches a kernel and again only after it changes (a load, an in-place
+    edit or a move changes its storage or its version): the scaled weight
+    rounded to bf16 once for the bf16 datapath (kernel B's operand and the
+    demodulation's), and the stride-2 kernel's :func:`upsample_weight_image`
+    for each datapath (the bf16 one's lo half is zero)."""
 
     def __init__(self, source: torch.Tensor):
         self.source = source
-        self._key = None
-        self._value = None
+        self._made = {}
 
-    def get(self, w_scaled: torch.Tensor) -> torch.Tensor:
-        """The weight image of ``w_scaled``, the scaled form of ``source``."""
+    def _get(self, what, w_scaled: torch.Tensor, make) -> torch.Tensor:
         key = (self.source.data_ptr(), self.source._version, w_scaled.device,
                tuple(w_scaled.shape))
-        if key != self._key:
-            self._value = upsample_weight_image(w_scaled)
-            self._key = key
-        return self._value
+        cached = self._made.get(what)
+        if cached is None or cached[0] != key:
+            self._made[what] = cached = (key, make(w_scaled))
+        return cached[1]
+
+    def rounded(self, w_scaled: torch.Tensor) -> torch.Tensor:
+        """``w_scaled``, the scaled form of ``source``, rounded to bf16."""
+        return self._get("rounded", w_scaled, round_bf16)
+
+    def get(self, w_scaled: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+        """The stride-2 weight image of ``w_scaled``, the scaled form of ``source``."""
+        return self._get(("image", bf16), w_scaled, lambda w: upsample_weight_image(
+            self.rounded(w) if bf16 else w))
+
+
+def _rounded(w_scaled: torch.Tensor, cache: LayerWeights | None) -> torch.Tensor:
+    return round_bf16(w_scaled) if cache is None else cache.rounded(w_scaled)
 
 
 # Per-axis tap sums of a nearest 2x upsample followed by a 3-tap correlation
@@ -252,13 +336,14 @@ def nearest_up_kernel(w: torch.Tensor) -> torch.Tensor:
 
 def upsample_conv(x: torch.Tensor, w_scaled: torch.Tensor,
                   s: torch.Tensor | None = None, d: torch.Tensor | None = None,
-                  *, pad: int = 0, cache: UpsampleWeights | None = None) -> torch.Tensor:
+                  *, pad: int = 0, cache: LayerWeights | None = None) -> torch.Tensor:
     """d * conv_transpose2d(x * s, w_scaled^T, stride 2, padding ``pad``),
-    NCHW float32: x [B, C, H, W], w_scaled [Co, C, k, k] (k = 3 or 4, the
-    correlation orientation of a conv weight), s [B, C] or None, d [B, Co]
-    or None; the output is [B, Co, 2H + k - 2 - 2 pad, ...].  A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel or raises.
-    ``cache``, the layer's :class:`UpsampleWeights`, keeps the split weight
+    NCHW: x [B, C, H, W] float32 or bf16, w_scaled [Co, C, k, k] (k = 3 or
+    4, the correlation orientation of a conv weight), s [B, C] or None, d
+    [B, Co] or None; the output is [B, Co, 2H + k - 2 - 2 pad, ...] in x's
+    dtype, on the datapath ``ops/precision.py`` picks.  A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel or raises.
+    ``cache``, the layer's :class:`LayerWeights`, keeps the split weight
     between calls."""
     b, c, h, w = x.shape
     co, _, k, _ = w_scaled.shape
@@ -268,29 +353,35 @@ def upsample_conv(x: torch.Tensor, w_scaled: torch.Tensor,
     if x.device.type == "cpu":
         return upsample_conv_plain(x, w_scaled, s, d, pad)
     ho, wo = 2 * h + k - 2 - 2 * pad, 2 * w + k - 2 - 2 * pad
+    mode = datapath_mode(x)
+    s = _scale(s)
     _cuda_operands("upsample_conv", x, w_scaled, s, d, b * co * ho * wo)
     x = x.contiguous()
-    s = None if s is None else s.contiguous()
     d = None if d is None else d.contiguous()
-    image = upsample_weight_image(w_scaled) if cache is None else cache.get(w_scaled)
+    bf16 = mode != MODE_F32
+    if cache is None:
+        image = upsample_weight_image(round_bf16(w_scaled) if bf16 else w_scaled)
+    else:
+        image = cache.get(w_scaled, bf16)
     tiling = (ctypes.c_int * 9)(*upsample_tiling(b, h, w))
-    y = torch.empty((b, co, ho, wo), dtype=torch.float32, device=x.device)
+    y = torch.empty((b, co, ho, wo), dtype=x.dtype, device=x.device)
     check(load_kernels().ganspace_upsample_conv(
         x.data_ptr(), image.data_ptr(), _ptr(s), _ptr(d), y.data_ptr(), ctypes.addressof(tiling),
-        b, c, h, w, co, k, pad, stream_handle(x)), "upsample_conv")
-    upsample_conv.launches += 1
+        b, c, h, w, co, k, pad, mode, stream_handle(x)), "upsample_conv")
+    _count(upsample_conv, x)
     return y
 
 
-#: kernel launches since the last reset, one per call (CPU calls do not count)
-upsample_conv.launches = 0
+#: kernel launches since the last reset, one per call, by datapath (CPU calls
+#: do not count)
+upsample_conv.launches = upsample_conv.launches_bf16 = 0
 
 
 def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor,
                      style_scales: torch.Tensor, *, demodulate: bool = True,
                      upsample: bool = False,
                      blur_kernel: torch.Tensor | None = None,
-                     weight_cache: UpsampleWeights | None = None) -> torch.Tensor:
+                     weight_cache: LayerWeights | None = None) -> torch.Tensor:
     """Modulated conv on an NCHW batch.
 
     Args:
@@ -298,13 +389,16 @@ def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor,
       weight: [out, in, kh, kw], torch orientation.
       style_scales: [B, in] per-channel modulation from the style affine.
       blur_kernel: 2-D FIR kernel for the upsampling path (gain 1).
-      weight_cache: the layer's :class:`UpsampleWeights` of ``weight`` for
-        the upsampling path.
+      weight_cache: the layer's :class:`LayerWeights` of ``weight``.
     """
     out_ch, in_ch, kh, kw = weight.shape
     w = weight * (1.0 / math.sqrt(in_ch * kh * kw))
+    # the style scale in x's storage, as JAX casts it; the demodulation in
+    # float32 from the operands the conv multiplies
     s = style_scales.to(x.dtype)
-    d = demodulation(w, s) if demodulate else None
+    d = None
+    if demodulate:
+        d = demodulation(_rounded(w, weight_cache) if bf16_operands(x) else w, s.float())
 
     if upsample:
         y = upsample_conv(x, w, s, d, cache=weight_cache)
@@ -313,6 +407,6 @@ def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor,
         p = (blur_kernel.shape[0] - 2) - (kh - 1)
         return upfirdn2d(y, blur_kernel * 4.0, pad=((p + 1) // 2 + 1, p // 2 + 1))
     if kh == 3 and kw == 3:
-        return modconv3x3(x, w, s, d)
-    y = F.conv2d(x * s[:, :, None, None], w, padding=kh // 2)
-    return y if d is None else y * d[:, :, None, None]
+        return modconv3x3(x, w, s, d, cache=weight_cache)
+    y = precision.conv2d(x * s[:, :, None, None], w, padding=kh // 2)
+    return y if d is None else y * d.to(y.dtype)[:, :, None, None]

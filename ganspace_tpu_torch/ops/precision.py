@@ -1,16 +1,32 @@
-"""Float32 precision policy: IEEE float32, never TF32.
+"""Precision policy: IEEE float32 by default, the bf16 preview on request.
 
-The JAX package pins every contraction to ``lax.Precision.HIGHEST``
-(``ganspace_tpu/ops/precision.py``, ``estimators/utils.py``): true float32
-accumulation, which component parity with the float32 reference needs.
-PyTorch's counterpart is to keep TF32 off for both matmuls and cuDNN
-convolutions.  Matmul TF32 is off by default, but cuDNN convolution TF32 is
-ON by default, so the port sets both explicitly.
+Counterpart of ``ganspace_tpu/ops/precision.py``, with its two orthogonal
+switches under the same names:
 
-The flags are process-global in PyTorch; :func:`ieee_f32` sets them for a
-region and restores the caller's values afterwards.  The port's entry
-points (model forward, decomposition, visualize) run inside it.  The bf16
-preview policy of the JAX package is not ported.
+* **matmul precision** (:func:`get_precision`, :func:`set_precision`,
+  :func:`precision`): ``highest`` (the default) or ``default``.  In the
+  JAX package ``default`` runs the contractions through the MXU's one bf16
+  pass.  Here it selects the bf16-operand datapath of the synthesis ops
+  alone: kernel B's and the stride-2 kernel's one-pass mode
+  (``ops/modconv.py``), the mapping and style GEMMs (``ops/linear.py``)
+  and the stock convolutions (:func:`conv2d`).  It never turns on TF32 for
+  cuBLAS or cuDNN: the estimators stay in IEEE float32 under every policy,
+  as the JAX package pins them to ``HIGHEST`` (``estimators/utils.py``).
+* **activation storage** (:func:`get_synth_dtype`, :func:`set_synth_dtype`,
+  :func:`synth_dtype`, :func:`synth_dtype_name`): ``None`` (float32) or
+  ``bfloat16``, read by the StyleGAN generators on each call.
+
+One rule covers every combination: a synthesis conv on ``x`` rounds its
+operands to bf16 when ``x`` is stored in bf16 or the precision is
+``default`` (:func:`bf16_operands`), accumulates in float32 and writes its
+output in ``x``'s dtype.  The storage follows the tensor, as in JAX: an
+op reads it from ``x`` on every call, never from the global.
+
+PyTorch's own TF32 flags are process-global; :func:`ieee_f32` keeps TF32
+off for matmuls and cuDNN convolutions for a region and restores the
+caller's values afterwards.  cuDNN's convolution TF32 is ON by default,
+so the port sets both explicitly.  The port's entry points (model
+forward, decomposition, visualize) run inside it.
 """
 
 from __future__ import annotations
@@ -18,6 +34,7 @@ from __future__ import annotations
 import contextlib
 
 import torch
+import torch.nn.functional as F
 
 
 def _flags():
@@ -39,3 +56,104 @@ def ieee_f32():
         yield
     finally:
         _set_flags(*old)
+
+
+# -- matmul precision --------------------------------------------------------
+
+_PRECISIONS = ("highest", "default")
+_PRECISION = "highest"
+
+
+def get_precision() -> str:
+    """``highest`` (IEEE float32) or ``default`` (the bf16-operand datapath
+    of the synthesis ops)."""
+    return _PRECISION
+
+
+def set_precision(p: str) -> None:
+    global _PRECISION
+    if p not in _PRECISIONS:
+        raise ValueError(f"precision {p!r}: expected one of {_PRECISIONS}")
+    _PRECISION = p
+
+
+@contextlib.contextmanager
+def precision(p: str):
+    old = get_precision()
+    set_precision(p)
+    try:
+        yield
+    finally:
+        set_precision(old)
+
+
+# -- activation storage ------------------------------------------------------
+
+_SYNTH_DTYPE = None  # None -> float32 activations
+
+
+def get_synth_dtype():
+    """Activation storage dtype for generator synthesis, or None for float32."""
+    return _SYNTH_DTYPE
+
+
+def set_synth_dtype(dt) -> None:
+    """dt: None / 'float32' for full precision, 'bfloat16' (or
+    ``torch.bfloat16``) for half storage."""
+    global _SYNTH_DTYPE
+    if dt is None or dt == "float32" or dt is torch.float32:
+        _SYNTH_DTYPE = None
+    elif dt == "bfloat16" or dt is torch.bfloat16:
+        _SYNTH_DTYPE = torch.bfloat16
+    else:
+        raise ValueError(f"synthesis storage {dt!r}: expected float32 or bfloat16")
+
+
+def synth_dtype_name():
+    """The storage policy as a dtype name (``'bfloat16'``) or None: what
+    the generators read on each call."""
+    return None if _SYNTH_DTYPE is None else "bfloat16"
+
+
+@contextlib.contextmanager
+def synth_dtype(dt):
+    old = _SYNTH_DTYPE
+    set_synth_dtype(dt)
+    try:
+        yield
+    finally:
+        set_synth_dtype(old)
+
+
+def full_precision() -> bool:
+    """True under the float32 policy: highest precision, float32 storage."""
+    return _PRECISION == "highest" and _SYNTH_DTYPE is None
+
+
+# -- the bf16 datapath -------------------------------------------------------
+
+def bf16_operands(x: torch.Tensor) -> bool:
+    """Whether a synthesis conv on ``x`` takes the bf16-operand datapath:
+    ``x`` is stored in bf16, or the precision is ``default``."""
+    return x.dtype == torch.bfloat16 or _PRECISION == "default"
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (to nearest even), as float32 values."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor, **kwargs) -> torch.Tensor:
+    """``F.conv2d`` of a stock synthesis conv (blur, 1x1 ``to_rgb``) under
+    the policy.  On the bf16 datapath the operands are rounded to bf16, the
+    products accumulate in float32 and the output is rounded to ``x``'s
+    dtype: cuDNN's bf16 convolution on a bf16 ``x`` on the card, as the
+    JAX package leaves these convs to XLA; elsewhere the convolution runs
+    in float32 on the rounded values, a pinned accumulation, which torch's
+    CPU bf16 convolution does not promise."""
+    if not bf16_operands(x):
+        return F.conv2d(x, weight.to(x.dtype), **kwargs)
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        return F.conv2d(x, weight.to(torch.bfloat16), **kwargs)
+    y = F.conv2d(round_bf16(x), round_bf16(weight), **kwargs)
+    return y.to(x.dtype)

@@ -3,7 +3,8 @@
 Counterpart of ``ganspace_tpu/ops/upfirdn.py``.  Zero-stuffing, padding
 (negative values crop) and a depthwise true convolution with the FIR
 kernel, NCHW.  The JAX package leaves this to XLA; the port leaves it to
-cuDNN, under the float32 policy of ``ops/precision.py``.
+cuDNN, under the policy of ``ops/precision.py`` (the bf16 datapath rounds
+its operands to bf16 and writes ``x``'s dtype).
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ganspace_tpu_torch.ops import precision
 
 
 def make_fir_kernel(taps) -> torch.Tensor:
@@ -33,7 +36,7 @@ def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up: int = 1, down: int = 1,
     kh, kw = kernel.shape
     # true convolution: flip the kernel (conv2d correlates)
     k = torch.flip(kernel, (0, 1)).to(x.dtype).reshape(1, 1, kh, kw)
-    return F.conv2d(x, k.expand(c, 1, kh, kw), stride=down, groups=c)
+    return precision.conv2d(x, k.expand(c, 1, kh, kw), stride=down, groups=c)
 
 
 def upsample2x(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,7 @@ from ganspace_tpu_torch.ops.modconv import (
     conv3x3, conv3x3_plain, demodulation, modconv3x3, modconv3x3_plain, modulated_conv2d,
     upsample_conv, upsample_conv_plain)
 from ganspace_tpu_torch.ops.moments import centered_gram, centered_gram_plain
-from ganspace_tpu_torch.ops.precision import ieee_f32
+from ganspace_tpu_torch.ops.precision import ieee_f32, precision
 
 pytestmark = pytest.mark.cuda
 
@@ -118,9 +118,58 @@ def test_cuda_operands_never_fall_back(gen):
     w = torch.randn(8, 8, 3, 3, generator=gen, device="cuda")
     with pytest.raises(TypeError):
         modconv3x3(xc, w, torch.ones(1, 8, dtype=torch.float64, device="cuda"), None)
+    with pytest.raises(TypeError):
+        conv3x3(xc.double(), w)
     launches = modconv3x3.launches
     modulated_conv2d(xc, w, torch.ones(1, 8, device="cuda"))
     assert modconv3x3.launches == launches + 1
+
+
+# -- the bf16 datapath (the preview policy) ----------------------------------
+
+def _bf16_close(got, ref, storage):
+    """float32 storage: the float32 bar (the summation order alone differs);
+    bf16 storage: elementwise one bf16 rounding flip, one ulp of |ref|."""
+    assert got.dtype == ref.dtype == storage
+    if storage == torch.float32:
+        return float((got - ref).abs().max() / ref.abs().max()) < 1e-5
+    g, r = got.float(), ref.float()
+    ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(1e-30))) - 7)
+    return bool(((g - r).abs() <= ulp + 1e-6 * r.abs().max()).all())
+
+
+@pytest.mark.parametrize("storage", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,c,co,h,w", RENDER_SHAPES + RAGGED_SHAPES[:2])
+def test_modconv3x3_and_conv3x3_bf16_datapath_on_card(gen, storage, b, c, co, h, w):
+    x = torch.randn(b, c, h, w, generator=gen, device="cuda").to(storage)
+    wt = torch.randn(co, c, 3, 3, generator=gen, device="cuda") / (9 * c) ** 0.5
+    s = 1.0 + 0.5 * torch.randn(b, c, generator=gen, device="cuda")
+    d = demodulation(wt, s)
+    counts = modconv3x3.launches_bf16, conv3x3.launches_bf16, modconv3x3.launches
+    with ieee_f32(), precision("default"):
+        got = modconv3x3(x, wt, s, d)
+        assert _bf16_close(got, modconv3x3_plain(x, wt, s, d), storage)
+        assert torch.equal(got, modconv3x3(x, wt, s, d))
+        got = conv3x3(x, wt)
+        assert _bf16_close(got, conv3x3_plain(x, wt), storage)
+        assert torch.equal(got, conv3x3(x, wt))
+    assert (modconv3x3.launches_bf16, conv3x3.launches_bf16, modconv3x3.launches) == (
+        counts[0] + 2, counts[1] + 2, counts[2])
+
+
+@pytest.mark.parametrize("storage", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,c,co,h,w,k,pad", UP_SHAPES)
+def test_upsample_conv_bf16_datapath_on_card(gen, storage, b, c, co, h, w, k, pad):
+    x = torch.randn(b, c, h, w, generator=gen, device="cuda").to(storage)
+    wt = torch.randn(co, c, k, k, generator=gen, device="cuda") / (k * k * c) ** 0.5
+    s = 1.0 + 0.5 * torch.randn(b, c, generator=gen, device="cuda")
+    launches = upsample_conv.launches_bf16
+    with ieee_f32(), precision("default"):
+        for ss, d in ((s, demodulation(wt, s)), (None, None)):
+            got = upsample_conv(x, wt, ss, d, pad=pad)
+            assert _bf16_close(got, upsample_conv_plain(x, wt, ss, d, pad=pad), storage)
+            assert torch.equal(got, upsample_conv(x, wt, ss, d, pad=pad))
+    assert upsample_conv.launches_bf16 == launches + 4
 
 
 # -- the 3xTF32 tensor-core kernels ------------------------------------------

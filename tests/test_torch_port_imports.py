@@ -40,6 +40,9 @@ MODULES = [
     "ganspace_tpu_torch.decomposition",
     "ganspace_tpu_torch.edit",
     "ganspace_tpu_torch.apps.visualize",
+    "ganspace_tpu_torch.apps.interactive",
+    "ganspace_tpu_torch.directions",
+    "ganspace_tpu_torch.__main__",
     "ganspace_tpu_torch.utils",
     "ganspace_tpu_torch.utils.video",
     "ganspace_tpu_torch.tools",

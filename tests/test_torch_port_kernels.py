@@ -21,9 +21,10 @@ from ganspace_tpu.ops.pallas.moments import centered_gram as jax_centered_gram
 from ganspace_tpu.ops.upfirdn import make_fir_kernel as jax_fir
 
 from ganspace_tpu_torch import require_device
+from ganspace_tpu_torch.ops import precision
 from ganspace_tpu_torch.ops.modconv import (
     conv3x3, conv3x3_plain, demodulation, modconv3x3, modconv3x3_plain, modulated_conv2d,
-    UP_COT, UpsampleWeights, upsample_conv, upsample_conv_plain, upsample_tiling,
+    UP_COT, LayerWeights, upsample_conv, upsample_conv_plain, upsample_tiling,
     upsample_weight_image, upsample_weight_matrix)
 from ganspace_tpu_torch.ops.moments import centered_gram, centered_gram_plain
 from ganspace_tpu_torch.ops.tf32x3 import sw128_image
@@ -236,7 +237,7 @@ def test_upsample_weights_rebuilt_only_for_a_new_weight():
     an in-place edit (a load) bumps the version, a move the storage."""
     rs = np.random.RandomState(8)
     weight = torch.nn.Parameter(torch.from_numpy(rs.randn(6, 16, 3, 3).astype(np.float32)))
-    cache = UpsampleWeights(weight)
+    cache = LayerWeights(weight)
     first = cache.get(weight * 0.5)
     assert torch.equal(first, upsample_weight_image(weight * 0.5))
     assert cache.get(weight * 0.5) is first
@@ -246,6 +247,29 @@ def test_upsample_weights_rebuilt_only_for_a_new_weight():
     assert again is not first and torch.equal(again, upsample_weight_image(weight * 0.5))
     weight.data = weight.data.clone()
     assert cache.get(weight * 0.5) is not again
+
+
+def test_layer_weights_round_once_for_the_bf16_datapath():
+    """The bf16 datapath's weight is rounded once per layer and weight: kernel
+    B's operand, the demodulation's, and the stride-2 image's source."""
+    rs = np.random.RandomState(9)
+    weight = torch.nn.Parameter(torch.from_numpy(rs.randn(6, 16, 3, 3).astype(np.float32)))
+    cache = LayerWeights(weight)
+    first = cache.rounded(weight * 0.5)
+    assert torch.equal(first, precision.round_bf16(weight * 0.5))
+    assert cache.rounded(weight * 0.5) is first
+    assert torch.equal(cache.get(weight * 0.5, bf16=True), upsample_weight_image(first))
+    with torch.no_grad():
+        weight.mul_(3.0)
+    again = cache.rounded(weight * 0.5)
+    assert again is not first and torch.equal(again, precision.round_bf16(weight * 0.5))
+    x = torch.from_numpy(rs.randn(2, 16, 8, 8).astype(np.float32))
+    s = torch.from_numpy((1.0 + 0.5 * rs.randn(2, 16)).astype(np.float32))
+    layer = LayerWeights(weight)            # a layer's cache, at the conv's own scale
+    with precision.precision("default"):
+        ref = modulated_conv2d(x, weight, s)
+        for _ in range(2):
+            assert torch.equal(modulated_conv2d(x, weight, s, weight_cache=layer), ref)
 
 
 # (B, H, W, whole-sample blocks expected): the conv-tap path's 4 and 8 px
