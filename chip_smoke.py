@@ -140,8 +140,11 @@ and 11:
   datapath, in both storages (float32 on bf16 operands, the ``--dtype
   bfloat16`` fit's; bf16, the viewer's), at StyleGAN2's render shapes and
   the ``convs.2`` tap shapes, StyleGAN's ten plain and four fused shapes,
-  beside cuDNN on bf16 tensors: a float32 output to the float32 bar, a
-  bf16 one within one bf16 rounding flip elementwise, repeats bit for bit;
+  BigGAN-512's and ProGAN-256's plain shapes of a preview render (their
+  up-convs before the JAX package's space-to-depth tail among them, as
+  nearest 2x then the plain mode), beside cuDNN on bf16 tensors: a float32
+  output to the float32 bar, a bf16 one within one bf16 rounding flip
+  elementwise, repeats bit for bit;
 * the viewer, ``python -m ganspace_tpu_torch interactive --model StyleGAN2
   --class ffhq --layer style --use_w``: its ``Session`` on the W CLI's
   cache (phase 7) in the preview policy and in float32, the warmup,
@@ -152,7 +155,15 @@ and 11:
   package's figure on a 256-px model), and a profile of one frame's
   synthesis in each precision; then StyleGAN-FFHQ-1024's viewer at
   ``g_mapping`` (kernel B's plain mode and the fused stride-2 convs), the
-  same way;
+  same way; after phase 18 the viewer on BigGAN-512 (``generator.gen_z``),
+  ProGAN-256 (``layer2``) and DCGAN-64 (``deconv1``), each on a fit at n =
+  4096, the same way, gated at ``PREVIEW_ERR_RATIO`` times the JAX
+  package's figure on a reduced model of the family; each profiled frame
+  prints its copy-kernel launches (dtype casts and layout copies);
+* after phase 18, ``visualize --model ProGAN --class bedroom --layer
+  layer6 -n 20000 --dtype bfloat16`` on the fused stream, as the float32
+  layer6 fit runs: the _bf16 cache, its bounds and grade, its components
+  beside the float32 fit's (reported);
 * ``visualize --layer convs.2 -n 50000 --dtype bfloat16``: the _bf16
   cache, its 80 cosine bounds and the grade they imply, its components
   beside the float32 CLI's (reported);
@@ -409,14 +420,19 @@ BG_TAP, BG_TAP_N, BG_TAP_BATCH = "generator.layers.1", 20_000, 128
 BG_TAP_BLOCKS = BG_TAP_N // BG_TAP_BATCH
 
 
-def bg_shapes(batch: int, upto: int | None = None) -> tuple[list, list]:
+def bg_shapes(batch: int, upto: int | None = None,
+              preview: bool = False) -> tuple[list, list]:
     """Kernel B's calls in one BigGAN-512 forward at ``batch``, through module
     ``upto`` (a partial forward) or all of them, in order, repeats included:
     the plain mode's (B, C, Co, H, W) (conv_1 of the blocks that keep their
     size, every conv_2, conv_to_rgb's three rows) and the stride-2 mode's
-    (B, C, Co, H, W, 4, 1, False) (each up-block's nearest-up conv_1)."""
+    (B, C, Co, H, W, 4, 1, False) (each up-block's nearest-up conv_1).  Under
+    the ``preview`` policy the up-blocks before the JAX package's
+    space-to-depth tail (``BigGANConfig.tail_entry``) run their conv_1 as
+    nearest 2x then the plain mode."""
     from ganspace_tpu_torch.models.biggan import BigGANConfig
     cfg = BigGANConfig.for_resolution(512)
+    entry = cfg.tail_entry()
     plain, up, r = [], [], 4
     for mi, mod in enumerate(cfg.module_plan()):
         if upto is not None and mi > upto:
@@ -424,7 +440,10 @@ def bg_shapes(batch: int, upto: int | None = None) -> tuple[list, list]:
         if mod[0] == "attn":
             continue
         mid = mod[2] // 4
-        if mod[1]:
+        if mod[1] and preview and (entry is None or mi < entry):
+            r *= 2
+            plain.append((batch, mid, mid, r, r))
+        elif mod[1]:
             up.append((batch, mid, mid, r, r, 4, 1, False))
             r *= 2
         else:
@@ -501,15 +520,24 @@ DC_BLOCKS = DC_N // DC_BATCH                                     # 292
 DC_STRIPS = 2 * 12 * 14
 
 
-def pg_shapes(batch: int, upto: str | None = None) -> tuple[list, list]:
+def pg_shapes(batch: int, upto: str | None = None,
+              preview: bool = False) -> tuple[list, list]:
     """Kernel B's calls in one ProGAN-256 forward at ``batch``, through the
     layer ``upto`` or all of them: the plain mode's (B, C, Co, H, W) (every
     stride-1 3x3) and the stride-2 mode's (B, C, Co, H, W, 4, 1, False)
-    (every up layer, its composite 4x4 kernel)."""
+    (every up layer, its composite 4x4 kernel).  Under the ``preview``
+    policy the up layers before the JAX package's space-to-depth tail (of
+    more than ``S2D_MAX_CH`` output channels) run nearest 2x then the plain
+    mode."""
     from ganspace_tpu_torch.models.proggan import ProGANConfig
-    plain, up, r = [], [], 4
+    from ganspace_tpu_torch.ops.modconv import S2D_MAX_CH
+    plain, up, r, tail = [], [], 4, False
     for name, cin, cout, k, _, is_up in ProGANConfig.for_resolution(256).layer_plan():
-        if is_up:
+        tail = tail or (is_up and k == 3 and cout <= S2D_MAX_CH)
+        if is_up and preview and not tail:
+            r *= 2
+            plain.append((batch, cin, cout, r, r))
+        elif is_up:
             up.append((batch, cin, cout, r, r, 4, 1, False))
             r *= 2
         elif k == 3:
@@ -528,9 +556,9 @@ def dc_shapes(batch: int, upto: int | None = None) -> list:
             for i in range(1, len(ch)) if upto is None or i <= upto]
 
 
-def pg_counts(upto: str | None = None) -> tuple[int, int]:
+def pg_counts(upto: str | None = None, preview: bool = False) -> tuple[int, int]:
     """(plain 3x3, stride-2) launches of one ProGAN-256 forward."""
-    plain, up = pg_shapes(1, upto)
+    plain, up = pg_shapes(1, upto, preview)
     return len(plain), len(up)
 
 
@@ -562,24 +590,35 @@ SLEEP_CYCLES = 200_000                  # ~0.1 ms at the H100's clock
 MODE_F32, MODE_BF16_OPS, MODE_BF16 = 0, 1, 2
 PEAK_BF16 = 989e12
 # the viewer's preview frame against its float32 frame of the same state,
-# mean |d| in uint8 levels: the JAX package's on 256-px CPU models, its
-# contractions on the one-pass bf16 datapath of its TPU
-# (tests/test_torch_port_interactive.py measures them and holds these
-# values, and the port's within 0.8-1.25x of them there), and the most the
-# port's full-width 1024-px frame may show on the card, as a multiple of
-# them: 2x, room for the full model's depth and width
-PREVIEW_JAX_MEAN_LEVELS = {"StyleGAN2": 1.7537, "StyleGAN": 3.5613}
+# mean |d| in uint8 levels: the JAX package's, its contractions on the
+# one-pass bf16 datapath of its TPU, measured on the CPU by the tests, which
+# hold these values and the port's within 0.8-1.25x of them: StyleGAN2 and
+# StyleGAN on 256-px models (tests/test_torch_port_interactive.py),
+# BigGAN-512 at width 4, ProGAN-256 at half width and DCGAN-64 at full width
+# (tests/test_torch_port_preview_families.py).  The most the port's
+# full-width frame may show on the card is 2x them: room for the full
+# model's depth and width
+PREVIEW_JAX_MEAN_LEVELS = {"StyleGAN2": 1.7537, "StyleGAN": 3.5613, "BigGAN": 0.4200,
+                           "ProGAN": 0.8499, "DCGAN": 0.0022}
 PREVIEW_ERR_RATIO = 2.0
 BF16_ABS = 1e-6
-# StyleGAN2's modulated 3x3 shapes: the render's nine at B = 5, the conv-tap
-# path's two at B = 128; StyleGAN's ten plain shapes at B = 5; the stride-2
-# mode at StyleGAN2's eight render shapes and StyleGAN's four fused ones
-PREVIEW_GROUPS = {
-    "modconv3x3": {"sg2_render": CONV_CASES, "sg2_tap": CONV_TAP_CASES},
-    "conv3x3": {"sg1_render": PLAIN_CASES},
-    "upsample_conv": {"sg2_render": UP_CASES["sg2_render"],
-                      "sg1_fused": UP_CASES["sg1_fused"]},
-}
+
+
+def preview_groups() -> dict:
+    """The bf16 datapath's shapes: StyleGAN2's modulated 3x3 shapes (the
+    render's nine at B = 5, the conv-tap path's two at B = 128); the plain
+    mode at StyleGAN's ten shapes, BigGAN-512's and ProGAN-256's preview
+    render shapes at B = 5 (their pixel-layout up-convs among them); the
+    stride-2 mode at StyleGAN2's eight render shapes and StyleGAN's four
+    fused ones."""
+    return {
+        "modconv3x3": {"sg2_render": CONV_CASES, "sg2_tap": CONV_TAP_CASES},
+        "conv3x3": {"sg1_render": PLAIN_CASES,
+                    "bg_render": list(dict.fromkeys(bg_shapes(RENDER_BATCH, preview=True)[0])),
+                    "pg_render": list(dict.fromkeys(pg_shapes(RENDER_BATCH, preview=True)[0]))},
+        "upsample_conv": {"sg2_render": UP_CASES["sg2_render"],
+                          "sg1_fused": UP_CASES["sg1_fused"]},
+    }
 
 
 def log(msg: str) -> None:
@@ -1097,11 +1136,14 @@ def check_upsample_conv(gen: torch.Generator) -> dict:
     return {"max_abs_err": worst, **out["sg2_tap"], "groups": out}
 
 
-def preview_bound(flop: float, act_elems: int, f32_elems: int, mode: int) -> dict:
+def preview_bound(flop: float, act_elems: int, w_bytes: int, sd_elems: int,
+                  mode: int) -> dict:
     """The least time of a bf16-datapath call: its FLOP over the dense bf16
     tensor-core peak, or its bytes over 3.35 TB/s, the activations (x and
-    y) in the storage of ``mode``, the weight, s and d in float32."""
-    nbytes = (2 if mode == MODE_BF16 else 4) * act_elems + 4 * f32_elems
+    y) in the storage of ``mode``, the weight's ``w_bytes`` (kernel B reads
+    it as bf16, the stride-2 kernel as a float32 image), s and d in
+    float32."""
+    nbytes = (2 if mode == MODE_BF16 else 4) * act_elems + w_bytes + 4 * sd_elems
     t_flop, t_bytes = flop / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
     return {"bound_ms": max(t_flop, t_bytes),
             "bound_by": "operations" if t_flop >= t_bytes else "bytes",
@@ -1131,7 +1173,7 @@ def preview_case(gen: torch.Generator, kernel: str, case, mode: int) -> tuple[di
         library = lambda: F.conv_transpose2d(xs, wt_t, stride=2, padding=pad)  # noqa: E731
         ho = 2 * h + k - 2 - 2 * pad
         bnd = preview_bound(up_flop(case), b * c * h * w + b * co * ho * ho,
-                            co * c * k * k + ((b * c + b * co) if modulated else 0), mode)
+                            4 * co * c * k * k, (b * c + b * co) if modulated else 0, mode)
         key = ("upsample_conv", *case[:7], modulated, modulated, mode)
         label = f"B={b} C={c} Co={co} {h}->{ho} px k={k}"
     else:
@@ -1150,7 +1192,7 @@ def preview_case(gen: torch.Generator, kernel: str, case, mode: int) -> tuple[di
             xs, sd = x.to(bf), 0
         library = lambda: F.conv2d(xs, wt_b, padding=1)  # noqa: E731
         bnd = preview_bound(2.0 * b * h * w * co * 9 * c, b * c * h * w + b * co * h * w,
-                            co * c * 9 + sd, mode)
+                            2 * co * 9 * c, sd, mode)
         key = (kernel, *case, kernel == "modconv3x3", mode)
         label = f"B={b} C={c} Co={co} {h}x{w}"
     with precision_for(mode):
@@ -1173,11 +1215,11 @@ def preview_case(gen: torch.Generator, kernel: str, case, mode: int) -> tuple[di
 def check_preview_kernels(gen: torch.Generator, gpu: str) -> dict:
     """Kernel B's modulated and plain modes and the stride-2 mode on the bf16
     datapath, in both storages, at the viewer's StyleGAN2 and StyleGAN
-    render shapes and the convs.2 tap shapes (PREVIEW_GROUPS).  The JSON
-    rows are the bf16 storage's (the viewer's policy); the float32 storage's
-    stand beside them."""
+    render shapes, BigGAN-512's and ProGAN-256's plain ones and the convs.2
+    tap shapes (preview_groups).  The JSON rows are the bf16 storage's (the
+    viewer's policy); the float32 storage's stand beside them."""
     out = {}
-    for kernel, groups in PREVIEW_GROUPS.items():
+    for kernel, groups in preview_groups().items():
         by_mode = {}
         for mode in (MODE_BF16, MODE_BF16_OPS):
             worst, res = 0.0, {}
@@ -2163,9 +2205,9 @@ class TruncationRecorder:
         return f"{self.count} device latents, max |z| {top:.6f} <= {self.limit}"
 
 
-def bg_counts(upto: int | None = None) -> tuple[int, int]:
+def bg_counts(upto: int | None = None, preview: bool = False) -> tuple[int, int]:
     """(plain 3x3, stride-2) launches of one BigGAN-512 forward."""
-    plain, up = bg_shapes(1, upto)
+    plain, up = bg_shapes(1, upto, preview)
     return len(plain), len(up)
 
 
@@ -2610,7 +2652,7 @@ def run_progan_tap_fits(gpu: str, inst) -> tuple[dict, dict]:
             f"phases: {fmt_phases(run['phases'])} [{gpu}]")
         runs.append(run)
     check_fit_repeats(f"ProGAN {PG_TAP} fit at n = {PG_TAP_N}", *runs)
-    return runs[0]["launches"], runs[1]["launches"]
+    return runs[0]["launches"], runs[1]["launches"], runs[0]["arrays"]
 
 
 def run_dcgan_cli(gpu: str) -> dict:
@@ -2828,7 +2870,8 @@ def viewer_policy(dtype):
     return scope()
 
 
-def drive_viewer(gpu: str, session, what: str, per_forward: dict, family: str) -> dict:
+def drive_viewer(gpu: str, session, what: str, per_forward: dict, family: str,
+                 per_forward_preview: dict | None = None) -> dict:
     """One viewer Session in the preview policy and in float32: the warmup
     (five frames), ``time_frame`` and ``time_frame_speculative``, a latent,
     an activation and a layer-window edit, a profile of one frame's
@@ -2836,12 +2879,15 @@ def drive_viewer(gpu: str, session, what: str, per_forward: dict, family: str) -
     the float32 frame of the same state, held to PREVIEW_ERR_RATIO times
     the JAX package's figure for ``family`` (PREVIEW_JAX_MEAN_LEVELS).
     Kernel B's launches of the warmup and of ``time_frame`` are counted
-    exactly: ``per_forward`` of them per forward, on the bf16 datapath in
-    preview and the float32 one under ``--dtype float32``."""
+    exactly: ``per_forward`` of them per forward under ``--dtype float32``,
+    ``per_forward_preview`` (default: the same) on the bf16 datapath in
+    preview."""
     out, frames, launches = {}, {}, {}
     n_lat = session.model.get_max_latents()
+    window = (n_lat // 4, max(n_lat // 2, 1))      # a layer window (the whole of one latent)
     for name, dtype in (("preview", None), ("float32", "float32")):
         bf16 = dtype is None
+        counts = per_forward_preview if bf16 and per_forward_preview else per_forward
         with viewer_policy(dtype):
             session.sliders[:] = 0.0
             session.mode = "latent"
@@ -2853,17 +2899,17 @@ def drive_viewer(gpu: str, session, what: str, per_forward: dict, family: str) -
             synth, read, total = session.time_frame(iters=11)
             counted = read_launches()
             forwards = 5 + 1 + 2 * 11          # the warmup, time_frame's warm render and iterations
-            want = {(f"{k}_bf16" if bf16 else k): v * forwards for k, v in per_forward.items()}
+            want = {(f"{k}_bf16" if bf16 else k): v * forwards for k, v in counts.items()}
             expect_launches(counted, f"{what} viewer ({name}): warmup and time_frame", **want)
             spec = session.time_frame_speculative(iters=9)
             base = session.render(force=True).copy()
             edits = {}
-            for mode, window, slider in (("latent", (0, n_lat), 0), ("activation", (0, n_lat), 1),
-                                         ("latent", (n_lat // 4, n_lat // 2), 2)):
+            for mode, lats, slider in (("latent", (0, n_lat), 0), ("activation", (0, n_lat), 1),
+                                       ("latent", window, 2)):
                 v = np.zeros(session.n_sliders, np.float32)
                 v[slider] = 2.0
                 session.mode = mode
-                edits[(mode, window)] = session._compute_frame(v, *window)
+                edits[(mode, lats, slider)] = session._compute_frame(v, *lats)
             session.mode = "latent"
             frames[name] = (base, edits)
             profile_run(gpu, f"{what} viewer synthesis, {name}",
@@ -2876,14 +2922,14 @@ def drive_viewer(gpu: str, session, what: str, per_forward: dict, family: str) -
             if wrong:
                 raise AssertionError(f"{what} viewer ({name}): launches on the other "
                                      f"datapath: {wrong} {launches[name]}")
-        changed = {f"{m} {w}": frame_levels(f, base)[1] > 0 for (m, w), f in edits.items()}
+        changed = {f"{m} {w}": frame_levels(f, base)[1] > 0 for (m, w, _), f in edits.items()}
         out[name] = dict(warmup_s=warm, synth_ms=synth, readback_ms=read, total_ms=total,
                          speculative_ms=spec, edits_change_frame=changed)
         log(f"{what} viewer, {name}: warmup {warm:.3f} s; frame median of 11: synthesis "
             f"{synth:.3f} ms, readback {read:.3f} ms, render {total:.3f} ms; speculative hit "
             f"{spec:.4f} ms; edits change the frame: {changed}; launches {launches[name]} "
             f"[{gpu}]")
-        if not changed[f"latent {(0, n_lat)}"] or not changed[f"latent {(n_lat // 4, n_lat // 2)}"]:
+        if not changed[f"latent {(0, n_lat)}"] or not changed[f"latent {window}"]:
             raise AssertionError(f"{what} viewer ({name}): a latent edit left the frame as it was")
     with viewer_policy(None):
         reset_launches()
@@ -2945,6 +2991,104 @@ def run_viewer(gpu: str, w_out: str) -> tuple[dict, dict]:
     return launches, results
 
 
+# the viewer on BigGAN-512, ProGAN-256 and DCGAN-64, each Session on a fit
+# of 4096 samples at its CLI's layer (the phase reads frames)
+VIEWER_FAMILIES = {
+    "BigGAN": ["--model", "BigGAN-512", "--class", "husky", "--layer", "generator.gen_z",
+               "--est", "ipca", "-c", "80", "-n", "4096", "-b", "512"],
+    "ProGAN": ["--model", "ProGAN", "--class", "bedroom", "--layer", "layer2", "--est", "ipca",
+               "-c", "80", "-n", "4096"],
+    "DCGAN": ["--model", "DCGAN", "--layer", "deconv1", "--est", "ipca", "-c", "80", "-n", "4096"],
+}
+
+
+def family_counts(family: str, preview: bool) -> dict:
+    """Kernel B's launches of one forward of each family's viewer model:
+    the plain and stride-2 modes (DCGAN: its four transposed convs)."""
+    if family == "DCGAN":
+        return {"upsample_conv": len(dc_shapes(1))}
+    plain, up = (bg_counts if family == "BigGAN" else pg_counts)(preview=preview)
+    return {"conv3x3": plain, "upsample_conv": up}
+
+
+def run_viewer_families(gpu: str) -> tuple[dict, dict]:
+    """``python -m ganspace_tpu_torch interactive`` on BigGAN-512 (class
+    husky), ProGAN-256 (class bedroom) and the GAN-zoo DCGAN-64, in the
+    preview policy and in float32 (drive_viewer): the frame times, the
+    preview frame against the float32 one gated at PREVIEW_ERR_RATIO times
+    the JAX package's figure, the preview's launches (BigGAN's and ProGAN's
+    pixel-layout up-convs on kernel B's plain mode, the rest on the
+    stride-2 kernel; DCGAN's float32 storage on its bf16-operand mode)."""
+    from ganspace_tpu_torch.apps.interactive import Session
+    from ganspace_tpu_torch.config import Config
+    launches, results = {}, {}
+    for family, args in VIEWER_FAMILIES.items():
+        with tempfile.TemporaryDirectory() as out, environ(GANSPACE_OUTPUT_DIR=out):
+            with viewer_policy(None):
+                t0 = time.perf_counter()
+                session = Session(Config().from_args(list(args)))
+                built = time.perf_counter() - t0
+            log(f"{family} viewer: Session with its fit at n = 4096 in {built:.3f} s "
+                f"({session.n_sliders} sliders, {session.model.get_max_latents()} latents)")
+            results[family] = drive_viewer(gpu, session, session.model.name,
+                                           family_counts(family, False), family,
+                                           family_counts(family, True))
+            launches.update({f"viewer_{family.lower()}_{k}": v
+                             for k, v in results[family].pop("launches").items()})
+            del session
+    return launches, results
+
+
+def run_progan_bf16_cli(gpu: str, f32_arrays: dict) -> dict:
+    """``visualize --model ProGAN --class bedroom --layer layer6 -n 20000
+    --dtype bfloat16`` on the fused stream, as the float32 layer6 fit runs:
+    the fit at the preview precision (float32 storage; kernel B's plain
+    mode on its bf16-operand datapath, the pixel-layout up layers as nearest
+    2x then that mode), the _bf16 cache, its 80 cosine bounds and the grade
+    they imply, its components beside the float32 fit's (reported, not
+    gated: random weights give a flat spectrum); the render after it runs
+    at full precision."""
+    from ganspace_tpu_torch.apps import visualize
+    args = ["--model", "ProGAN", "--class", "bedroom", "--layer", PG_TAP, "--est", "ipca",
+            "-c", "80", "-n", str(PG_TAP_N), "--dtype", "bfloat16"]
+    with tempfile.TemporaryDirectory() as out, \
+            environ(GANSPACE_OUTPUT_DIR=out, GANSPACE_FUSED_ACTS=1):
+        reset_launches()
+        result = visualize.main(args)
+        launches = read_launches()
+        if not result.cache.name.endswith("_bf16.npz"):
+            raise AssertionError(f"ProGAN --dtype bfloat16 cache {result.cache.name}: no _bf16 tag")
+        arrays, meta = load_cache(result.cache)
+    expect_meta(meta, "ProGAN --dtype bfloat16 CLI", dtype="bfloat16", device_rng=True,
+                fused_linreg=True, bf16_pass1=False)
+    bounds = meta.get("bf16_cos_bounds")
+    if not bounds or len(bounds) != 80 or meta["bf16_analysis_grade"] != (min(bounds) >= 0.99):
+        raise AssertionError(f"ProGAN --dtype bfloat16 CLI: bounds {bounds} and grade "
+                             f"{meta.get('bf16_analysis_grade')} disagree")
+    # the probe and the fit's blocks on the bf16 datapath; the shape
+    # annotation, the activation-mode strips' centering and the render in float32
+    fit_fwd = 1 + PG_TAP_BLOCKS * (1 + (not meta["refine_skipped"]))
+    tap_fwd = 1 + PG_STRIPS // 2
+    pv_plain, pv_up = pg_counts(PG_TAP, preview=True)
+    tap_plain, tap_up = pg_counts(PG_TAP)
+    plain, up = pg_counts()
+    expect_launches(launches, "ProGAN --dtype bfloat16 CLI",
+                    conv3x3_bf16=pv_plain * fit_fwd, upsample_conv_bf16=pv_up * fit_fwd,
+                    conv3x3=tap_plain * tap_fwd + plain * PG_STRIPS,
+                    upsample_conv=tap_up * tap_fwd + up * PG_STRIPS)
+    cos = _min_abs_cos(*(torch.from_numpy(a["act_comp"].reshape(80, -1))
+                         for a in (arrays, f32_arrays)))
+    n_low = sum(b < 0.99 for b in bounds)
+    log(f"ProGAN --dtype bfloat16 CLI at {PG_TAP} (n = {PG_TAP_N}, fused): {result.cache.name}; "
+        f"refine_skipped {meta['refine_skipped']}; bounds min {min(bounds):.6f} median "
+        f"{float(np.median(bounds)):.6f}, {n_low}/80 below 0.99, analysis grade "
+        f"{meta['bf16_analysis_grade']}; min |cos| against the float32 {PG_TAP} fit's "
+        f"components {cos:.6f} (not gated); fit {result.fit_seconds:.3f} s "
+        f"({PG_TAP_N / result.fit_seconds:.1f} samples/s); phases: {fmt_phases(result.phases)}; "
+        f"launches {launches} [{gpu}]")
+    return launches
+
+
 def profile_biggan(gpu: str, model) -> None:
     """Four blocks of the BigGAN CLI's fused stream at gen_z (each 10000
     truncated latents drawn, the embedding and gen_z, and the sketch,
@@ -2986,8 +3130,11 @@ def profile_run(gpu: str, what: str, fn) -> None:
     if not rows:
         log(f"{what} profile: the profiler reported no device time")
         return
+    copies = [e for e in rows if "copy" in e.key.lower()]
     log(f"{what} profile: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-        f"({busy_ms / wall_ms:.1%}) [{gpu}]")
+        f"({busy_ms / wall_ms:.1%}); copy kernels (dtype casts and layout copies) "
+        f"{sum(e.count for e in copies)} launches "
+        f"({' + '.join(str(e.count) for e in copies) or '0'}) [{gpu}]")
     for e in sorted(rows, key=_device_us, reverse=True)[:12]:
         log(f"  {_device_us(e) / 1e3:8.3f} ms {_device_us(e) / 1e3 / busy_ms:6.1%}"
             f"  x{e.count:<4d} {e.key[:90]}")
@@ -3385,11 +3532,17 @@ def main() -> int:
     launches.update(check_progan_stream_gate(gpu, pg_inst, pg_device))
     del pg_inst
     tap_inst = get_instrumented_model("ProGAN", "bedroom", PG_TAP, torch.device("cuda"))
-    launches["pg_fit_layer6"], launches["pg_fit_layer6_again"] = run_progan_tap_fits(gpu,
-                                                                                   tap_inst)
+    launches["pg_fit_layer6"], launches["pg_fit_layer6_again"], pg_l6 = run_progan_tap_fits(
+        gpu, tap_inst)
     del tap_inst
     launches["dc_cli"] = run_dcgan_cli(gpu)
     log(f"ProGAN and DCGAN phases wall time: {time.perf_counter() - t0:.1f} s")
+    # the preview policy on BigGAN, ProGAN and DCGAN
+    t0 = time.perf_counter()
+    launches["pg_cli_bf16"] = run_progan_bf16_cli(gpu, pg_l6)
+    viewer_launches, _ = run_viewer_families(gpu)
+    launches.update(viewer_launches)
+    log(f"BigGAN, ProGAN and DCGAN preview phases wall time: {time.perf_counter() - t0:.1f} s")
     conv_npz = runs["convs2_fit_host"]["arrays"]
     with ieee_f32():
         profile_conv_tap_blocks(gpu)
@@ -3424,13 +3577,14 @@ def main() -> int:
              replaces="ganspace_tpu/models/stylegan.py:164",
              **counts("upsample_conv"), **up),
         # the bf16 datapath (the preview policy): times at bf16 storage, the
-        # viewer's, at StyleGAN2's and StyleGAN's render shapes at B = 5
+        # viewer's, at StyleGAN2's and StyleGAN's render shapes at B = 5;
+        # kernel B's on a body of its own (implicit_conv_bf16.cuh)
         dict(name="modconv3x3_bf16", route="cuda",
-             source="ganspace_tpu_torch/csrc/modconv3x3.cu",
+             source="ganspace_tpu_torch/csrc/modconv3x3_bf16.cu",
              replaces="ganspace_tpu/ops/pallas/blockconv.py:178",
              **counts("modconv3x3_bf16"), **preview["modconv3x3"]),
         dict(name="conv3x3_bf16", route="cuda",
-             source="ganspace_tpu_torch/csrc/modconv3x3.cu",
+             source="ganspace_tpu_torch/csrc/modconv3x3_bf16.cu",
              replaces="ganspace_tpu/ops/pallas/blockconv.py:178",
              **counts("conv3x3_bf16"), **preview["conv3x3"]),
         dict(name="upsample_conv_bf16", route="cuda",

@@ -1,7 +1,7 @@
-// Implicit-GEMM 3x3 correlation, stride 1, zero padding 1, NCHW float32 or
-// bf16, on the tensor cores in 3xTF32 (tf32x3.cuh) or, on the bf16
-// datapath, in one TF32 pass on bf16-rounded operands: the machinery of
-// kernel B's 3x3 modes (modconv3x3.cu, the modulated and the plain one).
+// Implicit-GEMM 3x3 correlation, stride 1, zero padding 1, NCHW float32, on
+// the tensor cores in 3xTF32 (tf32x3.cuh): the machinery of kernel B's 3x3
+// modes (modconv3x3.cu, the modulated and the plain one) on the float32
+// datapath.  The bf16 datapath has a body of its own, implicit_conv_bf16.cuh.
 //
 //   y[b, o, m, n] = d[b,o] * sum_{c, a < 3, e < 3}
 //       wt[o, c, a, e] * s[b,c] * x[b, c, m - 1 + a, n - 1 + e]
@@ -35,15 +35,6 @@
 //     in the epilogue, so no scaled copy of x or of the weight exists.  The
 //     split happens in registers: shared memory holds each value once.
 //     Without s (the plain mode) the scale is compiled out;
-//   * the bf16 datapath (kOne, the preview policy of ops/precision.py):
-//     the A fragment is x * s rounded to bf16 as it is formed, the weight
-//     arrives rounded to bf16 by the wrapper, and one TF32 pass computes
-//     the bf16 products exactly (tf32x3::bf16_bits), still with float32
-//     accumulation and d in the float32 epilogue.  x and y may be stored in
-//     bf16 (TX): the halo is then read with plain loads and widened to
-//     float32 in shared memory (cp.async cannot widen), so the layout and
-//     the fragment code are the same for both storages, and y is rounded to
-//     bf16 as it is written;
 //   * sums run in two levels: each stage's products go into a fresh
 //     accumulator, which is then added to the total in float32 (the tensor
 //     core's own accumulation truncates);
@@ -56,8 +47,6 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 #include "tf32x3.cuh"
 
@@ -111,9 +100,9 @@ __device__ __forceinline__ int fast_div(int n, unsigned m) {
 
 // Copy one stage into the ring: the halo [kCK][chs], the weight slice
 // [kBN][kCK * kTMax + 4] and, with kScale, the style scales [segs][kCK].
-template <int kBN, bool kScale, typename TX>
+template <int kBN, bool kScale>
 __device__ __forceinline__ void load_stage(float* st, const float* smem_base, const Launch& L,
-                                           const Geometry& q, const TX* __restrict__ x,
+                                           const Geometry& q, const float* __restrict__ x,
                                            const float* __restrict__ s, int c0, int b0,
                                            int w0, int o0) {
   constexpr int kWS = kCK * kTMax + 4;
@@ -124,7 +113,7 @@ __device__ __forceinline__ void load_stage(float* st, const float* smem_base, co
   // copy `item` of a row is a 16-byte chunk of the interior (xvec) or one
   // float, the two edge columns coming last
   const int* row_off = reinterpret_cast<const int*>(smem_base) + q.table;
-  const TX* xc = x + static_cast<long long>(c0) * plane;
+  const float* xc = x + static_cast<long long>(c0) * plane;
   for (int idx = tid; idx < kCK * q.rows * q.items; idx += kThreads) {
     const int row = fast_div(idx, q.m_items);
     const int item = idx - row * q.items;
@@ -133,7 +122,7 @@ __device__ __forceinline__ void load_stage(float* st, const float* smem_base, co
     const int off = row_off[ri];  // of column w0, or -1 outside the image
     const bool row_ok = off >= 0 && c0 + ck < L.c;
     float* dst = st + ck * q.chs + ri * q.hs_w;
-    const TX* src = xc + ck * plane + off;
+    const float* src = xc + ck * plane + off;
     const int inner = q.xvec ? tw / 4 : tw;
     int col;
     bool ok;
@@ -144,21 +133,10 @@ __device__ __forceinline__ void load_stage(float* st, const float* smem_base, co
       col = item == inner ? -1 : tw;
       ok = row_ok && w0 + col >= 0 && w0 + col < L.w;
     }
-    const bool vec = q.xvec && item < inner;
-    if constexpr (std::is_same<TX, float>::value) {
-      if (vec)
-        tf32x3::cp_async16(dst + kPad + col, ok ? src + col : x, ok);
-      else
-        tf32x3::cp_async4(dst + kPad + col, ok ? src + col : x, ok);
-    } else {
-      // bf16 storage: a plain load widened to float32.  The slot being
-      // filled is read by no warp until the barrier of a later step.
-      if (vec)
-        *reinterpret_cast<float4*>(dst + kPad + col) =
-            ok ? tf32x3::widen4(src + col) : make_float4(0.f, 0.f, 0.f, 0.f);
-      else
-        dst[kPad + col] = ok ? tf32x3::widen(src[col]) : 0.f;
-    }
+    if (q.xvec && item < inner)
+      tf32x3::cp_async16(dst + kPad + col, ok ? src + col : x, ok);
+    else
+      tf32x3::cp_async4(dst + kPad + col, ok ? src + col : x, ok);
   }
   // the weight slice [o0, o0 + kBN) x [c0 * 9, (c0 + kCK) * 9)
   float* ws = st + kCK * q.chs;
@@ -195,15 +173,11 @@ __device__ __forceinline__ void load_stage(float* st, const float* smem_base, co
 // channels: a block is (256 / kWN) pixels x (8 * kNT * kWN) channels.  The
 // weight row is OIHW (channel-major, tap innermost).  A stage holds kCK
 // input channels (one k8 step per tap).  kScale: s is given.
-// TX: the storage of x and y (float, or __nv_bfloat16).  kOne: the bf16
-// datapath, one TF32 pass on bf16-rounded operands (always so for bf16
-// storage); else 3xTF32.
-template <int kWN, int kNT, bool kScale, typename TX, bool kOne>
+template <int kWN, int kNT, bool kScale>
 __global__ void __launch_bounds__(kThreads, 2)
-conv_kernel(const TX* __restrict__ x, const float* __restrict__ s,
-            const float* __restrict__ dmod, TX* __restrict__ y,
+conv_kernel(const float* __restrict__ x, const float* __restrict__ s,
+            const float* __restrict__ dmod, float* __restrict__ y,
             const __grid_constant__ Launch L) {
-  static_assert(kOne || std::is_same<TX, float>::value, "bf16 storage takes the bf16 datapath");
   constexpr int kWS = kCK * kTMax + 4;
   constexpr int kChS = kTMax;   // channel stride in a weight row
   constexpr int kBN = 8 * kNT * kWN;
@@ -287,8 +261,8 @@ conv_kernel(const TX* __restrict__ x, const float* __restrict__ s,
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
     if (st < steps)
-      load_stage<kBN, kScale, TX>(smem + st * q.stage, smem, L, q, x, s, (chunk_beg + st) * kCK,
-                                  b0, w0, o0);
+      load_stage<kBN, kScale>(smem + st * q.stage, smem, L, q, x, s, (chunk_beg + st) * kCK, b0,
+                              w0, o0);
     tf32x3::cp_async_commit();
   }
 
@@ -297,8 +271,8 @@ conv_kernel(const TX* __restrict__ x, const float* __restrict__ s,
     __syncthreads();
     const int next = step + kStages - 1;
     if (next < steps)
-      load_stage<kBN, kScale, TX>(smem + (next % kStages) * q.stage, smem, L, q, x, s,
-                                  (chunk_beg + next) * kCK, b0, w0, o0);
+      load_stage<kBN, kScale>(smem + (next % kStages) * q.stage, smem, L, q, x, s,
+                              (chunk_beg + next) * kCK, b0, w0, o0);
     tf32x3::cp_async_commit();
 
     const float* hx = smem + (step % kStages) * q.stage;
@@ -328,59 +302,31 @@ conv_kernel(const TX* __restrict__ x, const float* __restrict__ s,
           const int tap = 8 * j * q.chs + u * q.hs_w + v;
           // the tap's column in the weight row: OIHW (channel, tap) at 9 c + tap
           const int wk = 8 * j * kTMax + (u * kTX + v);
-          if constexpr (kOne) {
-            // bf16 operands: x * s rounded as the fragment is formed (bf16
-            // storage without s is exact already), one pass
-            uint32_t a[2][4];
+          uint32_t a_hi[2][4], a_lo[2][4];
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              const float* p0 = hx + poff[mt][0] + tap;
-              const float* p1 = hx + poff[mt][1] + tap;
-              const float xv[4] = {p0[0], p1[0], p0[ch4], p1[ch4]};
-#pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                if constexpr (kScale)
-                  a[mt][e] = tf32x3::bf16_bits(xv[e] * sc[mt][e]);
-                else if constexpr (std::is_same<TX, float>::value)
-                  a[mt][e] = tf32x3::bf16_bits(xv[e]);
-                else
-                  a[mt][e] = __float_as_uint(xv[e]);
-              }
+          for (int mt = 0; mt < 2; ++mt) {
+            // rows g and g + 8, channels tq and tq + 4
+            const float* p0 = hx + poff[mt][0] + tap;
+            const float* p1 = hx + poff[mt][1] + tap;
+            if constexpr (kScale) {
+              tf32x3::split(p0[0] * sc[mt][0], a_hi[mt][0], a_lo[mt][0]);
+              tf32x3::split(p1[0] * sc[mt][1], a_hi[mt][1], a_lo[mt][1]);
+              tf32x3::split(p0[ch4] * sc[mt][2], a_hi[mt][2], a_lo[mt][2]);
+              tf32x3::split(p1[ch4] * sc[mt][3], a_hi[mt][3], a_lo[mt][3]);
+            } else {
+              tf32x3::split(p0[0], a_hi[mt][0], a_lo[mt][0]);
+              tf32x3::split(p1[0], a_hi[mt][1], a_lo[mt][1]);
+              tf32x3::split(p0[ch4], a_hi[mt][2], a_lo[mt][2]);
+              tf32x3::split(p1[ch4], a_hi[mt][3], a_lo[mt][3]);
             }
+          }
 #pragma unroll
-            for (int nt = 0; nt < kNT; ++nt) {
-              const float* wp = hx + wrow + nt * 8 * kWS + wk;
-              const uint32_t b[2] = {__float_as_uint(wp[0]), __float_as_uint(wp[4 * kChS])};
-#pragma unroll
-              for (int mt = 0; mt < 2; ++mt) tf32x3::mma_tf32(part[nt][mt][0], a[mt], b);
-            }
-          } else {
-            uint32_t a_hi[2][4], a_lo[2][4];
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              // rows g and g + 8, channels tq and tq + 4
-              const float* p0 = hx + poff[mt][0] + tap;
-              const float* p1 = hx + poff[mt][1] + tap;
-              if constexpr (kScale) {
-                tf32x3::split(p0[0] * sc[mt][0], a_hi[mt][0], a_lo[mt][0]);
-                tf32x3::split(p1[0] * sc[mt][1], a_hi[mt][1], a_lo[mt][1]);
-                tf32x3::split(p0[ch4] * sc[mt][2], a_hi[mt][2], a_lo[mt][2]);
-                tf32x3::split(p1[ch4] * sc[mt][3], a_hi[mt][3], a_lo[mt][3]);
-              } else {
-                tf32x3::split(p0[0], a_hi[mt][0], a_lo[mt][0]);
-                tf32x3::split(p1[0], a_hi[mt][1], a_lo[mt][1]);
-                tf32x3::split(p0[ch4], a_hi[mt][2], a_lo[mt][2]);
-                tf32x3::split(p1[ch4], a_hi[mt][3], a_lo[mt][3]);
-              }
-            }
-#pragma unroll
-            for (int nt = 0; nt < kNT; ++nt) {
-              const float* wp = hx + wrow + nt * 8 * kWS + wk;
-              uint32_t b_hi[1][2], b_lo[1][2];
-              tf32x3::split(wp[0], b_hi[0][0], b_lo[0][0]);
-              tf32x3::split(wp[4 * kChS], b_hi[0][1], b_lo[0][1]);  // channel tq + 4
-              tf32x3::mma_3xtf32(part[nt], a_hi, a_lo, b_hi, b_lo);
-            }
+          for (int nt = 0; nt < kNT; ++nt) {
+            const float* wp = hx + wrow + nt * 8 * kWS + wk;
+            uint32_t b_hi[1][2], b_lo[1][2];
+            tf32x3::split(wp[0], b_hi[0][0], b_lo[0][0]);
+            tf32x3::split(wp[4 * kChS], b_hi[0][1], b_lo[0][1]);  // channel tq + 4
+            tf32x3::mma_3xtf32(part[nt], a_hi, a_lo, b_hi, b_lo);
           }
         }
     }
@@ -426,8 +372,8 @@ conv_kernel(const TX* __restrict__ x, const float* __restrict__ s,
     const int ww = w0 + m - i * q.tw;
     if (i < q.tr && o < L.co && bb < L.b && ww < q.ow) {
       if (dmod) val *= dmod[static_cast<long long>(bb) * L.co + o];
-      tf32x3::store(y + (static_cast<long long>(bb) * L.co + o) * yplane
-                    + static_cast<long long>(hh) * L.w + ww, val);
+      y[(static_cast<long long>(bb) * L.co + o) * yplane + static_cast<long long>(hh) * L.w
+        + ww] = val;
     }
   }
   cluster.sync();  // keep every block's partial alive until all have read it
@@ -497,12 +443,12 @@ long long tile_grid(Geometry& q, int batch) {
 
 // Fill the tiling of L's grid (its sizes, and the grid's output and weight
 // fields, set by the caller) and launch it.
-template <int kWN, int kNT, bool kScale, typename TX, bool kOne>
-cudaError_t launch(const TX* x, const float* s, const float* dmod, TX* y, Launch L,
+template <int kWN, int kNT, bool kScale>
+cudaError_t launch(const float* x, const float* s, const float* dmod, float* y, Launch L,
                    cudaStream_t stream) {
   constexpr int kBN = 8 * kNT * kWN;
   constexpr int kBM = 256 / kWN;
-  auto kernel = conv_kernel<kWN, kNT, kScale, TX, kOne>;
+  auto kernel = conv_kernel<kWN, kNT, kScale>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return attr;
@@ -542,17 +488,16 @@ cudaError_t launch(const TX* x, const float* s, const float* dmod, TX* y, Launch
 // across N) from 33 channels, 32-channel blocks from 17, 16-channel blocks
 // below, so that a 16-channel layer does not leave half the N tile empty.
 // s null takes the plain kernel.
-template <typename TX, bool kOne>
-cudaError_t launch_for(const TX* x, const float* s, const float* dmod, TX* y,
-                       const Launch& L, cudaStream_t stream) {
+inline cudaError_t launch_for(const float* x, const float* s, const float* dmod, float* y,
+                              const Launch& L, cudaStream_t stream) {
   if (s) {
-    if (L.co <= 16) return launch<1, 2, true, TX, kOne>(x, s, dmod, y, L, stream);
-    if (L.co <= 32) return launch<1, 4, true, TX, kOne>(x, s, dmod, y, L, stream);
-    return launch<2, 4, true, TX, kOne>(x, s, dmod, y, L, stream);
+    if (L.co <= 16) return launch<1, 2, true>(x, s, dmod, y, L, stream);
+    if (L.co <= 32) return launch<1, 4, true>(x, s, dmod, y, L, stream);
+    return launch<2, 4, true>(x, s, dmod, y, L, stream);
   }
-  if (L.co <= 16) return launch<1, 2, false, TX, kOne>(x, s, dmod, y, L, stream);
-  if (L.co <= 32) return launch<1, 4, false, TX, kOne>(x, s, dmod, y, L, stream);
-  return launch<2, 4, false, TX, kOne>(x, s, dmod, y, L, stream);
+  if (L.co <= 16) return launch<1, 2, false>(x, s, dmod, y, L, stream);
+  if (L.co <= 32) return launch<1, 4, false>(x, s, dmod, y, L, stream);
+  return launch<2, 4, false>(x, s, dmod, y, L, stream);
 }
 
 }  // namespace implicit_conv

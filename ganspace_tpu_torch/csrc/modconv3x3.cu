@@ -23,43 +23,41 @@
 // the 4-8 px ones, where reading the weight once is the bound.  Under the
 // preview policy (ops/precision.py) it runs the TPU kernel's bf16 case:
 // operands rounded to bf16, float32 accumulation, y in x's storage (float32
-// or bf16); see implicit_conv.cuh for the datapath.
+// or bf16), on a body of its own (implicit_conv_bf16.cuh,
+// modconv3x3_bf16.cu).
 
 #include <cstdint>
 
 #include "implicit_conv.cuh"
 
-// x [b, c, h, w], wt [co, c, 3, 3], s [b, c] or null, dmod [b, co] or null,
-// y [b, co, h, w]: contiguous device buffers.  mode 0: x and y float32,
-// 3xTF32; mode 1: x and y float32, the bf16 datapath (x * s rounded to bf16
-// in the kernel, wt rounded to bf16 by the caller); mode 2: x and y bf16,
-// the bf16 datapath.  wt, s and dmod are float32 in every mode.
-// Launches on `stream` and returns cudaGetLastError() as an int.
-extern "C" int ganspace_modconv3x3(const void* x, const float* wt, const float* s,
+// The bf16 datapath, modes 1 and 2 (modconv3x3_bf16.cu).
+cudaError_t modconv3x3_bf16(const void* x, const void* wt, const float* s, const float* dmod,
+                            void* y, int b, int c, int h, int w, int co, int mode,
+                            cudaStream_t stream);
+
+// x [b, c, h, w], s [b, c] or null, dmod [b, co] or null, y [b, co, h, w]:
+// contiguous device buffers.  mode 0: x and y float32, wt [co, c, 3, 3]
+// float32, 3xTF32; mode 1: x and y float32, the bf16 datapath (x * s
+// rounded to bf16 in the kernel); mode 2: x and y bf16, the bf16 datapath.
+// On the bf16 datapath wt is the weight rounded to bf16 by the caller, [co,
+// 3, 3, cp] with cp = c rounded up to 16 (ops/modconv.bf16_taps).  s and
+// dmod are float32 in every mode.  Launches on `stream` and returns
+// cudaGetLastError() as an int.
+extern "C" int ganspace_modconv3x3(const void* x, const void* wt, const float* s,
                                    const float* dmod, void* y, int b, int c,
                                    int h, int w, int co, int mode, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mode == 1 || mode == 2)
+    return static_cast<int>(modconv3x3_bf16(x, wt, s, dmod, y, b, c, h, w, co, mode, st));
+  if (mode != 0) return static_cast<int>(cudaErrorInvalidValue);
   implicit_conv::Launch L = {};
   L.b = b, L.c = c, L.h = h, L.w = w, L.co = co;
   implicit_conv::Geometry& q = L.g;
-  q.wt = wt, q.krow = static_cast<long long>(c) * 9;
+  q.wt = static_cast<const float*>(wt), q.krow = static_cast<long long>(c) * 9;
   q.oh = h, q.ow = w;
-  // 16-byte copies of four float32 values, or 8-byte loads of four bf16
-  q.xvec = (w % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % (mode == 2 ? 8 : 16) == 0);
+  // 16-byte copies of four float32 values
+  q.xvec = (w % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
   q.wvec = (c % 4 == 0) && (reinterpret_cast<uintptr_t>(wt) % 16 == 0);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  using implicit_conv::launch_for;
-  switch (mode) {
-    case 0:
-      return static_cast<int>(launch_for<float, false>(
-          static_cast<const float*>(x), s, dmod, static_cast<float*>(y), L, st));
-    case 1:
-      return static_cast<int>(launch_for<float, true>(
-          static_cast<const float*>(x), s, dmod, static_cast<float*>(y), L, st));
-    case 2:
-      return static_cast<int>(launch_for<__nv_bfloat16, true>(
-          static_cast<const __nv_bfloat16*>(x), s, dmod, static_cast<__nv_bfloat16*>(y), L,
-          st));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(implicit_conv::launch_for(
+      static_cast<const float*>(x), s, dmod, static_cast<float*>(y), L, st));
 }

@@ -566,13 +566,13 @@ def _compute(config, dump_name: Path,
         # activations to find the sketch's subspace and the mandatory
         # float32 refine pass determines the estimate.  The first run is
         # all float32; GANSPACE_BF16_PASS1=0 opts out; a never-refine
-        # policy and a model without the preview storage rule it out.
+        # policy rules it out.  A model whose storage stays float32 under the
+        # policy (DCGAN) streams float32 in both passes, as in JAX.
         bf16_pass1 = (
             _env_on("GANSPACE_BF16_PASS1")
             and (getattr(config, "dtype", None) or "float32") == "float32"
             and transformer._use_nystrom(sample_dims)
             and transformer.refine_policy not in ("0", "never", "off", "false")
-            and model.preview_policy
             and _fused_acts_info(fused_key).get("policy_refines") is True)
         pass1_block, refine_stream = acts_block, None
         if bf16_pass1:

@@ -26,7 +26,6 @@ import torch
 from torch import nn
 
 from ganspace_tpu_torch.imaging import uint8_nhwc
-from ganspace_tpu_torch.ops.precision import full_precision
 from ganspace_tpu_torch.sampling import (
     STREAM_MAIN, SeedStream, block_generator, device_gaussian, gaussian_latents)
 
@@ -138,21 +137,6 @@ class BaseGenerator(nn.Module, ABC):
     @property
     def device(self) -> torch.device:
         return next(self.parameters()).device
-
-    #: whether synthesis implements the preview policy of ``ops/precision.py``
-    #: (bf16 storage, the bf16 datapath): StyleGAN and StyleGAN2 do
-    preview_policy = False
-
-    def require_full_precision(self) -> None:
-        """Raise under a preview policy this generator does not implement:
-        float32 storage where the JAX package stores bf16 would be another
-        result, not a preview."""
-        if not self.preview_policy and not full_precision():
-            raise NotImplementedError(
-                f"{self.model_name}: the bf16 preview policy (--dtype bfloat16, the "
-                "viewer's default) is not ported for this model (ROADMAP.md queue 1, "
-                "item 8: preview storage of BigGAN, ProGAN and DCGAN); run it with "
-                "--dtype float32")
 
     def seed_host_rng(self, seed: Optional[int]) -> None:
         """Restart the host seed stream (the JAX package's ``np.random.seed``)."""

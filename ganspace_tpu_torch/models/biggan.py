@@ -31,8 +31,21 @@ TPU-only and is not ported.  The 3x3 convs go through kernel B
 ``conv_1`` of an up-block, nearest 2x then 3x3, through the stride-2 mode,
 :func:`upsample_conv`, as the one transposed conv it equals (a 4x4 composite
 kernel, padding 1).  The 1x1 convs, ``gen_z``, the batch norms and the
-attention stay stock PyTorch ops under the float32 policy of
-``ops/precision.py``.
+attention stay stock PyTorch ops under the policy of ``ops/precision.py``.
+
+Under the preview policy the generator follows the JAX package's rules
+(``ganspace_tpu/models/biggan.py:400-473``), rounding order included: the
+class embedding, ``gen_z`` and the conditional scales and offsets run on
+float32 latents at the policy's precision; the map is cast to the storage
+dtype after ``gen_z``'s reshape; every conv takes its weight in x's dtype,
+its bias added in it; the batch-norm statistics, the conditional scale and
+offset and the attention's gamma are cast to x's dtype and applied as
+``((x - mean) * inv) * scale + offset``; an up-conv's composite kernel is
+formed from the storage-dtype weight (``ganspace_tpu/ops/s2d.py:370-380``)
+in the blocks the JAX package runs in its space-to-depth tail, while the
+earlier up-blocks run nearest 2x then the 3x3 conv on the rounded weight,
+as its pixel layout does (``ops/modconv.S2D_MAX_CH``); ``tanh`` returns
+float32.
 """
 
 from __future__ import annotations
@@ -52,9 +65,12 @@ from ganspace_tpu_torch.models import checkpoints, imagenet_classes
 from ganspace_tpu_torch.models.base import BaseGenerator, TapState
 from ganspace_tpu_torch.models.tf_import import import_biggan_tf
 from ganspace_tpu_torch.models.torch_import import import_biggan
+from ganspace_tpu_torch.ops import precision
 from ganspace_tpu_torch.ops.modconv import (
-    LayerWeights, conv3x3, nearest_up_kernel, upsample_conv)
-from ganspace_tpu_torch.ops.precision import ieee_f32
+    S2D_MAX_CH, LayerWeights, conv3x3, nearest_up2x, nearest_up_kernel, upsample_conv)
+from ganspace_tpu_torch.ops.precision import (
+    StorageCopies, bf16_operands, bf16_values, get_precision, ieee_f32, round_bf16,
+    synth_dtype_name)
 from ganspace_tpu_torch.sampling import device_truncated, truncated_latents
 
 # (up-sample?, in-width-mult, out-width-mult), reference biggan config.py:21-31
@@ -118,6 +134,16 @@ class BigGANConfig:
                 plan.append(("attn", ch * cin))
             plan.append(("gen", up, ch * cin, ch * cout))
         return plan
+
+    def tail_entry(self) -> Optional[int]:
+        """The module where the JAX package's space-to-depth tail starts
+        (``ganspace_tpu/models/biggan.py:426-437``): the first up-block after
+        the last attention whose bottleneck is at most ``S2D_MAX_CH`` wide;
+        None when there is none."""
+        plan = self.module_plan()
+        attn = max((mi for mi, mod in enumerate(plan) if mod[0] == "attn"), default=-1)
+        return next((mi for mi, mod in enumerate(plan) if mi > attn and mod[0] == "gen"
+                     and mod[1] and mod[2] // 4 <= S2D_MAX_CH), None)
 
     @property
     def n_latents(self) -> int:
@@ -199,9 +225,23 @@ class _Linear(nn.Module):
         super().__init__()
         self.weight = _param(out_dim, in_dim)
         self.bias = _param(out_dim) if bias else None
+        self.copies = StorageCopies()
+
+    def operand(self) -> torch.Tensor:
+        """The weight as the product takes it under the policy: rounded to
+        bf16 at ``default``, made once."""
+        if get_precision() != "default":
+            return self.weight
+        return self.copies(self.weight, None, "bf16", round_bf16)
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        """``x @ weight^T + bias`` at the policy's precision, as the JAX
+        package's ``jnp.matmul(x, w.T, precision=get_precision())``: at
+        ``default`` bf16 operands with float32 sums, then the bias."""
+        if get_precision() != "default":
+            return F.linear(x, self.weight, self.bias)
+        y = F.linear(bf16_values(x), self.operand())
+        return y if self.bias is None else y + self.bias
 
 
 class _Conv(nn.Module):
@@ -212,12 +252,18 @@ class _Conv(nn.Module):
         super().__init__()
         self.weight = _param(cout, cin, k, k)
         self.bias = _param(cout) if bias else None
+        self.copies = StorageCopies()
 
     def forward(self, x):
-        return F.conv2d(x, self.weight, self.bias)
+        if not bf16_operands(x):
+            return F.conv2d(x, self.weight, self.bias)
+        return self.add_bias(precision.conv2d(x, self.copies(self.weight, x.dtype)))
 
     def add_bias(self, y: torch.Tensor) -> torch.Tensor:
-        return y if self.bias is None else y + self.bias.reshape(1, -1, 1, 1)
+        """y + bias, the bias in y's dtype."""
+        if self.bias is None:
+            return y
+        return y + self.copies(self.bias, y.dtype).reshape(1, -1, 1, 1)
 
 
 class _Stats(nn.Module):
@@ -230,6 +276,7 @@ class _Stats(nn.Module):
         self.running_vars = _param(n_stats, ch)
         self._key = None
         self._value = None
+        self.copies = StorageCopies()
 
     def mean_inv(self, truncation: float, eps: float):
         """(mean, rsqrt(var + eps)) at ``truncation`` (``model.py:126-135``)."""
@@ -270,6 +317,15 @@ class CondBatchNorm(_Stats):
 
     def forward(self, x, cond, truncation: float, eps: float):
         mean, inv = self.mean_inv(truncation, eps)
+        if bf16_operands(x):
+            # JAX's order in x's dtype (ganspace_tpu/models/biggan.py:205-224)
+            # (cond arrives rounded to bf16 at ``default``: GenBlock)
+            dt = x.dtype
+            scale = (1.0 + F.linear(cond, self.scale.operand())).to(dt)
+            offset = F.linear(cond, self.offset.operand()).to(dt)
+            x = ((x - self.copies(mean, dt)[:, None, None])
+                 * self.copies(inv, dt)[:, None, None])
+            return x * scale[:, :, None, None] + offset[:, :, None, None]
         scale = inv * (1.0 + self.scale(cond))                 # [B, C]
         shift = self.offset(cond) - mean * scale
         return torch.addcmul(shift[:, :, None, None], x, scale[:, :, None, None])
@@ -285,12 +341,20 @@ class PlainBatchNorm(_Stats):
         mean, inv = self.mean_inv(truncation, eps)
         scale = inv * self.weight
         shift = self.bias - mean * scale
+        if bf16_operands(x):
+            # x * scale + shift in x's dtype (ganspace_tpu/models/biggan.py:275-281)
+            dt = x.dtype
+            return x * scale.to(dt)[None, :, None, None] + shift.to(dt)[None, :, None, None]
         return torch.addcmul(shift[None, :, None, None], x, scale[None, :, None, None])
 
 
-def _nearest_up(x: torch.Tensor) -> torch.Tensor:
-    n, c, h, w = x.shape
-    return x[:, :, :, None, :, None].expand(n, c, h, 2, w, 2).reshape(n, c, 2 * h, 2 * w)
+def _softmax(s: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last dim; in bf16 op by op as ``jax.nn.softmax``
+    computes it there (each step rounded, the sum in float32)."""
+    if s.dtype == torch.float32:
+        return torch.softmax(s, dim=-1)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
 
 
 class SelfAttention(nn.Module):
@@ -303,22 +367,25 @@ class SelfAttention(nn.Module):
         self.snconv1x1_g = _Conv(ch, ch // 2, 1, bias=False)
         self.snconv1x1_o_conv = _Conv(ch // 2, ch, 1, bias=False)
         self.gamma = _param(1)
+        self.copies = StorageCopies()
 
     def forward(self, base: str, x, ts: TapState):
         n, ch, h, w = x.shape
         theta = self.snconv1x1_theta(x).reshape(n, ch // 8, h * w)
         phi = F.max_pool2d(self.snconv1x1_phi(x), 2).reshape(n, ch // 8, h * w // 4)
-        attn = torch.softmax(torch.bmm(theta.transpose(1, 2), phi), dim=-1)   # [n, p, q]
+        attn = _softmax(precision.bmm(theta.transpose(1, 2), phi))   # [n, p, q]
         g = F.max_pool2d(self.snconv1x1_g(x), 2).reshape(n, ch // 2, h * w // 4)
-        attn_g = torch.bmm(g, attn.transpose(1, 2)).reshape(n, ch // 2, h, w)
-        out = x + self.gamma[0] * self.snconv1x1_o_conv(attn_g)
+        attn_g = precision.bmm(g, attn.transpose(1, 2)).reshape(n, ch // 2, h, w)
+        out = x + self.copies(self.gamma, x.dtype)[0] * self.snconv1x1_o_conv(attn_g)
         return ts.tap(base, out)
 
 
 class GenBlock(nn.Module):
     """The bottleneck GenBlock (reference ``model.py:152-202``): four
     conditional batch norms, 1x1 -> 3x3 -> 3x3 -> 1x1 convs, nearest 2x in
-    up-blocks, the channel-drop skip."""
+    up-blocks, the channel-drop skip.  ``pixel_up``: an up-block the JAX
+    package runs in pixel layout, where the preview policy takes nearest 2x
+    then the 3x3 conv (the composite kernel of a bf16 weight is not bf16)."""
 
     def __init__(self, cin: int, cout: int, up: bool, cond_dim: int, n_stats: int):
         super().__init__()
@@ -332,22 +399,15 @@ class GenBlock(nn.Module):
         self.bn_3 = CondBatchNorm(mid, cond_dim, n_stats)
         self.conv_3 = _Conv(mid, cout, 1)
         self.up = up
-        # the up-conv's composite kernel and the stride-2 kernel's weight image
-        self.up_weights = LayerWeights(self.conv_1.weight) if up else None
-        self._ck_key = None
-        self._ck = None
-
-    def upconv_kernel(self) -> torch.Tensor:
-        """:func:`nearest_up_kernel` of ``conv_1``, rebuilt only after the
-        weight changes (a load, an in-place edit or a move)."""
-        w = self.conv_1.weight
-        key = (w.data_ptr(), w._version, w.device)
-        if key != self._ck_key:
-            self._ck = nearest_up_kernel(w)
-            self._ck_key = key
-        return self._ck
+        # the kernels' weights of conv_1 (an up-block's composite kernel
+        # among them) and of conv_2
+        self.w1 = LayerWeights(self.conv_1.weight, self.conv_1.copies)
+        self.w2 = LayerWeights(self.conv_2.weight, self.conv_2.copies)
+        self.pixel_up = False
 
     def forward(self, base: str, x, cond, truncation: float, eps: float, ts: TapState):
+        if get_precision() == "default":
+            cond = round_bf16(cond)      # the operand of the four batch norms' products
         x0 = x
         x = ts.tap(f"{base}.bn_0", self.bn_0(x, cond, truncation, eps))
         x = ts.tap(f"{base}.relu", F.relu(x))
@@ -358,16 +418,20 @@ class GenBlock(nn.Module):
         x = ts.tap(f"{base}.relu", F.relu(x))
         if ts.stopped:
             return x
-        if self.up:
-            y = upsample_conv(x, self.upconv_kernel(), pad=1, cache=self.up_weights)
+        if self.up and self.pixel_up and bf16_operands(x):
+            y = conv3x3(nearest_up2x(x), self.conv_1.weight, cache=self.w1)
+        elif self.up:
+            kernel, cache = self.w1.nearest_up(x.dtype)
+            y = upsample_conv(x, kernel, pad=1, cache=cache)
         else:
-            y = conv3x3(x, self.conv_1.weight)
+            y = conv3x3(x, self.conv_1.weight, cache=self.w1)
         x = ts.tap(f"{base}.conv_1", self.conv_1.add_bias(y))
         if ts.stopped:
             return x
         x = ts.tap(f"{base}.bn_2", self.bn_2(x, cond, truncation, eps))
         x = ts.tap(f"{base}.relu", F.relu(x))
-        x = ts.tap(f"{base}.conv_2", self.conv_2.add_bias(conv3x3(x, self.conv_2.weight)))
+        x = ts.tap(f"{base}.conv_2",
+                   self.conv_2.add_bias(conv3x3(x, self.conv_2.weight, cache=self.w2)))
         if ts.stopped:
             return x
         x = ts.tap(f"{base}.bn_3", self.bn_3(x, cond, truncation, eps))
@@ -378,7 +442,11 @@ class GenBlock(nn.Module):
         if x.shape[1] != x0.shape[1]:
             x0 = x0[:, :x0.shape[1] // 2]  # channel-drop skip (model.py:195-197)
         if self.up:
-            x0 = _nearest_up(x0)
+            if not self.pixel_up and x0.dtype == torch.float32 and bf16_operands(x0):
+                # the JAX package's tail upsamples the skip as a conv at the
+                # policy's precision, which rounds it (ganspace_tpu/ops/s2d.py:328-342)
+                x0 = round_bf16(x0)
+            x0 = nearest_up2x(x0)
         return ts.tap(base, x + x0)
 
 
@@ -394,6 +462,9 @@ class Generator(nn.Module):
         ch = cfg.channel_width * cfg.layers[-1][2]
         self.bn = PlainBatchNorm(ch, cfg.n_stats)
         self.conv_to_rgb = _Conv(ch, ch, 3)
+        # conv_to_rgb's kernel weights, for all its rows (the tap) and the
+        # image's three, which the shape tells apart
+        self.rgb_weights = LayerWeights(self.conv_to_rgb.weight, self.conv_to_rgb.copies)
 
 
 # ---------------------------------------------------------------------------
@@ -417,6 +488,10 @@ class BigGAN(BaseGenerator):
         self.truncation = truncation
         self.embeddings = _Linear(self.cfg.num_classes, self.cfg.z_dim, bias=False)
         self.generator = Generator(self.cfg)
+        entry = self.cfg.tail_entry()
+        for mi, layer in enumerate(self.generator.layers):
+            if isinstance(layer, GenBlock):
+                layer.pixel_up = layer.up and (entry is None or mi < entry)
         if params is None:
             # The local HuggingFace .bin, else a local TF-Hub dump, as the JAX
             # package reads them; seeded random weights when neither is there.
@@ -551,10 +626,13 @@ class BigGAN(BaseGenerator):
         return tap
 
     # -- execution ----------------------------------------------------------
-    def synthesize(self, zs, ts: TapState, n_layers_to_run: int):
+    def synthesize(self, zs, ts: TapState, n_layers_to_run: int,
+                   act_dtype: Optional[str] = None):
         """One call of the reference's synthesis on ``n_latents`` [B, z_dim]
-        latents; returns the raw [-1, 1] image, or None when ``ts`` stopped
-        at a tap or ``n_layers_to_run`` modules ran."""
+        latents; returns the raw [-1, 1] image in float32, or None when
+        ``ts`` stopped at a tap or ``n_layers_to_run`` modules ran.
+        ``act_dtype`` (``'bfloat16'`` or None): the activation storage from
+        ``gen_z``'s reshape on."""
         cfg, gen = self.cfg, self.generator
         onehot = self.v_class.expand(zs[0].shape[0], cfg.num_classes)
         e = self.embeddings(onehot)
@@ -569,6 +647,8 @@ class BigGAN(BaseGenerator):
         if ts.stopped:
             return None
         x = z.reshape(-1, 4, 4, 16 * cfg.channel_width).permute(0, 3, 1, 2)
+        if act_dtype is not None:
+            x = x.to(getattr(torch, act_dtype))
 
         trunc, eps = float(self.truncation), cfg.eps
         cond_idx = 1
@@ -590,18 +670,18 @@ class BigGAN(BaseGenerator):
         name = "generator.conv_to_rgb"
         if name in ts.retain or name in ts.edits or ts.stop_at == name:
             # the tap sees all of conv_to_rgb's channels
-            x = ts.tap(name, rgb.add_bias(conv3x3(x, rgb.weight)))
+            x = ts.tap(name, rgb.add_bias(conv3x3(x, rgb.weight, cache=gen.rgb_weights)))
             if ts.stopped:
                 return None
             x = x[:, :3]
         else:
             # only the image's three channels are kept (biggan.py:471-472)
-            x = conv3x3(x, rgb.weight[:3]) + rgb.bias[:3].reshape(1, 3, 1, 1)
-        return torch.tanh(x)
+            x = (conv3x3(x, rgb.weight[:3], cache=gen.rgb_weights)
+                 + rgb.copies(rgb.bias, x.dtype)[:3].reshape(1, 3, 1, 1))
+        return torch.tanh(x).float()
 
     @torch.no_grad()
     def _run(self, x, stop_at: Optional[str], layer_name: Optional[str] = None):
-        self.require_full_precision()
         zs = x if isinstance(x, list) else self.cfg.n_latents * [x]
         if len(zs) != self.cfg.n_latents:
             raise ValueError(f"Expected {self.cfg.n_latents} latents, got {len(zs)}")
@@ -611,7 +691,7 @@ class BigGAN(BaseGenerator):
                  else len(self.cfg.module_plan()))
         ts = TapState(retain, edits, stop_at)
         with ieee_f32():
-            img = self.synthesize(zs, ts, n_run)
+            img = self.synthesize(zs, ts, n_run, synth_dtype_name())
         if store is not None:
             store(ts.retained)
         return img
@@ -629,16 +709,17 @@ class BigGAN(BaseGenerator):
         every latent slot (the fused stream's block): ``synthesize`` with a
         ``TapState`` that retains only the tap and stops where
         ``partial_forward`` stops, the current class, the kernels exactly as
-        in ``partial_forward``."""
+        in ``partial_forward``, in the activation storage the policy names
+        when it is built."""
         tap = self.resolve_tap(layer_name)
         stop_at = self._stop_point(tap)
         n_run = self._n_layers_for(layer_name)
+        act_dtype = synth_dtype_name()
 
         @torch.no_grad()
         def fn(z):
-            self.require_full_precision()
             ts = TapState((tap,), None, stop_at)
             with ieee_f32():
-                self.synthesize(self.cfg.n_latents * [z], ts, n_run)
+                self.synthesize(self.cfg.n_latents * [z], ts, n_run, act_dtype)
             return ts.retained[tap].reshape(z.shape[0], -1)
         return fn

@@ -21,6 +21,12 @@ goes through the stride-2 kernel, :func:`upsample_conv`, with the zoo's
 [in, out, k, k] weight read as [out, in, k, k]; the batch norms use the
 **running** statistics, so a sample's output never depends on its
 batch-mates (``tests/test_partial_forward.py:80``).
+
+Under the preview policy (``ops/precision.py``) the storage stays float32,
+as the JAX package's DCGAN ignores it; at the ``default`` precision its
+convs take bf16 operands with float32 sums (``ganspace_tpu/models/dcgan.py:
+67-78``): ``deconv0``'s product rounds both operands, the stride-2 kernel
+runs its bf16 datapath on float32 storage.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from ganspace_tpu_torch import require_device
 from ganspace_tpu_torch.models import checkpoints
 from ganspace_tpu_torch.models.base import BaseGenerator, TapState
 from ganspace_tpu_torch.models.torch_import import import_ganzoo_dcgan
+from ganspace_tpu_torch.ops import precision
 from ganspace_tpu_torch.ops.modconv import LayerWeights, upsample_conv
 from ganspace_tpu_torch.ops.precision import ieee_f32
 from ganspace_tpu_torch.sampling import gaussian_latents
@@ -190,7 +197,7 @@ class GANZooModel(BaseGenerator):
             deconv = getattr(self, f"deconv{i}")
             if i == 0:
                 # 1x1 -> 4x4, stride 1, padding 0: out[o, u, v] = sum_c z[c] w[c, o, u, v]
-                y = torch.einsum("bc,couv->bouv", x, deconv.weight)
+                y = precision.einsum("bc,couv->bouv", x, deconv.weight)
             else:
                 y = upsample_conv(x, deconv.weight.transpose(0, 1), pad=1,
                                   cache=self.up_weights[i - 1])
@@ -206,7 +213,6 @@ class GANZooModel(BaseGenerator):
 
     @torch.no_grad()
     def _run(self, x, stop_at: Optional[str]):
-        self.require_full_precision()
         if isinstance(x, list):
             if len(x) != 1:
                 raise ValueError("DCGAN only supports a single global latent")
@@ -238,7 +244,6 @@ class GANZooModel(BaseGenerator):
 
         @torch.no_grad()
         def fn(z):
-            self.require_full_precision()
             ts = TapState((tap,), None, tap)
             with ieee_f32():
                 self.synthesize(z, ts)

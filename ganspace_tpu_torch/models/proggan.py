@@ -31,6 +31,18 @@ output conv.  Where each conv runs:
   composite kernel of the scaled weight, padding 1).  Nearest upsampling
   commutes with the per-pixel norm, so the norm runs on the small map;
 * the 1x1 output conv stays a stock PyTorch conv.
+
+Under the preview policy (``ops/precision.py``) the column follows the JAX
+package's rules (``ganspace_tpu/models/proggan.py:89-147``), rounding order
+included: the latent is cast to the storage dtype first, every op runs in
+it, each conv takes the weight in that dtype on the bf16 datapath, the
+WScale factor (rounded to the storage) multiplies the conv's output, as
+JAX's ``x * (gain / sqrt(cin)) + b``, where the float32 policy folds it
+into the weight; the up layers' composite kernel is formed from the
+storage-dtype weight (``ganspace_tpu/ops/s2d.py:370-380``) from the layer
+where the JAX package's space-to-depth tail starts, while the earlier up
+layers run nearest 2x then the 3x3 conv on the rounded weight, as its pixel
+layout does (``ops/modconv.S2D_MAX_CH``); the image returns float32.
 """
 
 from __future__ import annotations
@@ -49,9 +61,11 @@ from ganspace_tpu_torch.models import checkpoints
 from ganspace_tpu_torch.models.base import BaseGenerator, TapState
 from ganspace_tpu_torch.models.tf_import import import_progan_tf
 from ganspace_tpu_torch.models.torch_import import import_progan
+from ganspace_tpu_torch.ops import precision
 from ganspace_tpu_torch.ops.modconv import (
-    LayerWeights, conv3x3, nearest_up_kernel, upsample_conv)
-from ganspace_tpu_torch.ops.precision import ieee_f32
+    S2D_MAX_CH, LayerWeights, conv3x3, nearest_up2x, upsample_conv)
+from ganspace_tpu_torch.ops.precision import (
+    StorageCopies, bf16_operands, ieee_f32, synth_dtype_name)
 from ganspace_tpu_torch.sampling import gaussian_latents
 
 VALID_CLASSES = ["bedroom", "churchoutdoor", "conferenceroom", "diningroom",
@@ -112,6 +126,12 @@ def _pixel_norm(x: torch.Tensor) -> torch.Tensor:
     return x * torch.rsqrt(torch.mean(x * x, dim=1, keepdim=True) + 1e-8)
 
 
+def _pixel_norm_preview(x: torch.Tensor) -> torch.Tensor:
+    """The pixel norm in x's dtype as the JAX package computes it, one
+    rounding per op: x * reciprocal(sqrt(mean(x^2) + 1e-8))."""
+    return x * torch.reciprocal(torch.sqrt(torch.mean(x * x, dim=1, keepdim=True) + 1e-8))
+
+
 class _Weight(nn.Module):
     def __init__(self, *shape):
         super().__init__()
@@ -126,7 +146,9 @@ class _Bias(nn.Module):
 
 class ProGANLayer(nn.Module):
     """One layer of the column: pixel norm, the conv (nearest 2x first in an
-    up layer), the WScale, leaky ReLU 0.2 unless it is the output block."""
+    up layer), the WScale, leaky ReLU 0.2 unless it is the output block.
+    ``pixel_up``: an up layer the JAX package runs in pixel layout, where
+    the preview policy takes nearest 2x then the 3x3 conv."""
 
     def __init__(self, cin: int, cout: int, k: int, up: bool, is_output: bool):
         super().__init__()
@@ -136,14 +158,43 @@ class ProGANLayer(nn.Module):
         # WScaleLayer (proggan.py:110-121): gain / sqrt(fan_in) with gain
         # sqrt(2) / kernel size for the conv blocks, 1 for the output block
         self.scale = (1.0 if is_output else math.sqrt(2.0) / k) / math.sqrt(cin)
-        self.up_weights = LayerWeights(self.conv.weight) if up else None
+        # storage copies and the kernels' weights: the raw weight's (the
+        # preview's 3x3 convs), an up layer's composite kernels
+        self.copies = StorageCopies()
+        self.weights = LayerWeights(self.conv.weight, self.copies)
+        self.pixel_up = False
+
+    def forward_preview(self, x: torch.Tensor) -> torch.Tensor:
+        """The layer on the bf16 datapath in x's storage (float32 or bf16),
+        in the JAX package's rounding order: the conv on the raw weight,
+        then ``* bf16(scale) + b``, leaky ReLU."""
+        dt = x.dtype
+        x = _pixel_norm_preview(x)
+        w = self.conv.weight
+        if self.up and self.pixel_up:
+            y = conv3x3(nearest_up2x(x), w, cache=self.weights)
+        elif self.up:
+            kernel, cache = self.weights.nearest_up(dt)
+            y = upsample_conv(x, kernel, pad=1, cache=cache)
+        elif self.k == 3:
+            y = conv3x3(x, w, cache=self.weights)
+        elif self.k == 4:
+            y = precision.einsum("bc,ocuv->bouv", x.flatten(1), w).flip(2, 3)
+        else:
+            y = precision.conv2d(x, self.copies(w, dt))
+        # the scalars in x's dtype, as JAX's weakly typed constants
+        scale, slope = (torch.tensor(v, dtype=dt).item() for v in (self.scale, 0.2))
+        y = y * scale + self.copies(self.wscale.b, dt).reshape(1, -1, 1, 1)
+        return y if self.is_output else F.leaky_relu(y, slope)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if bf16_operands(x):
+            return self.forward_preview(x)
         x = _pixel_norm(x)
         w = self.conv.weight
         if self.up:
-            y = upsample_conv(x, nearest_up_kernel(w * self.scale), pad=1,
-                              cache=self.up_weights)
+            kernel, cache = self.weights.nearest_up(torch.float32, self.scale)
+            y = upsample_conv(x, kernel, pad=1, cache=cache)
         elif self.k == 3:
             y = conv3x3(x, w * self.scale)
         elif self.k == 4:
@@ -185,8 +236,14 @@ class ProGAN(BaseGenerator):
         self.name = f"ProGAN-{self.outclass}"
         self.has_latent_residual = False
         plan = self.cfg.layer_plan()
+        # the JAX package's space-to-depth tail starts at the first up layer
+        # of at most S2D_MAX_CH output channels (ganspace_tpu/models/proggan.py:99-100)
+        tail = False
         for li, (name, cin, cout, k, _, up) in enumerate(plan):
-            self.add_module(name, ProGANLayer(cin, cout, k, up, li == len(plan) - 1))
+            layer = ProGANLayer(cin, cout, k, up, li == len(plan) - 1)
+            tail = tail or (up and k == 3 and cout <= S2D_MAX_CH)
+            layer.pixel_up = up and not tail
+            self.add_module(name, layer)
         self.params_from_jax(params if params is not None
                              else init_params(self.cfg, init_seed))
         self.to(device)
@@ -214,19 +271,22 @@ class ProGAN(BaseGenerator):
         return z
 
     # -- execution ----------------------------------------------------------
-    def synthesize(self, z: torch.Tensor, ts: TapState):
+    def synthesize(self, z: torch.Tensor, ts: TapState, act_dtype: Optional[str] = None):
         """The column on latents [B, sizes[0]]; returns the raw [-1, 1]-scaled
-        image, or None when ``ts`` stopped at a tap."""
+        image in float32, or None when ``ts`` stopped at a tap.
+        ``act_dtype`` (``'bfloat16'`` or None): the activation storage, from
+        the latent on."""
         x = z.reshape(z.shape[0], -1, 1, 1)
+        if act_dtype is not None:
+            x = x.to(getattr(torch, act_dtype))
         for name in self.tap_names():
             x = ts.tap(name, getattr(self, name)(x))
             if ts.stopped:
                 return None
-        return x
+        return x.float()
 
     @torch.no_grad()
     def _run(self, x, stop_at: Optional[str]):
-        self.require_full_precision()
         if isinstance(x, list):
             if len(x) != 1:
                 raise ValueError("ProGAN only supports a single global latent")
@@ -235,7 +295,7 @@ class ProGAN(BaseGenerator):
         retain, edits, store = self._instrumentation()
         ts = TapState(retain, edits, stop_at)
         with ieee_f32():
-            img = self.synthesize(z, ts)
+            img = self.synthesize(z, ts, synth_dtype_name())
         if store is not None:
             store(ts.retained)
         return img
@@ -250,14 +310,15 @@ class ProGAN(BaseGenerator):
     def pure_acts_fn(self, layer_name: str):
         """``fn(z [n, sizes[0]]) -> activations [n, -1]`` at the tap:
         ``synthesize`` with a ``TapState`` that retains only the tap and
-        stops there, the kernels exactly as in ``partial_forward``."""
+        stops there, the kernels exactly as in ``partial_forward``, in the
+        activation storage the policy names when it is built."""
         tap = self.resolve_tap(layer_name)
+        act_dtype = synth_dtype_name()
 
         @torch.no_grad()
         def fn(z):
-            self.require_full_precision()
             ts = TapState((tap,), None, tap)
             with ieee_f32():
-                self.synthesize(z, ts)
+                self.synthesize(z, ts, act_dtype)
             return ts.retained[tap].reshape(z.shape[0], -1)
         return fn

@@ -53,7 +53,7 @@ from ganspace_tpu_torch.models.torch_import import import_stylegan
 from ganspace_tpu_torch.ops import precision
 from ganspace_tpu_torch.ops.linear import equal_linear, pixel_norm
 from ganspace_tpu_torch.ops.modconv import LayerWeights, conv3x3, upsample_conv
-from ganspace_tpu_torch.ops.precision import ieee_f32, synth_dtype_name
+from ganspace_tpu_torch.ops.precision import StorageCopies, ieee_f32, synth_dtype_name
 from ganspace_tpu_torch.sampling import gaussian_latents
 
 # Reference wrapper class->resolution table (wrappers.py:276-291).
@@ -155,7 +155,11 @@ def _blur121(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Depthwise [1, 2, 1] blur with ``k`` from :func:`blur121_kernel`,
     stride 1 (reference model.py:145-169)."""
     c = x.shape[1]
-    return precision.conv2d(x, k.expand(c, 1, 3, 3), padding=1, groups=c)
+    return precision.conv2d(x, _COPIES(k, x.dtype).expand(c, 1, 3, 3), padding=1, groups=c)
+
+
+#: the blur kernel in each storage, made once
+_COPIES = StorageCopies()
 
 
 class EqualizedLinear(nn.Module):
@@ -168,9 +172,11 @@ class EqualizedLinear(nn.Module):
         self.bias = _param(out_dim)
         self.lr_mul = lr_mul
         self.gain = gain
+        self.copies = StorageCopies()
 
     def forward(self, x):
-        return equal_linear(x, self.weight, self.bias, lr_mul=self.lr_mul, gain=self.gain)
+        return equal_linear(x, self.weight, self.bias, lr_mul=self.lr_mul, gain=self.gain,
+                            copies=self.copies)
 
 
 class EqualizedConv2d(nn.Module):
@@ -182,13 +188,14 @@ class EqualizedConv2d(nn.Module):
         self.weight = _param(out_ch, in_ch, k, k)
         self.bias = _param(out_ch)
         self.gain = gain
+        self.copies = StorageCopies()
 
     def scaled_weight(self) -> torch.Tensor:
         out_ch, in_ch, k, _ = self.weight.shape
         return self.weight * (self.gain * ((in_ch * k * k) ** -0.5))
 
     def add_bias(self, y: torch.Tensor) -> torch.Tensor:
-        return y + self.bias.reshape(1, -1, 1, 1).to(y.dtype)
+        return y + self.copies(self.bias, y.dtype).reshape(1, -1, 1, 1)
 
 
 class MappingNetwork(nn.Module):
@@ -231,10 +238,11 @@ class LayerEpilogue(nn.Module):
         super().__init__()
         self.top_epi = _TopEpi(ch)
         self.style_mod = _StyleMod(w_dim, ch)
+        self.copies = StorageCopies()
 
     def forward(self, name: str, x, w_lat, noise, ts: TapState):
-        nw = self.top_epi.noise.weight.reshape(1, -1, 1, 1)
-        x = x + nw.to(x.dtype) * noise.to(x.dtype)
+        nw = self.copies(self.top_epi.noise.weight, x.dtype).reshape(1, -1, 1, 1)
+        x = x + nw * self.copies(noise, x.dtype)
         x = ts.tap(f"{name}.top_epi.noise", x)
         if ts.stopped:
             return x
@@ -263,7 +271,7 @@ class InputBlock(nn.Module):
         self.epi1 = LayerEpilogue(ch, w_dim)
         self.conv = EqualizedConv2d(ch, ch, 3)
         self.epi2 = LayerEpilogue(ch, w_dim)
-        self.weight_cache = LayerWeights(self.conv.weight)
+        self.weight_cache = LayerWeights(self.conv.weight, self.conv.copies)
 
     def forward(self, base: str, batch: int, lat0, lat1, noise, ts: TapState):
         x = self.const.expand(batch, -1, -1, -1) + self.bias.reshape(1, -1, 1, 1)
@@ -287,8 +295,8 @@ class UpBlock(nn.Module):
         self.conv1 = EqualizedConv2d(ch, ch, 3)
         self.epi2 = LayerEpilogue(ch, w_dim)
         self.fused = res >= FUSED_MIN_RES
-        self.weight_cache = LayerWeights(self.conv0_up.weight)
-        self.conv1_cache = LayerWeights(self.conv1.weight)
+        self.weight_cache = LayerWeights(self.conv0_up.weight, self.conv0_up.copies)
+        self.conv1_cache = LayerWeights(self.conv1.weight, self.conv1.copies)
         #: the block takes the preview storage (bf16) under that policy
         self.preview_storage = self.fused and ch <= PREVIEW_MAX_CH
 
@@ -341,8 +349,6 @@ class StyleGAN(BaseGenerator):
     """Drop-in equivalent of the reference ``StyleGAN`` wrapper
     (``models/wrappers.py:270-436``) on one torch device, the card unless
     ``device`` says otherwise."""
-
-    preview_policy = True
 
     def __init__(self, class_name: Optional[str] = None, truncation: float = 1.0,
                  use_w: bool = False, cfg: Optional[SG1Config] = None,

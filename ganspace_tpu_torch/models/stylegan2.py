@@ -41,7 +41,7 @@ from ganspace_tpu_torch.models.base import BaseGenerator, TapState
 from ganspace_tpu_torch.models.torch_import import import_stylegan2
 from ganspace_tpu_torch.ops.linear import equal_linear, fused_leaky_relu, pixel_norm
 from ganspace_tpu_torch.ops.modconv import LayerWeights, modulated_conv2d
-from ganspace_tpu_torch.ops.precision import ieee_f32, synth_dtype_name
+from ganspace_tpu_torch.ops.precision import StorageCopies, ieee_f32, synth_dtype_name
 from ganspace_tpu_torch.ops.upfirdn import make_fir_kernel, upsample2x
 from ganspace_tpu_torch.sampling import gaussian_latents
 
@@ -156,12 +156,13 @@ class EqualLinear(nn.Module):
         self.bias = _param(out_dim)
         self.lr_mul = lr_mul
         self.activate = activate
+        self.copies = StorageCopies()
 
     def forward(self, x):
         if self.activate:
-            x = equal_linear(x, self.weight, None, lr_mul=self.lr_mul)
+            x = equal_linear(x, self.weight, None, lr_mul=self.lr_mul, copies=self.copies)
             return fused_leaky_relu(x, self.bias * self.lr_mul, channel_dim=-1)
-        return equal_linear(x, self.weight, self.bias, lr_mul=self.lr_mul)
+        return equal_linear(x, self.weight, self.bias, lr_mul=self.lr_mul, copies=self.copies)
 
 
 class PixelNorm(nn.Module):
@@ -195,7 +196,8 @@ class StyledConv(nn.Module):
         self.noise = NoiseInjection()
         self.activate = FusedLeakyReLU(out_ch)
         self.upsample = upsample
-        self.weight_cache = LayerWeights(self.conv.weight)
+        self.copies = StorageCopies()
+        self.weight_cache = LayerWeights(self.conv.weight, self.copies)
 
     def forward(self, name: str, x, w_lat, noise, blur_k, ts: TapState):
         s = self.conv.modulation(w_lat)
@@ -205,8 +207,9 @@ class StyledConv(nn.Module):
         x = ts.tap(f"{name}.conv", x)
         if ts.stopped:
             return x
-        x = x + self.noise.weight[0].to(x.dtype) * noise.to(x.dtype)
-        x = fused_leaky_relu(x, self.activate.bias, channel_dim=1)
+        dt = x.dtype
+        x = x + self.copies(self.noise.weight, dt)[0] * self.copies(noise, dt)
+        x = fused_leaky_relu(x, self.copies(self.activate.bias, dt), channel_dim=1)
         return ts.tap(name, x)
 
 
@@ -215,11 +218,14 @@ class ToRGB(nn.Module):
         super().__init__()
         self.conv = ModulatedConv2d(in_ch, 3, 1, w_dim)
         self.bias = _param(1, 3, 1, 1)
+        self.copies = StorageCopies()
+        self.weight_cache = LayerWeights(self.conv.weight, self.copies)
 
     def forward(self, name: str, x, w_lat, skip, blur_k, ts: TapState):
         s = self.conv.modulation(w_lat)
-        out = modulated_conv2d(x, self.conv.weight, s, demodulate=False)
-        out = out + self.bias.to(out.dtype)
+        out = modulated_conv2d(x, self.conv.weight, s, demodulate=False,
+                               weight_cache=self.weight_cache)
+        out = out + self.copies(self.bias, out.dtype)
         if skip is not None:
             out = out + upsample2x(skip, blur_k)
         return ts.tap(name, out)
@@ -239,8 +245,6 @@ class StyleGAN2(BaseGenerator):
     """Drop-in equivalent of the reference ``StyleGAN2`` wrapper
     (``models/wrappers.py:97-267``) on one torch device, the card unless
     ``device`` says otherwise."""
-
-    preview_policy = True
 
     def __init__(self, class_name: Optional[str] = None, truncation: float = 1.0,
                  use_w: bool = False, cfg: Optional[SG2Config] = None,
@@ -295,6 +299,7 @@ class StyleGAN2(BaseGenerator):
                              persistent=False)
         self.to(device)
         self.set_noise_seed(0)
+        self.copies = StorageCopies()
 
     def params_from_jax(self, flat: Dict[str, np.ndarray]) -> None:
         """Load the JAX package's flat parameter dict (the rosinality key
@@ -378,13 +383,12 @@ class StyleGAN2(BaseGenerator):
             latent = torch.stack(ws, dim=1)
         if ts.stop_at == "style":
             return None
-        dt = getattr(torch, act_dtype) if act_dtype is not None else None
-        if dt is not None:
-            latent = latent.to(dt)
+        dt = getattr(torch, act_dtype) if act_dtype is not None else torch.float32
+        latent = latent.to(dt)
 
         blur_k = self.blur_kernel
         batch = latent.shape[0]
-        const = self.input.input if dt is None else self.input.input.to(dt)
+        const = self.copies(self.input.input, dt)
         out = ts.tap("input", const.expand(batch, -1, -1, -1))
         if ts.stopped:
             return None

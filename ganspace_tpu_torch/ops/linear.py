@@ -15,7 +15,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ganspace_tpu_torch.ops.precision import get_precision, round_bf16
+from ganspace_tpu_torch.ops.precision import (
+    StorageCopies, bf16_values, get_precision, round_bf16)
 
 
 def pixel_norm(x: torch.Tensor) -> torch.Tensor:
@@ -25,14 +26,21 @@ def pixel_norm(x: torch.Tensor) -> torch.Tensor:
 
 def equal_linear(x: torch.Tensor, weight: torch.Tensor,
                  bias: torch.Tensor | None = None, *, lr_mul: float = 1.0,
-                 gain: float = 1.0) -> torch.Tensor:
+                 gain: float = 1.0, copies: StorageCopies | None = None) -> torch.Tensor:
     """y = x @ (weight * gain * lr_mul / sqrt(fan_in)).T + bias * lr_mul: the
     JAX package's ``equal_linear``; ``gain=1`` is StyleGAN2's ``EqualLinear``
-    and StyleGAN's StyleMod, ``sqrt(2)`` StyleGAN's mapping layers."""
-    w = weight * (gain * weight.shape[1] ** -0.5 * lr_mul)
+    and StyleGAN's StyleMod, ``sqrt(2)`` StyleGAN's mapping layers.
+    ``copies``, the layer's :class:`StorageCopies`, keeps the scaled weight
+    (rounded to bf16 at ``default``) between calls."""
+    scale = gain * weight.shape[1] ** -0.5 * lr_mul
+    prec = get_precision()
+
+    def scaled(t):
+        return round_bf16(t * scale) if prec == "default" else t * scale
+    w = scaled(weight) if copies is None else copies(weight, weight.dtype, prec, scaled)
     dt = torch.promote_types(x.dtype, w.dtype)
-    if get_precision() == "default":
-        y = F.linear(round_bf16(x), round_bf16(w)).to(dt)
+    if prec == "default":
+        y = F.linear(bf16_values(x), w).to(dt)
     else:
         y = F.linear(x.to(dt), w.to(dt))
     if bias is not None:

@@ -34,10 +34,13 @@ rule (:func:`~ganspace_tpu_torch.ops.precision.bf16_operands`): 3xTF32 on
 float32 operands, or, under the preview policy or on a bf16 ``x``, the
 TPU kernel's bf16 case: ``x * s`` and the weight rounded to bf16, float32
 accumulation, ``d`` in float32, and the output in ``x``'s dtype (float32
-or bf16).  The plain version of the bf16 datapath is that function
-exactly: the operands rounded, then ``F.conv2d`` / ``conv_transpose2d``
-in float32 on the rounded values, then the output rounded to ``x``'s
-dtype.
+or bf16).  Kernel B's bf16 datapath has a body of its own
+(``csrc/implicit_conv_bf16.cuh``: bf16 MMAs on tiles staged by
+``cp.async``), its weight a bf16 tensor in the layout it reads
+(:func:`bf16_taps`).  The plain version of the bf16 datapath is that
+function exactly: the operands rounded, then ``F.conv2d`` /
+``conv_transpose2d`` in float32 on the rounded values, then the output
+rounded to ``x``'s dtype.
 
 The blur after an upsampling conv and the 1x1 ``to_rgb`` conv stay stock
 PyTorch ops, as the JAX package leaves them to XLA; they run under the
@@ -55,7 +58,7 @@ import torch.nn.functional as F
 
 from ganspace_tpu_torch.ops import precision
 from ganspace_tpu_torch.ops._build import check, load_kernels, stream_handle
-from ganspace_tpu_torch.ops.precision import bf16_operands, round_bf16
+from ganspace_tpu_torch.ops.precision import StorageCopies, bf16_operands, round_bf16
 from ganspace_tpu_torch.ops.tf32x3 import split_tf32, sw128_image
 from ganspace_tpu_torch.ops.upfirdn import upfirdn2d
 
@@ -124,19 +127,30 @@ def _count(wrapper, x) -> None:
         wrapper.launches_bf16 += 1
 
 
+def bf16_taps(w_scaled: torch.Tensor) -> torch.Tensor:
+    """Kernel B's weight operand on the bf16 datapath: ``w_scaled`` [Co, C,
+    3, 3] rounded to bf16 (to nearest even), as a bf16 tensor [Co, 3, 3, Cp]
+    with the channels innermost, Cp = C rounded up to 16, zeros past C."""
+    c = w_scaled.shape[1]
+    taps = w_scaled.to(torch.bfloat16).permute(0, 2, 3, 1)
+    return F.pad(taps, (0, -c % 16)).contiguous()
+
+
 def _launch_3x3(name: str, x, w_scaled, s, d, cache) -> torch.Tensor:
     b, c, h, w = x.shape
     co = w_scaled.shape[0]
     mode = datapath_mode(x)
     s = _scale(s)
     _cuda_operands(name, x, w_scaled, s, d, b * co * h * w)
-    x, w_scaled = x.contiguous(), w_scaled.contiguous()
-    if mode != MODE_F32:
-        w_scaled = _rounded(w_scaled, cache)
+    x = x.contiguous()
+    if mode == MODE_F32:
+        wt = w_scaled.contiguous()
+    else:
+        wt = bf16_taps(w_scaled) if cache is None else cache.taps_bf16(w_scaled)
     d = None if d is None else d.contiguous()
     y = torch.empty((b, co, h, w), dtype=x.dtype, device=x.device)
     check(load_kernels().ganspace_modconv3x3(
-        x.data_ptr(), w_scaled.data_ptr(), _ptr(s), _ptr(d), y.data_ptr(),
+        x.data_ptr(), wt.data_ptr(), _ptr(s), _ptr(d), y.data_ptr(),
         b, c, h, w, co, mode, stream_handle(x)), name)
     return y
 
@@ -289,34 +303,79 @@ class LayerWeights:
     """One layer's weight as the kernels read it, made when the weight first
     reaches a kernel and again only after it changes (a load, an in-place
     edit or a move changes its storage or its version): the scaled weight
-    rounded to bf16 once for the bf16 datapath (kernel B's operand and the
-    demodulation's), and the stride-2 kernel's :func:`upsample_weight_image`
-    for each datapath (the bf16 one's lo half is zero)."""
+    rounded to bf16 once for the bf16 datapath (the demodulation's operand,
+    and kernel B's in its :func:`bf16_taps` layout), and the stride-2
+    kernel's :func:`upsample_weight_image` for each datapath (the bf16 one's
+    lo half is zero).  They are kept in ``copies``, the layer's
+    :class:`~ganspace_tpu_torch.ops.precision.StorageCopies`, by what they
+    are, the shape of the ``w_scaled`` they came from and ``tag``, which
+    names how that ``w_scaled`` derives from ``source`` where two
+    derivations have one shape (:meth:`derived`, :meth:`nearest_up`)."""
 
-    def __init__(self, source: torch.Tensor):
+    def __init__(self, source: torch.Tensor, copies: StorageCopies | None = None,
+                 tag=None):
         self.source = source
-        self._made = {}
+        self.copies = StorageCopies() if copies is None else copies
+        self.tag = tag
+
+    def derived(self, tag) -> "LayerWeights":
+        """The kernels' weights of another derivation of ``source``, named
+        by ``tag``, in the same store."""
+        return LayerWeights(self.source, self.copies, (self.tag, tag))
 
     def _get(self, what, w_scaled: torch.Tensor, make) -> torch.Tensor:
-        key = (self.source.data_ptr(), self.source._version, w_scaled.device,
-               tuple(w_scaled.shape))
-        cached = self._made.get(what)
-        if cached is None or cached[0] != key:
-            self._made[what] = cached = (key, make(w_scaled))
-        return cached[1]
+        return self.copies(self.source, None, (self.tag, what, tuple(w_scaled.shape)),
+                           lambda _: make(w_scaled))
 
     def rounded(self, w_scaled: torch.Tensor) -> torch.Tensor:
         """``w_scaled``, the scaled form of ``source``, rounded to bf16."""
         return self._get("rounded", w_scaled, round_bf16)
+
+    def in_dtype(self, w_scaled: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """``w_scaled``, the scaled form of ``source``, in the activation
+        storage ``dtype`` (a stock conv's weight operand)."""
+        if dtype == w_scaled.dtype:
+            return w_scaled
+        return self._get(("dtype", dtype), w_scaled, lambda w: w.to(dtype))
+
+    def taps_bf16(self, w_scaled: torch.Tensor) -> torch.Tensor:
+        """:func:`bf16_taps` of ``w_scaled``, the scaled form of ``source``."""
+        return self._get("taps_bf16", w_scaled, bf16_taps)
 
     def get(self, w_scaled: torch.Tensor, bf16: bool = False) -> torch.Tensor:
         """The stride-2 weight image of ``w_scaled``, the scaled form of ``source``."""
         return self._get(("image", bf16), w_scaled, lambda w: upsample_weight_image(
             self.rounded(w) if bf16 else w))
 
+    def nearest_up(self, dtype: torch.dtype, scale: float = 1.0):
+        """(:func:`nearest_up_kernel` of ``source * scale`` for the storage
+        ``dtype``, the :class:`LayerWeights` of that kernel): the up-conv's
+        4x4 composite and its stride-2 weight images, each made once."""
+        view = self.derived(("nearest_up", dtype, scale))
+        kernel = view._get("kernel", self.source,
+                           lambda w: nearest_up_kernel(w * scale, dtype))
+        return kernel, view
+
 
 def _rounded(w_scaled: torch.Tensor, cache: LayerWeights | None) -> torch.Tensor:
     return round_bf16(w_scaled) if cache is None else cache.rounded(w_scaled)
+
+
+#: The JAX package's space-to-depth tail, on by default there
+#: (``ganspace_tpu/ops/s2d.py:55-62``): BigGAN's and ProGAN's up-convs from
+#: the first one whose width is at most this many channels (BigGAN: the
+#: bottleneck of an up-block after the attention) run in it on the composite
+#: kernel, the earlier ones in pixel layout as nearest 2x then the 3x3 conv.
+#: Under the preview policy the two round differently (the composite formed
+#: in bf16, or the 3x3 weight alone), so the port keeps the split: the
+#: models' ``pixel_up`` layers.
+S2D_MAX_CH = 64
+
+
+def nearest_up2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x upsampling of an NCHW map, in its dtype."""
+    n, c, h, w = x.shape
+    return x[:, :, :, None, :, None].expand(n, c, h, 2, w, 2).reshape(n, c, 2 * h, 2 * w)
 
 
 # Per-axis tap sums of a nearest 2x upsample followed by a 3-tap correlation
@@ -325,11 +384,17 @@ def _rounded(w_scaled: torch.Tensor, cache: LayerWeights | None) -> torch.Tensor
 _NEAREST_TAPS = ((1, 0, 0), (1, 1, 0), (0, 1, 1), (0, 0, 1))
 
 
-def nearest_up_kernel(w: torch.Tensor) -> torch.Tensor:
+def nearest_up_kernel(w: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The 4x4 kernel of the stride-2 transposed conv (padding 1) that equals
     nearest 2x upsampling followed by the 3x3 correlation ``w`` (padding 1):
     ``upsample_conv(x, nearest_up_kernel(w), pad=1) == conv2d(up2(x), w, padding=1)``.
-    BigGAN's and ProGAN's up-convs run so, on 4/9 of the products."""
+    BigGAN's and ProGAN's up-convs run so, on 4/9 of the products.  For a
+    bf16 activation storage ``dtype`` it is formed as the JAX package forms
+    it there, from the weight cast to x's dtype (``ganspace_tpu/ops/s2d.py:
+    370-380``): the composite of the rounded weight, rounded, returned as
+    float32 values (the kernels' weight operand)."""
+    if dtype != torch.float32:
+        return nearest_up_kernel(w.to(dtype).float()).to(dtype).float()
     a = torch.tensor(_NEAREST_TAPS, dtype=w.dtype, device=w.device)
     return torch.einsum("eu,ocuv,fv->ocef", a, w, a).flip(2, 3).contiguous()
 
@@ -393,20 +458,25 @@ def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor,
     """
     out_ch, in_ch, kh, kw = weight.shape
     w = weight * (1.0 / math.sqrt(in_ch * kh * kw))
-    # the style scale in x's storage, as JAX casts it; the demodulation in
-    # float32 from the operands the conv multiplies
+    # the style scale in x's storage, as JAX casts it, read by the 3x3 and
+    # stride-2 kernels as float32 (exact); the demodulation in float32 from
+    # the operands the conv multiplies
     s = style_scales.to(x.dtype)
+    if upsample or (kh == 3 and kw == 3) or demodulate:
+        sf = s.float()
     d = None
     if demodulate:
-        d = demodulation(_rounded(w, weight_cache) if bf16_operands(x) else w, s.float())
+        d = demodulation(_rounded(w, weight_cache) if bf16_operands(x) else w, sf)
 
     if upsample:
-        y = upsample_conv(x, w, s, d, cache=weight_cache)
+        y = upsample_conv(x, w, sf, d, cache=weight_cache)
         # Blur of the transposed-conv path: taps scaled by factor^2 = 4,
         # p = (len - factor) - (k - 1).
         p = (blur_kernel.shape[0] - 2) - (kh - 1)
-        return upfirdn2d(y, blur_kernel * 4.0, pad=((p + 1) // 2 + 1, p // 2 + 1))
+        return upfirdn2d(y, blur_kernel, pad=((p + 1) // 2 + 1, p // 2 + 1), gain=4.0)
     if kh == 3 and kw == 3:
-        return modconv3x3(x, w, s, d, cache=weight_cache)
+        return modconv3x3(x, w, sf, d, cache=weight_cache)
+    if weight_cache is not None:
+        w = weight_cache.in_dtype(w, x.dtype)
     y = precision.conv2d(x * s[:, :, None, None], w, padding=kh // 2)
     return y if d is None else y * d.to(y.dtype)[:, :, None, None]

@@ -14,13 +14,15 @@ switches under the same names:
   as the JAX package pins them to ``HIGHEST`` (``estimators/utils.py``).
 * **activation storage** (:func:`get_synth_dtype`, :func:`set_synth_dtype`,
   :func:`synth_dtype`, :func:`synth_dtype_name`): ``None`` (float32) or
-  ``bfloat16``, read by the StyleGAN generators on each call.
+  ``bfloat16``, read by the generators on each call (DCGAN keeps float32
+  storage under it, as the JAX package's does).
 
 One rule covers every combination: a synthesis conv on ``x`` rounds its
 operands to bf16 when ``x`` is stored in bf16 or the precision is
 ``default`` (:func:`bf16_operands`), accumulates in float32 and writes its
-output in ``x``'s dtype.  The storage follows the tensor, as in JAX: an
-op reads it from ``x`` on every call, never from the global.
+output in ``x``'s dtype (:func:`conv2d`, :func:`einsum`, :func:`bmm`).
+The storage follows the tensor, as in JAX: an op reads it from ``x`` on
+every call, never from the global.
 
 PyTorch's own TF32 flags are process-global; :func:`ieee_f32` keeps TF32
 off for matmuls and cuDNN convolutions for a region and restores the
@@ -32,6 +34,7 @@ forward, decomposition, visualize) run inside it.
 from __future__ import annotations
 
 import contextlib
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -125,11 +128,6 @@ def synth_dtype(dt):
         set_synth_dtype(old)
 
 
-def full_precision() -> bool:
-    """True under the float32 policy: highest precision, float32 storage."""
-    return _PRECISION == "highest" and _SYNTH_DTYPE is None
-
-
 # -- the bf16 datapath -------------------------------------------------------
 
 def bf16_operands(x: torch.Tensor) -> bool:
@@ -141,6 +139,59 @@ def bf16_operands(x: torch.Tensor) -> bool:
 def round_bf16(t: torch.Tensor) -> torch.Tensor:
     """``t`` rounded to bf16 (to nearest even), as float32 values."""
     return t.to(torch.bfloat16).to(torch.float32)
+
+
+def bf16_values(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as bf16-rounded float32 values (a bf16 ``t`` widened exactly)."""
+    return t.float() if t.dtype == torch.bfloat16 else round_bf16(t)
+
+
+def einsum(equation: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` of a synthesis contraction of activations ``x`` with
+    a weight or a second activation ``w`` under the policy: on the bf16
+    datapath (:func:`bf16_operands`) both operands rounded to bf16, float32
+    sums, the output in ``x``'s dtype."""
+    if not bf16_operands(x):
+        return torch.einsum(equation, x, w)
+    return torch.einsum(equation, bf16_values(x), bf16_values(w)).to(x.dtype)
+
+
+def bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm`` of two synthesis activations under the policy: on the
+    bf16 datapath (:func:`bf16_operands` of ``a``) both rounded to bf16,
+    float32 sums, the output in ``a``'s dtype."""
+    if not bf16_operands(a):
+        return torch.bmm(a, b)
+    return torch.bmm(bf16_values(a), bf16_values(b)).to(a.dtype)
+
+
+class StorageCopies:
+    """Tensors derived from parameters and buffers, each made once and kept
+    until its source changes (another tensor, an in-place edit or a move),
+    so that synthesis casts no weight, bias, noise or constant per call.
+    ``copies(t, dtype)`` is ``t`` in ``dtype`` (``t`` itself when it is in
+    it already); ``copies(t, dtype, tag, make)`` is ``make(t)``, cast to
+    ``dtype`` unless that is None, ``tag`` naming the derivation.  The
+    kernels' weights of a layer (``ops/modconv.LayerWeights``) are kept in
+    one too.  Pass the tensor itself (a parameter or a buffer), not a view
+    of it."""
+
+    def __init__(self):
+        self._made = {}
+
+    def __call__(self, t: torch.Tensor, dtype: torch.dtype | None, tag=None,
+                 make=None) -> torch.Tensor:
+        if make is None and (dtype is None or t.dtype == dtype):
+            return t
+        key = (id(t), dtype, tag)
+        valid = (t._version, t.data_ptr())
+        hit = self._made.get(key)
+        if hit is None or hit[0]() is not t or hit[1] != valid:
+            self._made = {k: v for k, v in self._made.items() if v[0]() is not None}
+            made = t if make is None else make(t)
+            made = made if dtype is None else made.to(dtype)
+            hit = self._made[key] = (weakref.ref(t), valid, made)
+        return hit[2]
 
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor, **kwargs) -> torch.Tensor:

@@ -24,9 +24,14 @@ def make_fir_kernel(taps) -> torch.Tensor:
     return torch.from_numpy(k / k.sum())
 
 
+#: the flipped, scaled kernels in each storage, made once per kernel tensor
+_KERNELS = precision.StorageCopies()
+
+
 def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up: int = 1, down: int = 1,
-              pad: tuple[int, int] = (0, 0)) -> torch.Tensor:
-    """Apply upfirdn to an NCHW batch with a 2-D FIR ``kernel``."""
+              pad: tuple[int, int] = (0, 0), gain: float = 1.0) -> torch.Tensor:
+    """Apply upfirdn to an NCHW batch with a 2-D FIR ``kernel`` times
+    ``gain``."""
     n, c, h, w = x.shape
     if up > 1:
         x = x.reshape(n, c, h, 1, w, 1)
@@ -35,11 +40,12 @@ def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up: int = 1, down: int = 1,
     x = F.pad(x, [pad[0], pad[1], pad[0], pad[1]])
     kh, kw = kernel.shape
     # true convolution: flip the kernel (conv2d correlates)
-    k = torch.flip(kernel, (0, 1)).to(x.dtype).reshape(1, 1, kh, kw)
-    return precision.conv2d(x, k.expand(c, 1, kh, kw), stride=down, groups=c)
+    k = _KERNELS(kernel, x.dtype, gain, lambda t: torch.flip(t * gain, (0, 1)))
+    return precision.conv2d(x, k.reshape(1, 1, kh, kw).expand(c, 1, kh, kw), stride=down,
+                            groups=c)
 
 
 def upsample2x(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """StyleGAN2 ``Upsample``: zero-stuff x2 then low-pass with gain 4."""
     p = kernel.shape[0] - 2
-    return upfirdn2d(x, kernel * 4.0, up=2, pad=((p + 1) // 2 + 1, p // 2))
+    return upfirdn2d(x, kernel, up=2, pad=((p + 1) // 2 + 1, p // 2), gain=4.0)

@@ -381,12 +381,13 @@ def test_up_block_keeps_its_composite_kernel():
     weight changes."""
     _, port = _pair("tiny")
     block = port.generator.layers[1]
-    assert block.up and block.up_weights is not None
-    first = block.upconv_kernel()
-    assert block.upconv_kernel() is first
+    assert block.up
+    first, cache = block.w1.nearest_up(torch.float32)
+    assert torch.equal(first, torch_bg.nearest_up_kernel(block.conv_1.weight))
+    assert block.w1.nearest_up(torch.float32)[0] is first
     with torch.no_grad():
         block.conv_1.weight.mul_(2.0)
-    again = block.upconv_kernel()
+    again, _ = block.w1.nearest_up(torch.float32)
     assert again is not first and torch.allclose(again, 2.0 * first)
 
 

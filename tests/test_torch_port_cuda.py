@@ -139,7 +139,7 @@ def _bf16_close(got, ref, storage):
 
 
 @pytest.mark.parametrize("storage", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,c,co,h,w", RENDER_SHAPES + RAGGED_SHAPES[:2])
+@pytest.mark.parametrize("b,c,co,h,w", RENDER_SHAPES + RAGGED_SHAPES)
 def test_modconv3x3_and_conv3x3_bf16_datapath_on_card(gen, storage, b, c, co, h, w):
     x = torch.randn(b, c, h, w, generator=gen, device="cuda").to(storage)
     wt = torch.randn(co, c, 3, 3, generator=gen, device="cuda") / (9 * c) ** 0.5

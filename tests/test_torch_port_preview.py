@@ -22,8 +22,10 @@ matmul precision (``highest`` / ``default``) and the activation storage
   its ``_meta`` field for field against JAX's, the bf16 first pass driven
   by the registry of a prior run and its opt-outs, the ``_bf16`` name of a
   run cut before its float32 refine pass, and ``refine_stream``
-  (``tests/test_bf16_pass1.py``);
-* BigGAN, ProGAN and DCGAN refuse a preview policy they do not implement.
+  (``tests/test_bf16_pass1.py``).
+
+BigGAN, ProGAN and DCGAN under the same policies:
+``tests/test_torch_port_preview_families.py``.
 """
 
 import contextlib
@@ -52,13 +54,9 @@ from ganspace_tpu_torch.decomposition import (
     BF16_EPS_REL, bf16_component_bounds, component_cache_name, get_or_compute)
 from ganspace_tpu_torch.estimators import ipca
 from ganspace_tpu_torch.estimators.ipca import IPCAEstimator
-from ganspace_tpu_torch.models import get_model
 from ganspace_tpu_torch.models import stylegan as torch_sg1
 from ganspace_tpu_torch.models import stylegan2 as torch_sg2
 from ganspace_tpu_torch.models.base import InstrumentedModel
-from ganspace_tpu_torch.models.biggan import BigGANConfig
-from ganspace_tpu_torch.models.dcgan import DCGANConfig
-from ganspace_tpu_torch.models.proggan import ProGANConfig
 from ganspace_tpu_torch.ops import modconv, precision
 from ganspace_tpu_torch.ops.upfirdn import make_fir_kernel
 
@@ -507,27 +505,3 @@ def test_refine_stream_forces_refine_even_when_policy_would_skip(monkeypatch):
     assert est.n_samples_seen_ == 8 * 128          # the refine pass restarts the count
     plain = IPCAEstimator(6)
     assert plain.fit_stream(f32_fn, 8) and plain.refine_skipped is True
-
-
-# -- generators without the preview storage ------------------------------------
-
-@pytest.mark.parametrize("name,output_class,cfg", [
-    ("BigGAN-128", "husky", BigGANConfig(
-        output_dim=32, z_dim=16, channel_width=8, attention_layer_position=2,
-        layers=((False, 16, 16), (True, 16, 8), (True, 8, 4), (True, 4, 2)))),
-    ("ProGAN", "bedroom", ProGANConfig((64, 32, 32, 16))),
-    ("DCGAN", None, DCGANConfig(resolution=16, base_channels=64)),
-])
-def test_unported_preview_policy_raises(name, output_class, cfg):
-    model = get_model(name, output_class, "cpu", cfg=cfg)
-    z = model.sample_latent(1, seed=0)
-    tap = model.tap_names()[1]
-    assert model.forward(z).dtype == torch.float32
-    for prec, storage in POLICIES[1:]:
-        with precision.precision(prec), precision.synth_dtype(storage):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 8"):
-                model.forward(z)
-            fn = model.pure_acts_fn(tap)
-            if fn is not None:
-                with pytest.raises(NotImplementedError, match="--dtype float32"):
-                    fn(z)
