@@ -22,7 +22,8 @@ Phases, each of which raises on failure:
    stride-2 mode at StyleGAN2's tap and render upsampling shapes and
    StyleGAN's fused ``conv0_up`` shapes at the render's and the video's
    batches, beside cuDNN's transposed convolution (default and
-   deterministic), after its wgmma step alone on one 64 x N x 32 tile;
+   deterministic), after its wgmma steps alone on one tile (3xTF32, 64 x N
+   x 32, and the bf16 datapath's, 64 x N x 64);
    BigGAN-512's stride-1 3x3 shapes and ``conv_to_rgb`` (3 and 128 output
    channels) in the plain mode and its seven nearest-up convs as the
    stride-2 mode with composite 4x4 kernels, at the render's batch and the
@@ -142,7 +143,8 @@ and 11:
   the ``convs.2`` tap shapes, StyleGAN's ten plain and four fused shapes,
   BigGAN-512's and ProGAN-256's plain shapes of a preview render (their
   up-convs before the JAX package's space-to-depth tail among them, as
-  nearest 2x then the plain mode), beside cuDNN on bf16 tensors: a float32
+  nearest 2x then the plain mode) and their composite nearest-up convs in
+  the tail, DCGAN-64's transposed convs, beside cuDNN on bf16 tensors: a float32
   output to the float32 bar, a bf16 one within one bf16 rounding flip
   elementwise, repeats bit for bit;
 * the viewer, ``python -m ganspace_tpu_torch interactive --model StyleGAN2
@@ -609,15 +611,21 @@ def preview_groups() -> dict:
     render's nine at B = 5, the conv-tap path's two at B = 128); the plain
     mode at StyleGAN's ten shapes, BigGAN-512's and ProGAN-256's preview
     render shapes at B = 5 (their pixel-layout up-convs among them); the
-    stride-2 mode at StyleGAN2's eight render shapes and StyleGAN's four
-    fused ones."""
+    stride-2 mode at StyleGAN2's eight render shapes, StyleGAN's four fused
+    ones, the conv-tap path's two at B = 128 (the --dtype bfloat16 fit and
+    the bf16 first pass), and the composite nearest-up convs of BigGAN-512's
+    and ProGAN-256's preview renders (their space-to-depth tail) and DCGAN's
+    transposed convs at B = 5, with no s or d."""
     return {
         "modconv3x3": {"sg2_render": CONV_CASES, "sg2_tap": CONV_TAP_CASES},
         "conv3x3": {"sg1_render": PLAIN_CASES,
                     "bg_render": list(dict.fromkeys(bg_shapes(RENDER_BATCH, preview=True)[0])),
                     "pg_render": list(dict.fromkeys(pg_shapes(RENDER_BATCH, preview=True)[0]))},
         "upsample_conv": {"sg2_render": UP_CASES["sg2_render"],
-                          "sg1_fused": UP_CASES["sg1_fused"]},
+                          "sg1_fused": UP_CASES["sg1_fused"], "sg2_tap": UP_CASES["sg2_tap"],
+                          "bg_render": bg_shapes(RENDER_BATCH, preview=True)[1],
+                          "pg_render": pg_shapes(RENDER_BATCH, preview=True)[1],
+                          "dc_render": dc_shapes(RENDER_BATCH)},
     }
 
 
@@ -696,9 +704,22 @@ def check_tile(gen: torch.Generator) -> None:
 
 
 def check_wgmma_tile(gen: torch.Generator) -> None:
-    """The stride-2 kernel's 3xTF32 wgmma step alone: A's register
-    fragments, B's swizzled image and descriptor, the accumulator layout."""
-    from ganspace_tpu_torch.ops.tf32x3 import wgmma_tile_3xtf32
+    """The stride-2 kernel's wgmma steps alone: the 3xTF32 one (A's register
+    fragments, B's swizzled image and descriptor, the accumulator layout)
+    and the bf16 one of its bf16 datapath (A rounded into its swizzled
+    shared tile as the body's pass writes it, B's bf16 image, both read
+    through descriptors), against float64 products of the same operands."""
+    from ganspace_tpu_torch.ops.precision import round_bf16
+    from ganspace_tpu_torch.ops.tf32x3 import wgmma_tile_3xtf32, wgmma_tile_bf16
+    for n in (144, 256):
+        a = torch.randn(64, 64, generator=gen, device="cuda")
+        b = torch.randn(n, 64, generator=gen, device="cuda")
+        got = wgmma_tile_bf16(a, b).double()
+        ref = round_bf16(a).double() @ round_bf16(b).double().T
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        log(f"wgmma bf16 tile 64x{n}x64 against float64: rel {rel:.3e} (bar {TILE_REL:.0e})")
+        if not rel < TILE_REL:
+            raise AssertionError(f"wgmma bf16 tile n={n}: rel err {rel} >= {TILE_REL}")
     for n in (144, 128):
         a = torch.randn(64, 32, generator=gen, device="cuda")
         b = torch.randn(n, 32, generator=gen, device="cuda")
@@ -1140,9 +1161,8 @@ def preview_bound(flop: float, act_elems: int, w_bytes: int, sd_elems: int,
                   mode: int) -> dict:
     """The least time of a bf16-datapath call: its FLOP over the dense bf16
     tensor-core peak, or its bytes over 3.35 TB/s, the activations (x and
-    y) in the storage of ``mode``, the weight's ``w_bytes`` (kernel B reads
-    it as bf16, the stride-2 kernel as a float32 image), s and d in
-    float32."""
+    y) in the storage of ``mode``, the weight's ``w_bytes`` (both kernels
+    read it as bf16), s and d in float32."""
     nbytes = (2 if mode == MODE_BF16 else 4) * act_elems + w_bytes + 4 * sd_elems
     t_flop, t_bytes = flop / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
     return {"bound_ms": max(t_flop, t_bytes),
@@ -1150,30 +1170,41 @@ def preview_bound(flop: float, act_elems: int, w_bytes: int, sd_elems: int,
             "bound_ffma_ms": max(flop / PEAK_FFMA * 1e3, t_bytes)}
 
 
-def preview_case(gen: torch.Generator, kernel: str, case, mode: int) -> tuple[dict, str]:
+def preview_case(gen: torch.Generator, kernel: str, case, mode: int,
+                 nearest: bool = False) -> tuple[dict, str]:
     """One shape of a kernel's bf16 datapath (``mode``): against its plain
     version by the datapath's bar, three launches bit-identical, then the
     kernel, the plain version and cuDNN on bf16 tensors timed beside the
-    bound."""
+    bound.  ``nearest``: a stride-2 case on the composite kernel of a 3x3
+    weight (BigGAN's and ProGAN's nearest-up convs)."""
     import torch.nn.functional as F
     from ganspace_tpu_torch.ops.modconv import (
         LayerWeights, conv3x3, conv3x3_plain, modconv3x3, modconv3x3_plain,
-        upsample_conv, upsample_conv_plain)
+        nearest_up_kernel, upsample_conv, upsample_conv_plain)
     store = torch.bfloat16 if mode == MODE_BF16 else torch.float32
     bf = torch.bfloat16
     if kernel == "upsample_conv":
         b, c, co, h, w, k, pad, modulated = case
         x, wt, s, d = up_inputs(gen, case)
         x = x.to(store)
+        xs = (x if s is None else x * s[:, :, None, None]).to(bf)
+        if nearest:
+            # BigGAN's and ProGAN's nearest 2x + 3x3 conv as the composite
+            # kernel; cuDNN's call is the conv of the nearest-upsampled map
+            w3 = torch.randn(co, c, 3, 3, generator=gen, device="cuda") / (9 * c) ** 0.5
+            wt = nearest_up_kernel(w3)
+            w3_b = w3.to(bf)
+            library = lambda: F.conv2d(F.interpolate(xs, scale_factor=2, mode="nearest"),  # noqa: E731
+                                       w3_b, padding=1)
+        else:
+            wt_t = wt.transpose(0, 1).to(bf)
+            library = lambda: F.conv_transpose2d(xs, wt_t, stride=2, padding=pad)  # noqa: E731
         cache = LayerWeights(wt)
         fn = lambda: upsample_conv(x, wt, s, d, pad=pad, cache=cache)  # noqa: E731
         plain = lambda: upsample_conv_plain(x, wt, s, d, pad=pad)  # noqa: E731
-        xs = (x if s is None else x * s[:, :, None, None]).to(bf)
-        wt_t = wt.transpose(0, 1).to(bf)
-        library = lambda: F.conv_transpose2d(xs, wt_t, stride=2, padding=pad)  # noqa: E731
         ho = 2 * h + k - 2 - 2 * pad
         bnd = preview_bound(up_flop(case), b * c * h * w + b * co * ho * ho,
-                            4 * co * c * k * k, (b * c + b * co) if modulated else 0, mode)
+                            2 * co * c * k * k, (b * c + b * co) if modulated else 0, mode)
         key = ("upsample_conv", *case[:7], modulated, modulated, mode)
         label = f"B={b} C={c} Co={co} {h}->{ho} px k={k}"
     else:
@@ -1215,8 +1246,8 @@ def preview_case(gen: torch.Generator, kernel: str, case, mode: int) -> tuple[di
 def check_preview_kernels(gen: torch.Generator, gpu: str) -> dict:
     """Kernel B's modulated and plain modes and the stride-2 mode on the bf16
     datapath, in both storages, at the viewer's StyleGAN2 and StyleGAN
-    render shapes, BigGAN-512's and ProGAN-256's plain ones and the convs.2
-    tap shapes (preview_groups).  The JSON rows are the bf16 storage's (the
+    render shapes, BigGAN-512's, ProGAN-256's and DCGAN-64's preview ones
+    and the convs.2 tap shapes (preview_groups).  The JSON rows are the bf16 storage's (the
     viewer's policy); the float32 storage's stand beside them."""
     out = {}
     for kernel, groups in preview_groups().items():
@@ -1226,7 +1257,8 @@ def check_preview_kernels(gen: torch.Generator, gpu: str) -> dict:
             for group, cases in groups.items():
                 rows = []
                 for case in cases:
-                    row, line = preview_case(gen, kernel, case, mode)
+                    row, line = preview_case(gen, kernel, case, mode,
+                                             group.startswith(NEAREST_UP_GROUPS))
                     rows.append(row)
                     worst = max(worst, row["max_abs_err"])
                     log(line)
@@ -3577,8 +3609,9 @@ def main() -> int:
              replaces="ganspace_tpu/models/stylegan.py:164",
              **counts("upsample_conv"), **up),
         # the bf16 datapath (the preview policy): times at bf16 storage, the
-        # viewer's, at StyleGAN2's and StyleGAN's render shapes at B = 5;
-        # kernel B's on a body of its own (implicit_conv_bf16.cuh)
+        # viewer's, at StyleGAN2's render shapes at B = 5; kernel B's and the
+        # stride-2 kernel's each on a body of its own (implicit_conv_bf16.cuh,
+        # upconv2x_bf16.cuh)
         dict(name="modconv3x3_bf16", route="cuda",
              source="ganspace_tpu_torch/csrc/modconv3x3_bf16.cu",
              replaces="ganspace_tpu/ops/pallas/blockconv.py:178",
@@ -3588,7 +3621,7 @@ def main() -> int:
              replaces="ganspace_tpu/ops/pallas/blockconv.py:178",
              **counts("conv3x3_bf16"), **preview["conv3x3"]),
         dict(name="upsample_conv_bf16", route="cuda",
-             source="ganspace_tpu_torch/csrc/upconv2x.cu",
+             source="ganspace_tpu_torch/csrc/upconv2x_bf16.cu",
              replaces="ganspace_tpu/models/stylegan.py:164",
              **counts("upsample_conv_bf16"), **preview["upsample_conv"]),
     ]

@@ -46,28 +46,13 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = to_tf32(x - __uint_as_float(hi));
 }
 
-// The bf16 datapath (the preview policy, ops/precision.py): an operand
-// rounded to bf16, to nearest even, as the TF32 bits of the same value.  A
-// bf16 value is exact in TF32 (8 against 10 mantissa bits) and so is the
-// product of two of them in the float32 accumulator, so one TF32 pass on
-// such operands gives the bf16 products exactly: no lo half, no split.
-__device__ __forceinline__ uint32_t bf16_bits(float x) {
-  return __float_as_uint(__bfloat162float(__float2bfloat16_rn(x)));
-}
-
-// Activation storage: float32, or bf16 under the preview policy.  Loads
-// widen to float32; stores round to nearest even.
+// Activation storage of the bf16 datapaths: float32, or bf16 under the
+// preview policy (ops/precision.py).  Loads widen to float32; stores round
+// to nearest even.
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-// Four consecutive bf16 values (8 bytes, 8-byte aligned) as float32.
-__device__ __forceinline__ float4 widen4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
-                     __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
-}
 
 // d += a * b for one m16n8k8 tile.  Fragment layouts (g = lane / 4,
 // t = lane % 4): a = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4];

@@ -49,23 +49,17 @@
 //     next: the next tile's first stages load while this tile's last stage
 //     and its overlap-add run, which is what the 16-64-channel maps (one or
 //     two stages per tile) live on.  The overlap-add takes half of the P tile
-//     at a time, in the slot of the tile's last stage;
-//   * the bf16 datapath (kOne, the preview policy of ops/precision.py): the
-//     wrapper rounds the weight to bf16 once per layer, so its lo half is
-//     zero and is neither copied nor multiplied; A is x * s rounded to bf16
-//     as it is formed; one TF32 pass per k8 step gives the bf16 products
-//     exactly, with float32 accumulation and d in the float32 overlap-add.
-//     x and y may be stored in bf16 (TX): x is then read with plain loads
-//     and widened to float32 into the same shared layout, and y is rounded
-//     to bf16 as it is written.  The summation order is the float32 mode's,
-//     so a repeat gives the same bits.
+//     at a time, in the slot of the tile's last stage.
+// This is mode 0 of ganspace_upsample_conv below.  Modes 1 and 2, the bf16
+// datapath (the preview policy of ops/precision.py), have a body of their
+// own on bf16 wgmma: upconv2x_bf16.cuh.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
 #include "tf32x3.cuh"
+#include "upconv2x_bf16.cuh"
 #include "wgmma_tf32.cuh"
 
 namespace upconv {
@@ -146,11 +140,11 @@ __device__ __forceinline__ int load_pixel(const Tiling& T) {
 }
 
 // Copy stage `chunk` of tile `a` into `slot`: the weight tile pair (TMA, on
-// the slot's mbarrier; the hi tile alone with kOne), this thread's x copies
-// from offset `o` of its pixel (load_pixel) and the stage's style scales.
-template <int kN, typename TX, bool kOne>
+// the slot's mbarrier), this thread's x copies from offset `o` of its pixel
+// (load_pixel) and the stage's style scales.
+template <int kN>
 __device__ __forceinline__ void load_stage(float* slot, uint64_t* bar, const Tiling& T,
-                                           const TX* __restrict__ x,
+                                           const float* __restrict__ x,
                                            const float* __restrict__ s,
                                            const float* __restrict__ wimg, const TileAt& a,
                                            int o, int chunk) {
@@ -158,37 +152,27 @@ __device__ __forceinline__ void load_stage(float* slot, uint64_t* bar, const Til
   const int tid = threadIdx.x;
   if (tid == 0) {
     const float* src = wimg + (static_cast<long long>(a.ct) * T.chunks + chunk) * 2 * S::kBTile;
-    wgmma::mbar_expect_tx(bar, (kOne ? 1 : 2) * S::kBTile * 4);
+    wgmma::mbar_expect_tx(bar, 2 * S::kBTile * 4);
     wgmma::bulk_copy(slot, src, S::kBTile * 4, bar);
-    if (!kOne) wgmma::bulk_copy(slot + S::kBTile, src + S::kBTile, S::kBTile * 4, bar);
+    wgmma::bulk_copy(slot + S::kBTile, src + S::kBTile, S::kBTile * 4, bar);
   }
   const int c0 = chunk * kKC;
   const long long plane = static_cast<long long>(T.h) * T.w;
   float* as = slot + S::kA;
   const int m = load_pixel(T);
-  // bf16 storage: plain loads widened to float32 (cp.async cannot widen);
-  // the slot being filled is read by no warp until a later step's barrier
-  constexpr bool kF32 = std::is_same<TX, float>::value;
   if (T.vec) {  // pixels m .. m + 3 of one row, channels tid / 32 + 8 r
 #pragma unroll
     for (int r = 0; r < kKC * kM / 4 / kThreads; ++r) {
       const int ck = tid / 32 + 8 * r;
       const bool ok = o >= 0 && c0 + ck < T.c;
-      if constexpr (kF32)
-        tf32x3::cp_async16(as + ck * kAS + m, ok ? x + o + (c0 + ck) * plane : x, ok);
-      else
-        *reinterpret_cast<float4*>(as + ck * kAS + m) =
-            ok ? tf32x3::widen4(x + o + (c0 + ck) * plane) : make_float4(0.f, 0.f, 0.f, 0.f);
+      tf32x3::cp_async16(as + ck * kAS + m, ok ? x + o + (c0 + ck) * plane : x, ok);
     }
   } else {      // pixel m, channels tid / 128 + 2 r
 #pragma unroll 4
     for (int r = 0; r < kKC * kM / kThreads; ++r) {
       const int ck = tid / kM + 2 * r;
       const bool ok = o >= 0 && c0 + ck < T.c;
-      if constexpr (kF32)
-        tf32x3::cp_async4(as + ck * kAS + m, ok ? x + o + (c0 + ck) * plane : x, ok);
-      else
-        as[ck * kAS + m] = ok ? tf32x3::widen(x[o + (c0 + ck) * plane]) : 0.f;
+      tf32x3::cp_async4(as + ck * kAS + m, ok ? x + o + (c0 + ck) * plane : x, ok);
     }
   }
   if (T.has_s) {
@@ -205,14 +189,11 @@ __device__ __forceinline__ void load_stage(float* slot, uint64_t* bar, const Til
 // Persistent blocks: block i takes tiles i, i + gridDim.x, ...; the ring
 // runs on across tiles, so the next tile's first stages load while this
 // tile's last stage and its overlap-add run.
-// TX: the storage of x and y (float, or __nv_bfloat16).  kOne: the bf16
-// datapath (always so for bf16 storage); else 3xTF32.
-template <int kK, int kCoT, typename TX, bool kOne>
+template <int kK, int kCoT>
 __global__ void __launch_bounds__(kThreads, 1)
-upconv_kernel(const TX* __restrict__ x, const float* __restrict__ wimg,
+upconv_kernel(const float* __restrict__ x, const float* __restrict__ wimg,
               const float* __restrict__ s, const float* __restrict__ dmod,
-              TX* __restrict__ y, const __grid_constant__ Tiling T) {
-  static_assert(kOne || std::is_same<TX, float>::value, "bf16 storage takes the bf16 datapath");
+              float* __restrict__ y, const __grid_constant__ Tiling T) {
   constexpr int kN = kK * kK * kCoT;
   constexpr int kHalf = kCoT / 2;   // output channels per overlap-add pass
   using S = Slot<kN>;
@@ -248,7 +229,7 @@ upconv_kernel(const TX* __restrict__ x, const float* __restrict__ wimg,
       ld = tile_at(T, tile);
       ld_off = pixel_offset(T, ld, load_pixel(T));
     }
-    load_stage<kN, TX, kOne>(ring + (step % kStages) * S::kFloats, bar + step % kStages, T, x,
+    load_stage<kN>(ring + (step % kStages) * S::kFloats, bar + step % kStages, T, x,
                              s, wimg, ld, ld_off, step % T.chunks);
   };
 
@@ -287,12 +268,7 @@ upconv_kernel(const TX* __restrict__ x, const float* __restrict__ wimg,
           const int ck = 8 * j + t + 4 * (e / 2);
           float v = as[ck * kAS + (e % 2 ? m_b : m_a)];
           if (T.has_s) v *= ss[(e % 2 ? s_b : s_a) * kKC + ck];
-          if constexpr (kOne) {
-            a_hi[j][e] = tf32x3::bf16_bits(v);
-            a_lo[j][e] = 0u;
-          } else {
-            tf32x3::split(v, a_hi[j][e], a_lo[j][e]);
-          }
+          tf32x3::split(v, a_hi[j][e], a_lo[j][e]);
         }
       const uint64_t d_hi = wgmma::desc_sw128(wgmma::smem_addr(slot));
       const uint64_t d_lo = wgmma::desc_sw128(wgmma::smem_addr(slot + S::kBTile));
@@ -301,13 +277,9 @@ upconv_kernel(const TX* __restrict__ x, const float* __restrict__ wimg,
       wgmma::fence();
 #pragma unroll
       for (int j = 0; j < 4; ++j) {  // k8 step j: the descriptors advance 32 bytes
-        if constexpr (kOne) {
-          wgmma::mma<kN>(part, a_hi[j], d_hi + 2 * j, j > 0);
-        } else {
-          wgmma::mma<kN>(part, a_lo[j], d_hi + 2 * j, j > 0);
-          wgmma::mma<kN>(part, a_hi[j], d_lo + 2 * j, 1);
-          wgmma::mma<kN>(part, a_hi[j], d_hi + 2 * j, 1);
-        }
+        wgmma::mma<kN>(part, a_lo[j], d_hi + 2 * j, j > 0);
+        wgmma::mma<kN>(part, a_hi[j], d_lo + 2 * j, 1);
+        wgmma::mma<kN>(part, a_hi[j], d_hi + 2 * j, 1);
       }
       wgmma::commit();
       wgmma::wait<0>();
@@ -400,8 +372,7 @@ upconv_kernel(const TX* __restrict__ x, const float* __restrict__ wimg,
           if (cv.y >= 0) val += pm[ru.y + cv.y];
         }
         if (dmod) val *= dsm[sb * kCoT + ol];
-        tf32x3::store(y + ((static_cast<long long>(bb) * T.co + o) * T.oh + y0 + yy) * T.ow
-                      + x0 + xx, val);
+        y[((static_cast<long long>(bb) * T.co + o) * T.oh + y0 + yy) * T.ow + x0 + xx] = val;
       }
       __syncthreads();
     }
@@ -411,12 +382,12 @@ upconv_kernel(const TX* __restrict__ x, const float* __restrict__ wimg,
   tf32x3::cp_async_wait<0>();
 }
 
-template <int kK, int kCoT, typename TX, bool kOne>
-cudaError_t launch(const TX* x, const float* wimg, const float* s, const float* dmod,
-                   TX* y, const Tiling& T, cudaStream_t stream) {
+template <int kK, int kCoT>
+cudaError_t launch(const float* x, const float* wimg, const float* s, const float* dmod,
+                   float* y, const Tiling& T, cudaStream_t stream) {
   constexpr int kBytes = Slot<kK * kK * kCoT>::kBytes;
   static_assert(kBytes <= kMaxSmem, "the ring does not fit in shared memory");
-  auto kernel = upconv_kernel<kK, kCoT, TX, kOne>;
+  auto kernel = upconv_kernel<kK, kCoT>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (attr != cudaSuccess) return attr;
@@ -428,29 +399,33 @@ cudaError_t launch(const TX* x, const float* wimg, const float* s, const float* 
   return cudaGetLastError();
 }
 
-template <typename TX, bool kOne>
 cudaError_t launch_for(int k, const void* x, const float* wimg, const float* s,
                        const float* dmod, void* y, const Tiling& T, cudaStream_t stream) {
-  const TX* xt = static_cast<const TX*>(x);
-  TX* yt = static_cast<TX*>(y);
-  return k == 3 ? launch<3, 16, TX, kOne>(xt, wimg, s, dmod, yt, T, stream)
-                : launch<4, 8, TX, kOne>(xt, wimg, s, dmod, yt, T, stream);
+  const float* xt = static_cast<const float*>(x);
+  float* yt = static_cast<float*>(y);
+  return k == 3 ? launch<3, 16>(xt, wimg, s, dmod, yt, T, stream)
+                : launch<4, 8>(xt, wimg, s, dmod, yt, T, stream);
 }
 
 }  // namespace upconv
 
-// x [b, c, h, w]; wimg: the layer's split weight (ops/modconv.py::
-// upsample_weight_image), [n_co][chunks][hi, lo][k^2 * cot][32] swizzled;
-// s [b, c] or null; dmod [b, co] or null; y [b, co, oh, ow] with oh = 2h + k
-// - 2 - 2p; tiling (host memory): spt, tr, lr, hr, tiles_r, tc, lc, hc,
-// tiles_c.  mode 0: x and y float32, 3xTF32; mode 1: x and y float32, the
-// bf16 datapath (wimg of the bf16-rounded weight, lo zero); mode 2: x and y
-// bf16, the bf16 datapath.  Launches on `stream` and returns
-// cudaGetLastError() as an int.
+// x [b, c, h, w]; s [b, c] or null; dmod [b, co] or null; y [b, co, oh, ow]
+// with oh = 2h + k - 2 - 2p; tiling (host memory): spt, tr, lr, hr, tiles_r,
+// tc, lc, hc, tiles_c.  mode 0: x and y float32, 3xTF32, wimg the layer's
+// split weight (ops/modconv.py::upsample_weight_image, [n_co][chunks][hi,
+// lo][k^2 * cot][32] swizzled), the tiling of upsample_tiling; modes 1 (x
+// and y float32) and 2 (bf16): the bf16 datapath (upconv2x_bf16.cuh), wimg
+// the bf16 image (upsample_weight_image_bf16), the tiling of
+// upsample_tiling_bf16.  Launches on `stream` and returns cudaGetLastError()
+// as an int.
 extern "C" int ganspace_upsample_conv(const void* x, const float* wimg, const float* s,
                                       const float* dmod, void* y, const int* tiling, int b,
                                       int c, int h, int w, int co, int k, int p, int mode,
                                       void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mode == 1 || mode == 2)
+    return static_cast<int>(upconv_bf16::upsample_conv(x, wimg, s, dmod, y, tiling, b, c, h, w,
+                                                       co, k, p, mode == 2, st));
   using upconv::Tiling;
   Tiling T = {};
   T.b = b, T.c = c, T.h = h, T.w = w, T.co = co, T.p = p;
@@ -459,13 +434,12 @@ extern "C" int ganspace_upsample_conv(const void* x, const float* wimg, const fl
   T.tr = tiling[1], T.lr = tiling[2], T.hr = tiling[3], T.tiles_r = tiling[4];
   T.tc = tiling[5], T.lc = tiling[6], T.hc = tiling[7], T.tiles_c = tiling[8];
   const int cot = k == 3 ? 16 : 8;
-  // 16-byte copies of four float32 pixels, or 8-byte loads of four bf16
-  T.vec = T.hc == 0 && w % 4 == 0
-          && reinterpret_cast<uintptr_t>(x) % (mode == 2 ? 8 : 16) == 0;
+  // 16-byte copies of four float32 pixels
+  T.vec = T.hc == 0 && w % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   T.n_co = (co + cot - 1) / cot;
   T.chunks = (c + upconv::kKC - 1) / upconv::kKC;
   T.has_s = s != nullptr;
-  bool ok = (k == 3 || k == 4) && (p == 0 || p == 1) && mode >= 0 && mode <= 2
+  bool ok = (k == 3 || k == 4) && (p == 0 || p == 1) && mode == 0
             && b > 0 && c > 0 && co > 0
             && T.spt >= 1 && T.spt <= upconv::kMaxSpt && T.lr * T.lc * T.spt <= upconv::kM
             && T.tr >= 1 && T.tc >= 1 && T.lr == T.tr + T.hr && T.lc == T.tc + T.hc
@@ -480,11 +454,5 @@ extern "C" int ganspace_upsample_conv(const void* x, const float* wimg, const fl
     T.tiles = static_cast<int>(tiles);
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  using upconv::launch_for;
-  const cudaError_t err =
-      mode == 0   ? launch_for<float, false>(k, x, wimg, s, dmod, y, T, st)
-      : mode == 1 ? launch_for<float, true>(k, x, wimg, s, dmod, y, T, st)
-                  : launch_for<__nv_bfloat16, true>(k, x, wimg, s, dmod, y, T, st);
-  return static_cast<int>(err);
+  return static_cast<int>(upconv::launch_for(k, x, wimg, s, dmod, y, T, st));
 }

@@ -38,6 +38,7 @@ _SIGNATURES = {
     "ganspace_upsample_conv": [_P] * 6 + [_I] * 8 + [_P],
     "ganspace_tf32x3_tile": [_P, _P, _P, _P],
     "ganspace_wgmma_tile": [_P, _P, _P, _P, _I, _P],
+    "ganspace_wgmma_tile_bf16": [_P, _P, _P, _I, _P],
 }
 
 

@@ -27,7 +27,8 @@ plain PyTorch version, which is the CPU path and the kernel's oracle:
   fixed summation order, so a repeated call gives identical bits, which
   cuDNN's transposed convolution does not.  A layer splits its weight into
   TF32 hi and lo once, in the layout the kernel reads
-  (:class:`LayerWeights`).
+  (:class:`LayerWeights`); its bf16 datapath reads a bf16 image of the
+  rounded weight instead (:func:`upsample_weight_image_bf16`).
 
 Each mode has two datapaths, chosen per call by ``ops/precision.py``'s
 rule (:func:`~ganspace_tpu_torch.ops.precision.bf16_operands`): 3xTF32 on
@@ -37,7 +38,10 @@ accumulation, ``d`` in float32, and the output in ``x``'s dtype (float32
 or bf16).  Kernel B's bf16 datapath has a body of its own
 (``csrc/implicit_conv_bf16.cuh``: bf16 MMAs on tiles staged by
 ``cp.async``), its weight a bf16 tensor in the layout it reads
-(:func:`bf16_taps`).  The plain version of the bf16 datapath is that
+(:func:`bf16_taps`); so has the stride-2 mode's
+(``csrc/upconv2x_bf16.cuh``: bf16 wgmma on shared tiles, the weight image
+by TMA, x by a TMA tensor copy in its own storage, with a tiling of its own,
+:func:`upsample_tiling_bf16`).  The plain version of the bf16 datapath is that
 function exactly: the operands rounded, then ``F.conv2d`` /
 ``conv_transpose2d`` in float32 on the rounded values, then the output
 rounded to ``x``'s dtype.
@@ -244,6 +248,14 @@ UP_COT = {3: 16, 4: 8}
 UP_KC = 32            # input channels per stage (a [N][32] weight tile pair)
 UP_TILE_M = 128       # pixels per block
 UP_MAX_SPT = 32       # whole samples per block at most
+# the bf16 datapath's body (csrc/upconv2x_bf16.cuh): N = k^2 * 16 (144 or
+# 256), 64 input channels per stage (a [N][64] bf16 weight tile), at most 8
+# whole samples and 168 raw elements per channel a stage (runs of 16 bytes)
+UP_COT_BF16 = 16
+UP_KC_BF16 = 64
+UP_MAX_SPT_BF16 = 8
+UP_RAW_PIX = 168
+UP_PIECE = 8          # bf16 elements of a 16-byte piece
 
 
 def _axis_tilings(n: int):
@@ -277,17 +289,57 @@ def upsample_tiling(b: int, h: int, w: int) -> tuple:
     return best[1]
 
 
-def upsample_weight_matrix(w_scaled: torch.Tensor) -> torch.Tensor:
+def _bf16_raw(spt: int, lr: int, lc: int, hc: int, whole: bool, h: int, w: int) -> int:
+    """Raw elements of one channel of a stage of the bf16 body for a tiling,
+    each run padded to 16 bytes of bf16: whole samples, one run of h * w per
+    sample; else one run per loaded row, of lc, or with a halo column of 7
+    more (the run starts on the 16-byte boundary before it)."""
+    def pad(n):
+        return -(-n // UP_PIECE) * UP_PIECE
+    return spt * pad(h * w) if whole else lr * pad(lc + hc * (UP_PIECE - 1))
+
+
+@functools.lru_cache(maxsize=None)
+def upsample_tiling_bf16(b: int, h: int, w: int) -> tuple:
+    """The tiling of the stride-2 kernel's bf16 datapath, in the form of
+    :func:`upsample_tiling`: at most 128 input pixels and 8 whole samples a
+    block, a stage's raw x at most 168 elements per channel
+    (:func:`_bf16_raw`), and owned columns a multiple of 8 where a block has
+    a halo column (so that its rows start on 16-byte boundaries).  Of the
+    tilings that fit, the one with the fewest blocks; among those, one that
+    a tensor copy can load (a width divisible by 8, or whole samples of 8k
+    pixels), then the fewest raw elements."""
+    best = None
+    for tr, lr, hr, nr in _axis_tilings(h):
+        for tc, lc, hc, nc in _axis_tilings(w):
+            if lr * lc > UP_TILE_M or (hc and tc % UP_PIECE):
+                continue
+            whole = hr == hc == 0
+            spt = min(UP_TILE_M // (lr * lc), UP_MAX_SPT_BF16, b) if whole else 1
+            raw = _bf16_raw(spt, lr, lc, hc, whole, h, w)
+            if raw > UP_RAW_PIX:
+                continue
+            blocks = -(-b // spt) * nr * nc
+            tma = h * w % UP_PIECE == 0 if whole else w % UP_PIECE == 0
+            key = (blocks, not tma, blocks * raw)
+            if best is None or key < best[0]:
+                best = key, (spt, tr, lr, hr, nr, tc, lc, hc, nc)
+    return best[1]
+
+
+def upsample_weight_matrix(w_scaled: torch.Tensor, cot: int | None = None,
+                           kc: int = UP_KC) -> torch.Tensor:
     """The stride-2 kernel's B operand of ``w_scaled`` [Co, C, k, k]:
-    [n_co, chunks, N, 32] with B[t, q, tap * cot + o, c] = w_scaled[t * cot
-    + o, 32 q + c, u, v] for tap = u * k + v, zero past Co and C."""
+    [n_co, chunks, N, kc] with B[t, q, tap * cot + o, c] = w_scaled[t * cot
+    + o, kc q + c, u, v] for tap = u * k + v, zero past Co and C; ``cot``
+    output channels per tile (default ``UP_COT[k]``, the 3xTF32 mode's)."""
     co, c, k, _ = w_scaled.shape
-    cot = UP_COT[k]
-    n_co, chunks = -(-co // cot), -(-c // UP_KC)
+    cot = UP_COT[k] if cot is None else cot
+    n_co, chunks = -(-co // cot), -(-c // kc)
     wt = w_scaled.permute(2, 3, 0, 1).reshape(k * k, co, c)
-    wt = F.pad(wt, (0, chunks * UP_KC - c, 0, n_co * cot - co))
-    wt = wt.reshape(k * k, n_co, cot, chunks, UP_KC).permute(1, 3, 0, 2, 4)
-    return wt.reshape(n_co, chunks, k * k * cot, UP_KC)
+    wt = F.pad(wt, (0, chunks * kc - c, 0, n_co * cot - co))
+    wt = wt.reshape(k * k, n_co, cot, chunks, kc).permute(1, 3, 0, 2, 4)
+    return wt.reshape(n_co, chunks, k * k * cot, kc)
 
 
 def upsample_weight_image(w_scaled: torch.Tensor) -> torch.Tensor:
@@ -299,14 +351,24 @@ def upsample_weight_image(w_scaled: torch.Tensor) -> torch.Tensor:
     return sw128_image(torch.stack((hi, lo), dim=2)).contiguous()
 
 
+def upsample_weight_image_bf16(w_scaled: torch.Tensor) -> torch.Tensor:
+    """The weight operand of the stride-2 kernel's bf16 datapath:
+    :func:`upsample_weight_matrix` at 16 output channels and 64 input
+    channels a tile, rounded to bf16 (to nearest even), each [N, 64] tile in
+    the 128-byte swizzle its wgmma reads (``sw128_image``): a bf16 tensor
+    [n_co, chunks, N * 64], contiguous."""
+    mat = upsample_weight_matrix(w_scaled, UP_COT_BF16, UP_KC_BF16)
+    return sw128_image(mat.to(torch.bfloat16).contiguous()).contiguous()
+
+
 class LayerWeights:
     """One layer's weight as the kernels read it, made when the weight first
     reaches a kernel and again only after it changes (a load, an in-place
     edit or a move changes its storage or its version): the scaled weight
     rounded to bf16 once for the bf16 datapath (the demodulation's operand,
-    and kernel B's in its :func:`bf16_taps` layout), and the stride-2
-    kernel's :func:`upsample_weight_image` for each datapath (the bf16 one's
-    lo half is zero).  They are kept in ``copies``, the layer's
+    kernel B's in its :func:`bf16_taps` layout, and the stride-2 kernel's
+    :func:`upsample_weight_image_bf16`), and the stride-2 kernel's
+    :func:`upsample_weight_image` for the float32 datapath.  They are kept in ``copies``, the layer's
     :class:`~ganspace_tpu_torch.ops.precision.StorageCopies`, by what they
     are, the shape of the ``w_scaled`` they came from and ``tag``, which
     names how that ``w_scaled`` derives from ``source`` where two
@@ -343,9 +405,13 @@ class LayerWeights:
         return self._get("taps_bf16", w_scaled, bf16_taps)
 
     def get(self, w_scaled: torch.Tensor, bf16: bool = False) -> torch.Tensor:
-        """The stride-2 weight image of ``w_scaled``, the scaled form of ``source``."""
-        return self._get(("image", bf16), w_scaled, lambda w: upsample_weight_image(
-            self.rounded(w) if bf16 else w))
+        """The stride-2 weight image of ``w_scaled``, the scaled form of
+        ``source``: :func:`upsample_weight_image`, or with ``bf16``
+        :func:`upsample_weight_image_bf16` of its rounded form."""
+        if bf16:
+            return self._get("image_bf16", w_scaled,
+                             lambda w: upsample_weight_image_bf16(self.rounded(w)))
+        return self._get("image", w_scaled, upsample_weight_image)
 
     def nearest_up(self, dtype: torch.dtype, scale: float = 1.0):
         """(:func:`nearest_up_kernel` of ``source * scale`` for the storage
@@ -408,7 +474,7 @@ def upsample_conv(x: torch.Tensor, w_scaled: torch.Tensor,
     [B, Co] or None; the output is [B, Co, 2H + k - 2 - 2 pad, ...] in x's
     dtype, on the datapath ``ops/precision.py`` picks.  A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel or raises.
-    ``cache``, the layer's :class:`LayerWeights`, keeps the split weight
+    ``cache``, the layer's :class:`LayerWeights`, keeps the weight image
     between calls."""
     b, c, h, w = x.shape
     co, _, k, _ = w_scaled.shape
@@ -423,12 +489,14 @@ def upsample_conv(x: torch.Tensor, w_scaled: torch.Tensor,
     _cuda_operands("upsample_conv", x, w_scaled, s, d, b * co * ho * wo)
     x = x.contiguous()
     d = None if d is None else d.contiguous()
-    bf16 = mode != MODE_F32
-    if cache is None:
-        image = upsample_weight_image(round_bf16(w_scaled) if bf16 else w_scaled)
+    if mode == MODE_F32:
+        image = upsample_weight_image(w_scaled) if cache is None else cache.get(w_scaled)
+        tiling = upsample_tiling(b, h, w)
     else:
-        image = cache.get(w_scaled, bf16)
-    tiling = (ctypes.c_int * 9)(*upsample_tiling(b, h, w))
+        image = (upsample_weight_image_bf16(round_bf16(w_scaled)) if cache is None
+                 else cache.get(w_scaled, bf16=True))
+        tiling = upsample_tiling_bf16(b, h, w)
+    tiling = (ctypes.c_int * 9)(*tiling)
     y = torch.empty((b, co, ho, wo), dtype=x.dtype, device=x.device)
     check(load_kernels().ganspace_upsample_conv(
         x.data_ptr(), image.data_ptr(), _ptr(s), _ptr(d), y.data_ptr(), ctypes.addressof(tiling),

@@ -1,14 +1,16 @@
-"""One 3xTF32 tensor-core step (``csrc/tf32x3.cuh``) on a 16 x 8 x 8 tile.
-
-Both kernels build their products from this step; :func:`tile_3xtf32`
-runs it alone so that its fragment layouts can be checked against the
-plain product on the card.  A CPU tensor takes the plain version."""
+"""The kernels' tensor-core steps, each alone on one tile, so that its
+fragment and shared-memory layouts can be checked against the plain product
+on the card: one 3xTF32 m16n8k8 step (``csrc/tf32x3.cuh``,
+:func:`tile_3xtf32`), the stride-2 kernel's 3xTF32 ``wgmma`` product
+(:func:`wgmma_tile_3xtf32`) and its bf16 one (:func:`wgmma_tile_bf16`).
+A CPU tensor takes the plain version."""
 
 from __future__ import annotations
 
 import torch
 
 from ganspace_tpu_torch.ops._build import check, load_kernels, stream_handle
+from ganspace_tpu_torch.ops.precision import round_bf16
 
 
 def tile_3xtf32_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -45,18 +47,21 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def sw128_image(b: torch.Tensor) -> torch.Tensor:
-    """b [..., N, 32] (N a multiple of 8, K = 32 contiguous) as tf32
-    ``wgmma`` reads a K-major tile in the 128-byte swizzle
-    (``csrc/wgmma_tf32.cuh``), flat [..., N * 32]: row n at 128 bytes, its
-    16-byte chunk j at chunk j ^ (n % 8), eight rows to a 1024-byte atom."""
-    n = b.shape[-2]
-    if b.shape[-1] != 32 or n % 8:
-        raise ValueError(f"sw128_image: b must be [..., 8m, 32], got {tuple(b.shape)}")
+    """b [..., N, K] (N a multiple of 8, K contiguous in 128 bytes: 32
+    float32 or 64 bf16 values) as ``wgmma`` reads a K-major tile in the
+    128-byte swizzle (``csrc/wgmma_tf32.cuh``, ``csrc/wgmma_bf16.cuh``),
+    flat [..., N * K]: row n at 128 bytes, its 16-byte chunk j at chunk
+    j ^ (n % 8), eight rows to a 1024-byte atom."""
+    n, kk = b.shape[-2:]
+    if kk * b.element_size() != 128 or n % 8:
+        raise ValueError(f"sw128_image: b must be [..., 8m, K] with K values in 128 bytes, "
+                         f"got {tuple(b.shape)} of {b.dtype}")
+    per = 16 // b.element_size()       # values of a 16-byte chunk
     rows = torch.arange(n, device=b.device)[:, None]
-    col = torch.arange(32, device=b.device)[None, :]
+    col = torch.arange(kk, device=b.device)[None, :]
     # the swizzle is its own inverse, so the gather uses the scatter's index
-    index = (rows * 32 + ((col // 4) ^ (rows % 8)) * 4 + col % 4).reshape(-1)
-    return b.reshape(*b.shape[:-2], n * 32).index_select(-1, index)
+    index = (rows * kk + ((col // per) ^ (rows % 8)) * per + col % per).reshape(-1)
+    return b.reshape(*b.shape[:-2], n * kk).index_select(-1, index)
 
 
 def wgmma_tile_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -77,4 +82,32 @@ def wgmma_tile_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     check(load_kernels().ganspace_wgmma_tile(a.data_ptr(), b_hi.data_ptr(), b_lo.data_ptr(),
                                              d.data_ptr(), b.shape[0], stream_handle(a)),
           "wgmma_tile_3xtf32")
+    return d
+
+
+def wgmma_tile_bf16_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16(a) @ bf16(b).T with float32 sums: the CPU path and the bf16
+    step's oracle."""
+    return round_bf16(a.float()) @ round_bf16(b.float()).T
+
+
+def wgmma_tile_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [64, 64] @ b [N, 64].T (N = 144 or 256) through four k16 steps of
+    the bf16 ``wgmma`` product of the stride-2 kernel's bf16 datapath: a
+    rounded to bf16 and written into its swizzled shared tile as the
+    kernel's pass writes it, b rounded on the host and read from its
+    swizzled image.  A CPU tensor takes the plain product."""
+    if a.shape != (64, 64) or b.ndim != 2 or b.shape[1] != 64 or b.shape[0] not in (144, 256):
+        raise ValueError(f"wgmma_tile_bf16: a must be [64, 64] and b [144 or 256, 64], "
+                         f"got {tuple(a.shape)} and {tuple(b.shape)}")
+    if a.device.type == "cpu":
+        return wgmma_tile_bf16_plain(a, b)
+    if a.dtype != torch.float32 or b.dtype != torch.float32 or b.device != a.device:
+        raise TypeError("wgmma_tile_bf16: operands must be float32 on one CUDA device")
+    image = sw128_image(b.to(torch.bfloat16).contiguous()).contiguous()
+    a = a.contiguous()
+    d = torch.empty((64, b.shape[0]), dtype=torch.float32, device=a.device)
+    check(load_kernels().ganspace_wgmma_tile_bf16(a.data_ptr(), image.data_ptr(), d.data_ptr(),
+                                                  b.shape[0], stream_handle(a)),
+          "wgmma_tile_bf16")
     return d

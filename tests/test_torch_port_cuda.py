@@ -194,6 +194,19 @@ def test_wgmma_tile_on_card(gen, n):
     assert float((got - ref).abs().max() / ref.abs().max()) < 1e-6
 
 
+@pytest.mark.parametrize("n", [144, 256])
+def test_wgmma_tile_bf16_on_card(gen, n):
+    """The bf16 datapath's wgmma step: A formed into its swizzled shared
+    tile as the body's pass forms it, B's bf16 image, both by descriptor."""
+    from ganspace_tpu_torch.ops.precision import round_bf16
+    from ganspace_tpu_torch.ops.tf32x3 import wgmma_tile_bf16
+    a = torch.randn(64, 64, generator=gen, device="cuda")
+    b = torch.randn(n, 64, generator=gen, device="cuda")
+    ref = round_bf16(a).double() @ round_bf16(b).double().T
+    got = wgmma_tile_bf16(a, b).double()
+    assert float((got - ref).abs().max() / ref.abs().max()) < 1e-6
+
+
 @pytest.mark.parametrize("res", [8, 64])
 def test_modconv3x3_wide_range_and_deterministic_on_card(gen, res):
     """|s| from 1e-2 to 1e2; 8 px takes the cluster split of K."""

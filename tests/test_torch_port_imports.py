@@ -47,6 +47,7 @@ MODULES = [
     "ganspace_tpu_torch.utils.video",
     "ganspace_tpu_torch.tools",
     "ganspace_tpu_torch.tools.lightbox",
+    "ganspace_tpu_torch.tools.upconv_split",
 ]
 
 

@@ -24,10 +24,11 @@ from ganspace_tpu_torch import require_device
 from ganspace_tpu_torch.ops import precision
 from ganspace_tpu_torch.ops.modconv import (
     conv3x3, conv3x3_plain, demodulation, modconv3x3, modconv3x3_plain, modulated_conv2d,
-    UP_COT, LayerWeights, upsample_conv, upsample_conv_plain, upsample_tiling,
-    upsample_weight_image, upsample_weight_matrix)
+    UP_COT, UP_COT_BF16, UP_KC_BF16, LayerWeights, upsample_conv, upsample_conv_plain,
+    upsample_tiling, upsample_tiling_bf16, upsample_weight_image, upsample_weight_image_bf16,
+    upsample_weight_matrix)
 from ganspace_tpu_torch.ops.moments import centered_gram, centered_gram_plain
-from ganspace_tpu_torch.ops.tf32x3 import sw128_image
+from ganspace_tpu_torch.ops.tf32x3 import sw128_image, wgmma_tile_bf16
 from ganspace_tpu_torch.ops.upfirdn import make_fir_kernel
 
 
@@ -117,28 +118,36 @@ def test_conv3x3_plain_mode_matches_pallas_blockconv(b, hw, c, co):
 
 
 def _unswizzle(image, n):
-    """The [..., N, 32] tiles of a swizzled weight image (the swizzle is its
-    own inverse)."""
-    tiles = image.reshape(*image.shape[:-1], n, 32)
+    """The [..., N, K] tiles of a swizzled weight image (K values in 128
+    bytes; the swizzle is its own inverse)."""
+    tiles = image.reshape(*image.shape[:-1], n, 128 // image.element_size())
     return sw128_image(tiles).reshape(tiles.shape)
 
 
-def _emulate_upsample(x, w, s, d, pad, image):
+def _emulate_upsample(x, w, s, d, pad, image, bf16=False):
     """The stride-2 kernel in plain torch: per block of
     :func:`upsample_tiling`, the dense product of its loaded pixels (x * s,
     zero outside the image) with the split weight read back from ``image``
     (hi + lo), then the overlap-add into the block's own output rectangle in
-    the kernel's tap order (u, then v, ascending).  Also returns how many
-    blocks wrote each output."""
+    the kernel's tap order (u, then v, ascending).  With ``bf16``, the bf16
+    datapath's body: the blocks of :func:`upsample_tiling_bf16`, x * s
+    rounded to bf16, the weight read back from its bf16 image.  Also
+    returns how many blocks wrote each output."""
     b, c, h, wd = x.shape
     co, _, k, _ = w.shape
-    cot, n = UP_COT[k], k * k * UP_COT[k]
+    cot = UP_COT_BF16 if bf16 else UP_COT[k]
+    n = k * k * cot
     ho, wo = 2 * h + k - 2 - 2 * pad, 2 * wd + k - 2 - 2 * pad
-    tiles = _unswizzle(image, n)                          # [n_co, chunks, 2, N, 32]
-    bmat = (tiles[:, :, 0].double() + tiles[:, :, 1].double())
+    tiles = _unswizzle(image, n)
+    if bf16:                                              # [n_co, chunks, N, 64]
+        bmat = tiles.double()
+    else:                                                 # [n_co, chunks, 2, N, 32]
+        bmat = (tiles[:, :, 0].double() + tiles[:, :, 1].double())
     bmat = bmat.permute(0, 2, 1, 3).reshape(bmat.shape[0], n, -1)   # [n_co, N, K]
-    xs = (x if s is None else x * s[:, :, None, None]).double()
-    spt, tr, lr, hr, nr, tc, lc, hc, nc = upsample_tiling(b, h, wd)
+    xs = x if s is None else x * s[:, :, None, None]
+    xs = (precision.round_bf16(xs) if bf16 else xs).double()
+    tiling = upsample_tiling_bf16 if bf16 else upsample_tiling
+    spt, tr, lr, hr, nr, tc, lc, hc, nc = tiling(b, h, wd)
     y = torch.zeros(b, co, ho, wo, dtype=torch.float64)
     written = torch.zeros(b, co, ho, wo, dtype=torch.int64)
     for b0 in range(0, b, spt):
@@ -206,6 +215,27 @@ def test_upsample_emulation_matches_the_transposed_conv(k, pad, c, co, b, h, w):
     assert _rel(got.float().numpy(), ref.numpy()) < 1e-5
 
 
+@pytest.mark.parametrize("k,pad,c,co,b,h,w", UP_EMULATION)
+def test_upsample_bf16_emulation_matches_the_plain_version(k, pad, c, co, b, h, w):
+    """What the bf16 datapath's body computes from its bf16 weight image,
+    emulated block by block over its own tiling: every output written by
+    exactly one block, and equal to the plain version under the preview
+    policy (x * s and the weight rounded to bf16, float32 sums), with s and
+    d."""
+    rs = np.random.RandomState(k + c + h + 1)
+    x = torch.from_numpy(rs.randn(b, c, h, w).astype(np.float32))
+    wt = torch.from_numpy(rs.randn(co, c, k, k).astype(np.float32)) / (k * k * c) ** 0.5
+    s = torch.from_numpy((1.0 + 0.5 * rs.randn(b, c)).astype(np.float32))
+    d = demodulation(precision.round_bf16(wt), s)
+    image = upsample_weight_image_bf16(precision.round_bf16(wt))
+    got, written = _emulate_upsample(x, wt, s, d, pad, image, bf16=True)
+    assert (written == 1).all()
+    with precision.precision("default"):
+        ref = upsample_conv_plain(x, wt, s, d, pad=pad)
+    assert got.shape == ref.shape
+    assert _rel(got.float().numpy(), ref.numpy()) < 1e-5
+
+
 @pytest.mark.parametrize("k,c", [(3, 8), (3, 13), (4, 8), (4, 13)])
 def test_upsample_weight_image_is_the_split_weight(k, c):
     """The cached operand: hi and lo are TF32 (13 low bits clear), hi + lo is
@@ -230,6 +260,44 @@ def test_upsample_weight_image_is_the_split_weight(k, c):
             tap = mat[:, 0, (u * k + v) * cot:(u * k + v + 1) * cot].reshape(-1, 32)
             assert torch.equal(tap[:co, :c], wt[:, :, u, v])
             assert not tap[co:].any() and not tap[:, c:].any()
+
+
+@pytest.mark.parametrize("k,c", [(3, 8), (3, 70), (4, 13), (4, 64)])
+def test_upsample_weight_image_bf16_is_the_rounded_weight(k, c):
+    """The bf16 datapath's operand: a bf16 image, un-swizzled equal to the
+    weight rounded to bf16 in the [tile, chunk, tap * 16 + o, c] order of 16
+    output and 64 input channels a tile, zero past C and Co."""
+    rs = np.random.RandomState(k * c + 1)
+    co = 19
+    wt = torch.from_numpy(rs.randn(co, c, k, k).astype(np.float32))
+    image = upsample_weight_image_bf16(wt)
+    n, chunks = k * k * UP_COT_BF16, -(-c // UP_KC_BF16)
+    assert image.dtype == torch.bfloat16 and image.is_contiguous()
+    assert image.shape == (-(-co // UP_COT_BF16), chunks, n * UP_KC_BF16)
+    tiles = _unswizzle(image, n)
+    mat = upsample_weight_matrix(wt, UP_COT_BF16, UP_KC_BF16)
+    assert torch.equal(tiles, precision.round_bf16(mat).to(torch.bfloat16))
+    flat = tiles.float().permute(0, 2, 1, 3).reshape(tiles.shape[0], n, -1)   # [n_co, N, K]
+    for u in range(k):
+        for v in range(k):
+            tap = flat[:, (u * k + v) * UP_COT_BF16:(u * k + v + 1) * UP_COT_BF16]
+            tap = tap.reshape(-1, flat.shape[-1])
+            assert torch.equal(tap[:co, :c], precision.round_bf16(wt[:, :, u, v]))
+            assert not tap[co:].any() and not tap[:, c:].any()
+
+
+def test_wgmma_tile_bf16_plain_is_the_rounded_product():
+    """The bf16 wgmma step's plain version (its CPU path and oracle on the
+    card): the product of the operands rounded to bf16, float32 sums."""
+    rs = np.random.RandomState(12)
+    a = torch.from_numpy(rs.randn(64, 64).astype(np.float32))
+    b = torch.from_numpy(rs.randn(144, 64).astype(np.float32))
+    ref = (precision.round_bf16(a).double() @ precision.round_bf16(b).double().T).float()
+    got = wgmma_tile_bf16(a, b)
+    assert got.shape == (64, 144)
+    assert np.abs(got.numpy() - ref.numpy()).max() <= 1e-5 * np.abs(ref.numpy()).max()
+    with pytest.raises(ValueError):
+        wgmma_tile_bf16(a, b[:100])
 
 
 def test_upsample_weights_rebuilt_only_for_a_new_weight():
@@ -258,7 +326,9 @@ def test_layer_weights_round_once_for_the_bf16_datapath():
     first = cache.rounded(weight * 0.5)
     assert torch.equal(first, precision.round_bf16(weight * 0.5))
     assert cache.rounded(weight * 0.5) is first
-    assert torch.equal(cache.get(weight * 0.5, bf16=True), upsample_weight_image(first))
+    image = cache.get(weight * 0.5, bf16=True)
+    assert torch.equal(image, upsample_weight_image_bf16(first)) and image.dtype == torch.bfloat16
+    assert cache.get(weight * 0.5, bf16=True) is image
     with torch.no_grad():
         weight.mul_(3.0)
     again = cache.rounded(weight * 0.5)
@@ -295,6 +365,27 @@ def test_upsample_tiling_of_the_paths_shapes(b, h, w, spt):
         assert g_spt == 1 and nr == -(-h // tr) and nc == -(-w // tc)
         # no more than 1.6x the input's pixels are loaded
         assert nr * nc * lr * lc <= 1.6 * h * w
+
+
+@pytest.mark.parametrize("b,h,w,spt", UP_TILINGS + [(1, 3, 3, 1), (2, 13, 13, 0), (2, 9, 40, 0)])
+def test_upsample_tiling_bf16_of_the_paths_shapes(b, h, w, spt):
+    """The bf16 body's tiling: whole samples where a sample fits 128 pixels
+    (at most 8 a block); else rectangles with one halo row and column, their
+    owned columns a multiple of 8 where there is a halo column, a stage's
+    raw x within 168 elements per channel, every input pixel owned once."""
+    from ganspace_tpu_torch.ops.modconv import UP_MAX_SPT_BF16, UP_RAW_PIX, _bf16_raw
+    got = upsample_tiling_bf16(b, h, w)
+    g_spt, tr, lr, hr, nr, tc, lc, hc, nc = got
+    assert lr * lc * g_spt <= 128 and lr == tr + hr and lc == tc + hc
+    assert (hr == 1 or tr == h) and (hc == 1 or tc == w)
+    assert _bf16_raw(g_spt, lr, lc, hc, hr == hc == 0, h, w) <= UP_RAW_PIX
+    assert hc == 0 or tc % 8 == 0
+    if spt:
+        assert (g_spt, hr, hc, nr, nc) == (min(spt, UP_MAX_SPT_BF16), 0, 0, 1, 1)
+    else:
+        assert g_spt == 1 and nr == -(-h // tr) and nc == -(-w // tc)
+        # no more than 1.7x the input's pixels are loaded
+        assert nr * nc * lr * lc <= 1.7 * h * w
 
 
 def test_upsample_conv_matches_jax_stylegan2_formulation():
