@@ -129,7 +129,20 @@ Phases, each of which raises on failure:
    sketch tier, the stride-2 kernel at k = 4 in the fit, 24 grids at 64
    px); then both models' images and every tap on the card against the
    CPU;
-19. every kernel shape launched over the run (recorded in front of the
+19. the paper's figure scripts (``ganspace_tpu_torch/notebooks``) at their
+   defaults and full width, each through its ``main``: the six
+   StyleGAN2-FFHQ-1024 figures (teaser, PCA cleanup, style/content
+   separation, supervised comparison, first 20 PCs, edit zoo; W, ``style``,
+   n = 2048, one cache for c = 8 and one for first_20_pcs, cut from 20 rows
+   to 5 for time) and the three BigGAN-128 figures (husky,
+   ``generator.gen_z``, n = 512, c = 8: style resampling, style mixing,
+   edit transferability), each with its exact launch counts, its seconds
+   and frames/s, its PNGs decoded and their shapes checked; the teaser's
+   first chain, one style-mixing cell and the PCA illustration's axes on
+   the card against the CPU; ``python -m ganspace_tpu_torch makesample``
+   (16 StyleGAN2 images at 1024 px) in a process of its own, its PNGs bit
+   for bit the card's ``sample_np``, and which image writer ran;
+20. every kernel shape launched over the run (recorded in front of the
    kernel library) that phase 5 did not cover, such as the fits' batch-1
    probes and the viewer's batch-1 frames, held against its plain version
    by the same bars, on the datapath it was launched on.
@@ -422,10 +435,11 @@ BG_TAP, BG_TAP_N, BG_TAP_BATCH = "generator.layers.1", 20_000, 128
 BG_TAP_BLOCKS = BG_TAP_N // BG_TAP_BATCH
 
 
-def bg_shapes(batch: int, upto: int | None = None,
-              preview: bool = False) -> tuple[list, list]:
-    """Kernel B's calls in one BigGAN-512 forward at ``batch``, through module
-    ``upto`` (a partial forward) or all of them, in order, repeats included:
+def bg_shapes(batch: int, upto: int | None = None, preview: bool = False,
+              resolution: int = 512) -> tuple[list, list]:
+    """Kernel B's calls in one BigGAN forward (512 px unless ``resolution``
+    names another) at ``batch``, through module ``upto`` (a partial
+    forward) or all of them, in order, repeats included:
     the plain mode's (B, C, Co, H, W) (conv_1 of the blocks that keep their
     size, every conv_2, conv_to_rgb's three rows) and the stride-2 mode's
     (B, C, Co, H, W, 4, 1, False) (each up-block's nearest-up conv_1).  Under
@@ -433,7 +447,7 @@ def bg_shapes(batch: int, upto: int | None = None,
     space-to-depth tail (``BigGANConfig.tail_entry``) run their conv_1 as
     nearest 2x then the plain mode."""
     from ganspace_tpu_torch.models.biggan import BigGANConfig
-    cfg = BigGANConfig.for_resolution(512)
+    cfg = BigGANConfig.for_resolution(resolution)
     entry = cfg.tail_entry()
     plain, up, r = [], [], 4
     for mi, mod in enumerate(cfg.module_plan()):
@@ -2237,9 +2251,11 @@ class TruncationRecorder:
         return f"{self.count} device latents, max |z| {top:.6f} <= {self.limit}"
 
 
-def bg_counts(upto: int | None = None, preview: bool = False) -> tuple[int, int]:
-    """(plain 3x3, stride-2) launches of one BigGAN-512 forward."""
-    plain, up = bg_shapes(1, upto, preview)
+def bg_counts(upto: int | None = None, preview: bool = False,
+              resolution: int = 512) -> tuple[int, int]:
+    """(plain 3x3, stride-2) launches of one BigGAN forward (512 px unless
+    ``resolution`` names another)."""
+    plain, up = bg_shapes(1, upto, preview, resolution)
     return len(plain), len(up)
 
 
@@ -2754,6 +2770,197 @@ def check_progan_dcgan_vs_cpu() -> None:
         if not (all(torch.isfinite(t).all() for t in outs[0].values())
                 and max(rels.values()) < TAP_REL):
             raise AssertionError(f"card and CPU disagree on {what}")
+
+
+# -- the figure scripts and makesample (ganspace_tpu_torch/notebooks, tools) --
+
+# Each figure through its main, at its defaults but for the arguments
+# given: (module, arguments, forwards, frames, kernel-A fits, [(PNG, rows,
+# frames a row)]).  A forward renders one strip of 5 frames, or one frame
+# in the teaser's chains and the BigGAN grids.  The StyleGAN2 figures (W,
+# --layer style, -n 2048) share one cache per c: c = 8 is fitted by the
+# teaser, first_20_pcs's by itself, each one block of 2048 W rows through
+# kernel A.  first_20_pcs is cut from 20 rows (c = 20) to FIRST_PCS_ROWS
+# for the phase's time, which the grids' PNG encoding holds (PIL, one
+# thread): at 20 rows the figure took 45 s of the phase's 155 s, at 10 rows
+# 23 s of 136 s (PERF.md §6).  The BigGAN-128 figures (husky,
+# generator.gen_z, -n 512, c = 8) fit gen_z (D = 32768) on the sketch tier,
+# no kernel there; style resampling keeps 1, 5 and 10 of the 11 latent
+# slots (3 rows of 4 frames).
+FIRST_PCS_ROWS = 5
+FIG_SG2 = [
+    ("figure_teaser", [], 8, 8, 1, [("teaser.png", 2, 4)]),
+    ("figure_pca_cleanup", [], 10, 50, 0, [("pca_cleanup_global.png", 6, 5),
+                                           ("pca_cleanup_tuned.png", 4, 5)]),
+    ("figure_style_content_sep", [], 6, 30, 0, [("style_content_sep.png", 3, 5),
+                                                 ("random_baseline.png", 3, 5)]),
+    ("figure_supervised_comp", [], 6, 30, 0, [("supervised_comp.png", 6, 5)]),
+    ("figure_first_20_pcs", ["-c", str(FIRST_PCS_ROWS)], FIRST_PCS_ROWS,
+     5 * FIRST_PCS_ROWS, 1, [("first_20_pcs.png", FIRST_PCS_ROWS, 5)]),
+    ("figure_edit_zoo", [], 3, 15, 0, [("edit_zoo.png", 3, 5)]),
+]
+FIG_BG_RES = 128
+FIG_BG = [
+    ("figure_biggan_style_resampling", [], 12, 12, 0, [("biggan_style_resampling.png", 3, 4)]),
+    ("figure_biggan_style_mixing", [], 12, 12, 0, [("biggan_style_mixing.png", 4, 3)]),
+    ("figure_biggan_edit_transferability", [], 3, 15, 0,
+     [("biggan_edit_transferability.png", 3, 5)]),
+]
+# makesample at 1024 px: 16 StyleGAN2-FFHQ images in batches of 8
+SAMPLE_MODEL, SAMPLE_CLASS, SAMPLE_RES = "StyleGAN2", "ffhq", 1024
+SAMPLE_SIZE, SAMPLE_BATCH = 16, 8
+SAMPLE_ARGS = ["--model", SAMPLE_MODEL, "--class", SAMPLE_CLASS, "--size", str(SAMPLE_SIZE),
+               "--batch", str(SAMPLE_BATCH)]
+
+
+def run_figure(gpu: str, spec: tuple, res: int, outdir: str, want) -> dict:
+    """One figure's ``main`` on the card: its launches held to
+    ``want(forwards, fits)``, each PNG decoded and its shape checked (rows
+    of frames with white bars of res / 64 px between them); its seconds
+    split into ``setup`` (the model and its components), the grids (frames
+    to uint8, padding, PNG) and the render between them."""
+    import importlib
+
+    from PIL import Image
+    name, argv, forwards, frames, fits, pngs = spec
+    mod = importlib.import_module(f"ganspace_tpu_torch.notebooks.{name}")
+    split = {"setup": 0.0, "grid": 0.0}
+
+    def timed_call(fn, key):
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                split[key] += time.perf_counter() - t
+        return call
+
+    own = mod.setup, mod.save_figure_grid
+    mod.setup, mod.save_figure_grid = timed_call(own[0], "setup"), timed_call(own[1], "grid")
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        mod.main(["--outdir", outdir, *argv])
+        torch.cuda.synchronize()
+    finally:
+        mod.setup, mod.save_figure_grid = own
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    expect_launches(launches, name, **want(forwards, fits))
+    sizes = []
+    for png, rows, per_row in pngs:
+        with Image.open(Path(outdir, png)) as im:
+            shape = np.asarray(im).shape
+        expected = (rows * res, per_row * res + (per_row - 1) * (res // 64), 3)
+        if shape != expected:
+            raise AssertionError(f"{name}: {png} is {shape}, expected {expected}")
+        sizes.append(f"{png} {shape[1]} x {shape[0]}")
+    render = seconds - split["setup"] - split["grid"]
+    log(f"{' '.join([name, *argv])}: {seconds:.3f} s (setup {split['setup']:.3f}, render "
+        f"{render:.3f}, grids {split['grid']:.3f}), {frames} frames at {res} px in {forwards} "
+        f"forwards, {frames / seconds:.2f} frames/s ({frames / render:.2f} in the render); "
+        f"launches {launches}; {', '.join(sizes)} [{gpu}]")
+    return launches
+
+
+def check_figures_vs_cpu(outdir: str) -> None:
+    """The teaser's first chain (its 4 frames) and one BigGAN style-mixing
+    cell (content seed 1, style seed 41) on the card and on the CPU, built
+    by the figures' own setup on the same weights and the same cache; the
+    PCA illustration's axes (no generator, no kernel: the figure itself
+    needs matplotlib, which the phase does without) the same way."""
+    from ganspace_tpu_torch.notebooks import figure_biggan_style_mixing as mixing
+    from ganspace_tpu_torch.notebooks import figure_pca_illustration as illustration
+    from ganspace_tpu_torch.notebooks import figure_teaser as teaser
+    from ganspace_tpu_torch.notebooks.notebook_init import parse_args, setup
+    out = {}
+    for device in ("cuda", "cpu"):
+        argv = ["--outdir", outdir, "--device", device]
+        ns = setup(parse_args(argv, model="StyleGAN2", layer="style", components=8))
+        chain = teaser.perform_edit_chain(ns, 5, teaser.chain_edits(8))
+        ns = setup(parse_args(argv, model="BigGAN-128", output_class="husky",
+                              layer="generator.gen_z", components=8, n=512), use_w=False)
+        cell = ns.model.sample_np(mixing.mixed_latents(ns.model, mixing.CONTENT_SEEDS[0],
+                                                       mixing.STYLE_SEEDS[0]))
+        out[device] = (np.stack(chain), cell)
+        del ns
+    for what, got, ref in (("teaser chain (4 frames, 1024 px)", out["cuda"][0], out["cpu"][0]),
+                           ("BigGAN-128 style-mixing cell", out["cuda"][1], out["cpu"][1])):
+        rel = float(np.abs(2 * got - 2 * ref).max() / np.abs(2 * ref - 1).max())
+        log(f"{what}, card vs CPU: rel {rel:.3e} (bar {IMAGE_REL:.0e})")
+        if not (got.shape == ref.shape and np.isfinite(got).all() and rel < IMAGE_REL):
+            raise AssertionError(f"card and CPU disagree on the {what}")
+    pts = illustration.point_cloud(0)
+    (comp, stdev), (ref_comp, ref_stdev) = (illustration.principal_axes(pts, d)
+                                            for d in ("cuda", "cpu"))
+    cos = np.abs(np.sum(comp * ref_comp, axis=1)).min()
+    stdev_rel = float(np.abs(stdev / ref_stdev - 1).max())
+    log(f"PCA illustration axes, card vs CPU: min |cos| {cos:.9f}, stdev rel "
+        f"{stdev_rel:.2e}")
+    if not (cos > 1 - 1e-6 and stdev_rel < 1e-5):
+        raise AssertionError("card and CPU disagree on the PCA illustration's axes")
+
+
+def run_makesample(gpu: str, outdir: str) -> None:
+    """``python -m ganspace_tpu_torch makesample`` in a process of its own:
+    its 16 PNGs decode bit for bit to the card's ``sample_np(uint8=True)``
+    of the same seeds and batches; prints which writer ran."""
+    from PIL import Image
+
+    from ganspace_tpu_torch.models import get_model
+    cmd = [sys.executable, "-m", "ganspace_tpu_torch", "makesample", *SAMPLE_ARGS,
+           "--outdir", outdir]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, capture_output=True,
+                          text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"makesample exited {proc.returncode}: {proc.stderr[-2000:]}")
+    writer = [line for line in proc.stdout.splitlines() if line.startswith("writer:")]
+    model = get_model(SAMPLE_MODEL, SAMPLE_CLASS, device="cuda")
+    for start in range(0, SAMPLE_SIZE, SAMPLE_BATCH):
+        ref = model.sample_np(model.sample_latent(SAMPLE_BATCH, seed=1 + start), uint8=True)
+        for i in range(SAMPLE_BATCH):
+            with Image.open(Path(outdir, f"image_{start + i:05d}.png")) as im:
+                got = np.asarray(im)
+            if got.shape != (SAMPLE_RES, SAMPLE_RES, 3) or not np.array_equal(got, ref[i]):
+                raise AssertionError(f"makesample image {start + i} differs from sample_np")
+    if not Path(outdir, "+lightbox.html").is_file():
+        raise AssertionError("makesample wrote no lightbox page")
+    log(f"makesample: {SAMPLE_SIZE} images at {SAMPLE_RES} px bit for bit the card's sample_np, "
+        f"{writer[0] if writer else 'no writer line'}; the process took {seconds:.2f} s, "
+        f"start-up included [{gpu}]")
+
+
+def run_figures(gpu: str) -> dict:
+    """The six StyleGAN2-FFHQ-1024 figures and the three BigGAN-128 ones at
+    full width in one GANSPACE_OUTPUT_DIR, then the vs-CPU checks and
+    makesample: the launch counts by figure."""
+    from ganspace_tpu_torch.ops.precision import ieee_f32
+    plain, up = bg_counts(resolution=FIG_BG_RES)
+
+    def sg2(forwards, fits):
+        return dict(centered_gram=fits, modconv3x3=B_PER_FORWARD * forwards,
+                    upsample_conv=UP_PER_FORWARD * forwards)
+
+    def bg(forwards, fits):
+        return dict(centered_gram=fits, conv3x3=plain * forwards, upsample_conv=up * forwards)
+
+    launches = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out, environ(GANSPACE_OUTPUT_DIR=out):
+        figs = str(Path(out, "figures"))
+        for specs, res, want in ((FIG_SG2, 1024, sg2), (FIG_BG, FIG_BG_RES, bg)):
+            for spec in specs:
+                path = "fig_" + spec[0].removeprefix("figure_")
+                launches[path] = run_figure(gpu, spec, res, figs, want)
+        log(f"figures wall time: {time.perf_counter() - t0:.1f} s [{gpu}]")
+        with ieee_f32():
+            check_figures_vs_cpu(figs)
+        run_makesample(gpu, str(Path(out, "samples")))
+    log(f"figure phase wall time: {time.perf_counter() - t0:.1f} s [{gpu}]")
+    return launches
 
 
 # -- the preview policy: --dtype bfloat16, the bf16 first pass, the viewer ---
@@ -3569,6 +3776,8 @@ def main() -> int:
     del tap_inst
     launches["dc_cli"] = run_dcgan_cli(gpu)
     log(f"ProGAN and DCGAN phases wall time: {time.perf_counter() - t0:.1f} s")
+    # the paper's figure scripts and makesample at full width
+    launches.update(run_figures(gpu))
     # the preview policy on BigGAN, ProGAN and DCGAN
     t0 = time.perf_counter()
     launches["pg_cli_bf16"] = run_progan_bf16_cli(gpu, pg_l6)

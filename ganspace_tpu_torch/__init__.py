@@ -6,11 +6,12 @@ sample latents, run the generator to a tap on the card, fit the streaming
 IPCA estimator (exact moments or the Nystrom sketch) or a full-batch one
 (PCA, randomized SVD, FastICA, sparse PCA), regress the components to
 latent space, write the ``.npz`` component cache and render the edit
-grids, sweep videos and gallery pages; the web viewer; and the bf16
-preview policy (``ops/precision.py``).  ``python -m ganspace_tpu_torch``
-dispatches to the CLIs.  The two Pallas kernels of the JAX package are
-hand-written CUDA kernels here (``csrc/``), each beside its plain PyTorch
-version.
+grids, sweep videos and gallery pages; the web viewer; the bf16 preview
+policy (``ops/precision.py``); the paper's figure scripts
+(``notebooks/``); and ``makesample`` with its image writer pool
+(``native/``).  ``python -m ganspace_tpu_torch`` dispatches to the CLIs.
+The two Pallas kernels of the JAX package are hand-written CUDA kernels
+here (``csrc/``), each beside its plain PyTorch version.
 Models are built on the card unless the caller names another device.
 
 The package imports ``torch`` and never ``jax`` or ``ganspace_tpu``.

@@ -4,8 +4,7 @@
 
 The dispatcher of ``ganspace_tpu/__main__.py``, with the commands the port
 has.  The JAX package's dissection and tool commands (``dissect``,
-``makesample``, ``ganseg``, ``allunitsample``) are not ported yet
-(ROADMAP.md, queue 1).
+``ganseg``, ``allunitsample``) are not ported yet (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ COMMANDS = {
                   "compute components and render grids/videos"),
     "interactive": ("ganspace_tpu_torch.apps.interactive",
                     "web viewer with sliders and direction export"),
+    "makesample": ("ganspace_tpu_torch.tools.makesample", "sample images to PNGs"),
 }
 
 

@@ -11,10 +11,12 @@ A component is applied as
 
 The *centered* variant first projects the sample onto the component and
 subtracts, so sigma=0 lands exactly on the mean (``notebook_utils.py:68-81``).
+:func:`save_frames` writes the strips as PNGs (``notebook_utils.py:175-200``).
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import List
 
 import numpy as np
@@ -23,6 +25,18 @@ import torch
 
 def _normalize(v):
     return v / torch.sqrt(torch.sum(v ** 2, dim=-1, keepdim=True) + 1e-8)
+
+
+def create_strip(inst, mode, layer, latents, x_comp, z_comp, act_stdev, lat_stdev,
+                 sigma, layer_start, layer_end, num_frames=5, as_uint8=False,
+                 max_batch=None):
+    """Apply the edit to the given latents; a strip of images per latent.
+    ``as_uint8=True`` quantizes the frames on the device before the copy to
+    the host; ``max_batch`` caps the frames per forward."""
+    return _create_strip_impl(inst, mode, layer, latents, x_comp, z_comp,
+                              act_stdev, lat_stdev, None, None, sigma,
+                              layer_start, layer_end, num_frames, center=False,
+                              as_uint8=as_uint8, max_batch=max_batch)
 
 
 def create_strip_centered(inst, mode, layer, latents, x_comp, z_comp, act_stdev,
@@ -138,3 +152,38 @@ def _create_strip_impl(inst, mode, layer, latents, x_comp, z_comp, act_stdev,
         inst.remove_edits()
 
     return frames
+
+
+def save_frames(title, model_name, rootdir, frames, strip_width=10):
+    """Grid and per-strip PNG writer (reference ``notebook_utils.py:175-200``):
+    ``{rootdir}/{model_name}/{name}/{name}_all.png`` when there are at least
+    ``strip_width`` strips, and ``{name}_{i}.png`` for each strip, scaled so
+    that a frame is at most 512 px high."""
+    from PIL import Image
+
+    from ganspace_tpu_torch.imaging import pad_frames, prettify_name, to_uint8
+
+    test_name = prettify_name(title)
+    outdir = Path(rootdir) / model_name / test_name
+    outdir.mkdir(parents=True, exist_ok=True)
+
+    ratio = min(1.0, 512 / frames[0][0].shape[0])
+
+    def save(img, name):
+        im = Image.fromarray(to_uint8(img))
+        im = im.resize((int(ratio * im.size[0]), int(ratio * im.size[1])),
+                       Image.LANCZOS)
+        im.save(outdir / f"{test_name}_{name}.png")
+
+    strips = [np.hstack(strip) for strip in frames[:strip_width]]
+    if len(strips) >= strip_width:
+        left_col = np.vstack(strips[0:strip_width // 2])
+        right_col = np.vstack(strips[strip_width // 2:strip_width])
+        pad_val = 255 if left_col.dtype == np.uint8 else 1
+        save(np.hstack([left_col, np.full_like(left_col[:, :30], pad_val), right_col]),
+             "all")
+    else:
+        print("Too few strips to create grid, creating just strips!")
+
+    for ex_num, strip in enumerate(frames[:strip_width]):
+        save(np.hstack(pad_frames(strip)), ex_num)

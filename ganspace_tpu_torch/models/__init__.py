@@ -32,6 +32,11 @@ def register_model(name: str, factory) -> None:
     _CUSTOM_MODELS[name] = factory
 
 
+def unregister_model(name: str) -> None:
+    """Forget the generator registered under ``name`` (no error if none is)."""
+    _CUSTOM_MODELS.pop(name, None)
+
+
 def _only(kwargs, keys):
     return {k: v for k, v in kwargs.items() if k in keys}
 
@@ -121,6 +126,7 @@ def get_instrumented_model(name, output_class=None, layers=None, device="cuda",
 
 __all__ = [
     "register_model",
+    "unregister_model",
     "get_model",
     "get_instrumented_model",
     "annotate_model_shapes",

@@ -1,1 +1,1 @@
-"""Host tools of the port (``lightbox``)."""
+"""Host tools of the port (``lightbox``, ``makesample``, ``upconv_split``)."""

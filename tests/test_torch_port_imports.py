@@ -48,6 +48,21 @@ MODULES = [
     "ganspace_tpu_torch.tools",
     "ganspace_tpu_torch.tools.lightbox",
     "ganspace_tpu_torch.tools.upconv_split",
+    "ganspace_tpu_torch.tools.makesample",
+    "ganspace_tpu_torch.native",
+    "ganspace_tpu_torch.notebooks",
+    "ganspace_tpu_torch.notebooks.notebook_init",
+    "ganspace_tpu_torch.notebooks.run_all",
+    "ganspace_tpu_torch.notebooks.figure_pca_illustration",
+    "ganspace_tpu_torch.notebooks.figure_teaser",
+    "ganspace_tpu_torch.notebooks.figure_pca_cleanup",
+    "ganspace_tpu_torch.notebooks.figure_style_content_sep",
+    "ganspace_tpu_torch.notebooks.figure_supervised_comp",
+    "ganspace_tpu_torch.notebooks.figure_first_20_pcs",
+    "ganspace_tpu_torch.notebooks.figure_edit_zoo",
+    "ganspace_tpu_torch.notebooks.figure_biggan_style_resampling",
+    "ganspace_tpu_torch.notebooks.figure_biggan_style_mixing",
+    "ganspace_tpu_torch.notebooks.figure_biggan_edit_transferability",
 ]
 
 
