@@ -142,7 +142,18 @@ Phases, each of which raises on failure:
    the card against the CPU; ``python -m ganspace_tpu_torch makesample``
    (16 StyleGAN2 images at 1024 px) in a process of its own, its PNGs bit
    for bit the card's ``sample_np``, and which image writer ran;
-20. every kernel shape launched over the run (recorded in front of the
+20. GAN dissection: ``python -m ganspace_tpu_torch dissect`` in a process
+   of its own (``dissect_child``), on ProGAN-256 (bedroom, ``layer4``,
+   1000 samples, ``--iqr --maxiou --cov --rank-all-labels``) and
+   StyleGAN2-FFHQ-1024 (``convs.2``, 64 samples, ``--iqr --cov``), the
+   color segmenter, each pass with its exact kernel launches, seconds and
+   peak memory; the ProGAN command again (both caches reused, the same
+   report), then ``--no-labels`` on its directory through ``python -m
+   ganspace_tpu_torch.dissection``; the report's files with the JAX
+   package's names and npz fields; one fused batch profiled; the fused
+   pass, the tally and the scores at 32 samples on the card against the
+   CPU (max_iou and max_iqr against a control under other label noise);
+21. every kernel shape launched over the run (recorded in front of the
    kernel library) that phase 5 did not cover, such as the fits' batch-1
    probes and the viewer's batch-1 frames, held against its plain version
    by the same bars, on the datapath it was launched on.
@@ -2963,6 +2974,346 @@ def run_figures(gpu: str) -> dict:
     return launches
 
 
+# -- GAN dissection, part 1 (ganspace_tpu_torch/dissection) -------------------
+
+# ProGAN-256 (class bedroom) at layer4, GAN Dissection's own model family and
+# its canonical layer (512 units at 8 px), at dissect()'s default of 1000
+# samples; then StyleGAN2-FFHQ-1024 at convs.2 (512 units at 16 px), the
+# README's dissection command with the color segmenter in place of the
+# unified one, cut from 1000 samples to DISSECT_SG2_N: each 1024-px image
+# feeds 512 x 2^20 upsampled values to the unconditional sketch, 1024 chunks
+# of its 1024 columns, and the 1000-sample run would hold the phase for
+# minutes.  Every pass of a run (the fused stats + conditional pass, the
+# tally, the covariance pass) runs one full forward per batch of 16; the
+# report one forward of a unit's four top samples for each of its 20 units;
+# the CLI's shape annotation one batch-1 forward up to the layer.
+DISSECT_BATCH, DISSECT_EXAMPLES = 16, 20
+DISSECT_PG_N, DISSECT_SG2_N, DISSECT_VS_CPU_N = 1000, 64, 32
+DISSECT_PG_LAYER, DISSECT_SG2_LAYER = "layer4", "convs.2"
+DISSECT_PG_ARGS = ["--model", "ProGAN", "--class", "bedroom", "--layer", DISSECT_PG_LAYER,
+                   "--samples", str(DISSECT_PG_N), "--batch", str(DISSECT_BATCH),
+                   "--segmenter", "color", "--iqr", "--maxiou", "--cov", "--rank-all-labels"]
+DISSECT_SG2_ARGS = ["--model", "StyleGAN2", "--class", "ffhq", "--layer", DISSECT_SG2_LAYER,
+                    "--samples", str(DISSECT_SG2_N), "--batch", str(DISSECT_BATCH),
+                    "--segmenter", "color", "--iqr", "--cov"]
+#: the npz fields of the JAX package's iqr.npz and max_iou.npz
+IQR_FIELDS = {"max_iqr", "max_iqr_level", "max_iqr_quantile", "max_iqr_agreement",
+              "max_iqr_iou"}
+MAXIOU_FIELDS = {"max_iou", "max_iou_level", "max_iou_quantile"}
+#: the dissection passes the child process times and counts, by the CLI's
+#: module-level names
+DISSECT_PASSES = {"stats+conditional": ("dissect", "collect_stats_and_cond_quantiles"),
+                  "stats": ("dissect", "tally_stats"), "tally": ("dissect", "dissect"),
+                  "covariance": ("dissect", "collect_covariance"),
+                  "report": ("report", "generate_report")}
+#: card against CPU: the conditional sketches differ by their label noise
+#: (Philox on the card, the CPU generator there), so max_iou and max_iqr are
+#: held to DISSECT_NOISE_RATIO times the difference that other label noise
+#: alone makes on the card (the control), in mean and 99th percentile |d|
+DISSECT_NOISE_RATIO = 2.0
+DISSECT_NOISE_SEED = 7919
+
+
+def dissect_child(out_json: str, commands: list) -> int:
+    """Runs in a process of its own: each command (an argument list) in
+    turn, ``python -m ganspace_tpu_torch dissect`` through the dispatcher,
+    or ``python -m ganspace_tpu_torch.dissection`` when it starts with
+    ``--module``; a line ``== dissect command i ==`` on stdout before each.
+    Writes to ``out_json``, per command, its exit code and seconds, its
+    launches (set to 0 just before it), each pass's launches, seconds and
+    peak device memory, the ``dissect.json`` it wrote; and every launched
+    shape."""
+    import importlib
+    import runpy
+
+    from ganspace_tpu_torch.__main__ import main as dispatch
+    recorder = record_launches()
+    passes = {}
+
+    def wrap(name, mod, attr):
+        fn = getattr(mod, attr)
+
+        def run(*args, **kwargs):
+            before = read_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            after = read_launches()
+            passes[name] = {"seconds": time.perf_counter() - t0,
+                            "launches": {k: after[k] - before[k] for k in after},
+                            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            return out
+        setattr(mod, attr, run)
+
+    for name, (mod, attr) in DISSECT_PASSES.items():
+        wrap(name, importlib.import_module(f"ganspace_tpu_torch.dissection.{mod}"), attr)
+    results = []
+    for i, argv in enumerate(commands):
+        print(f"== dissect command {i} ==", flush=True)
+        passes.clear()
+        reset_launches()
+        t0 = time.perf_counter()
+        if argv[:1] == ["--module"]:
+            sys.argv = ["ganspace_tpu_torch.dissection", *argv[1:]]
+            try:
+                runpy.run_module("ganspace_tpu_torch.dissection", run_name="__main__")
+                rc = 0
+            except SystemExit as e:
+                rc = e.code or 0
+        else:
+            rc = dispatch(["dissect", *argv])
+        torch.cuda.synchronize()
+        sys.stdout.flush()
+        layer = argv[argv.index("--layer") + 1].partition(":")
+        report = Path(argv[argv.index("--outdir") + 1], layer[2] or layer[0], "dissect.json")
+        results.append({"rc": rc, "seconds": time.perf_counter() - t0,
+                        "launches": read_launches(), "passes": dict(passes),
+                        "report": json.loads(report.read_text()) if report.is_file() else None})
+        if rc:
+            break
+    Path(out_json).write_text(json.dumps({"commands": results,
+                                          "seen": sorted(recorder.seen, key=str)}))
+    return max(r["rc"] for r in results)
+
+
+def dissect_launches(family: str, forwards: int, probe: bool = False) -> dict:
+    """Kernel launches of ``forwards`` full forwards of the family's
+    generator, plus the CLI's shape annotation (one batch-1 forward up to
+    the dissected layer) when ``probe``."""
+    if family == "ProGAN":
+        (plain, up), (p_plain, p_up) = pg_counts(), pg_counts(DISSECT_PG_LAYER)
+        return dict(conv3x3=plain * forwards + p_plain * probe,
+                    upsample_conv=up * forwards + p_up * probe)
+    return dict(modconv3x3=B_PER_FORWARD * forwards + B_PER_TAP_FORWARD * probe,
+                upsample_conv=UP_PER_FORWARD * forwards + UP_PER_TAP_FORWARD * probe)
+
+
+def run_dissect_cli(gpu: str, recorder: LaunchRecorder, runs: list) -> list:
+    """The dissect commands ``runs`` (path name, argument list, family, full
+    forwards by pass) in turn in one process of its own
+    (:func:`dissect_child`): each one's exit code, the exact launches of
+    each pass (ceil(n / 16) forwards for a pass over n samples, 20 for the
+    report) and of the whole command (those and the shape annotation); the
+    launched shapes added to the run's record.  Prints each pass's seconds,
+    launches and peak memory; returns each command's stdout."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out_json = str(Path(tmp, "child.json"))
+        code = ("import json, sys, chip_smoke; "
+                "sys.exit(chip_smoke.dissect_child(sys.argv[1], json.loads(sys.argv[2])))")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code, out_json,
+                               json.dumps([argv for _, argv, _, _ in runs])],
+                              cwd=Path(__file__).resolve().parent, capture_output=True,
+                              text=True, timeout=900)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"dissect exited {proc.returncode}: {proc.stdout[-2000:]}"
+                                 f"{proc.stderr[-3000:]}")
+        result = json.loads(Path(out_json).read_text())
+    recorder.seen.update(tuple(k) for k in result["seen"])
+    stdouts = proc.stdout.split("== dissect command ")[1:]
+    in_cli = 0.0
+    for (what, argv, family, pass_forwards), res, stdout in zip(runs, result["commands"],
+                                                                stdouts):
+        if set(res["passes"]) != set(pass_forwards):
+            raise AssertionError(f"{what}: passes {sorted(res['passes'])}, expected "
+                                 f"{sorted(pass_forwards)}")
+        for name, forwards in pass_forwards.items():
+            expect_launches(res["passes"][name]["launches"], f"{what}, {name}",
+                            **dissect_launches(family, forwards))
+        expect_launches(res["launches"], what,
+                        **dissect_launches(family, sum(pass_forwards.values()), probe=True))
+        in_cli += res["seconds"]
+        log(f"{what} ({' '.join(argv)}): {res['seconds']:.3f} s, launches "
+            f"{ {k: v for k, v in res['launches'].items() if v} } [{gpu}]")
+        for line in stdout.splitlines():
+            if line.startswith(("pass ", "reusing cached")):
+                log(f"  {line}")
+        for name, p in res["passes"].items():
+            log(f"  {name}: {p['seconds']:.3f} s, peak {p['peak_gib']:.2f} GiB, launches "
+                f"{ {k: v for k, v in p['launches'].items() if v} }")
+    log(f"dissect commands: {in_cli:.2f} s in the CLI, the process {seconds:.2f} s with "
+        f"its start-up [{gpu}]")
+    return [(res, stdout) for res, stdout in zip(result["commands"], stdouts)]
+
+
+def check_dissect_outputs(what: str, rep: dict, layer_dir: Path, res: int, maxiou: bool,
+                          labels: bool = True) -> None:
+    """A command's report (512 units, finite IoUs in [0, 1]) and its files:
+    the JAX package's names and npz fields, the unit images of its top 20
+    units, four samples side by side."""
+    from PIL import Image
+    names = ["dissect.json", "bargraph.svg", "dissect.html", "stats_cache.npz"]
+    if labels:
+        names += ["tally_cache.npz", "iqr.npz", "correlation.npy"]
+    missing = [n for n in names if not (layer_dir / n).is_file()]
+    if missing:
+        raise AssertionError(f"{what}: missing {missing}")
+    ious = np.array([u["iou"] for u in rep["units"]])
+    if len(rep["units"]) != 512 or not (np.isfinite(ious).all() and (0 <= ious).all()
+                                        and (ious <= 1).all()):
+        raise AssertionError(f"{what}: {len(rep['units'])} units or IoUs out of [0, 1]")
+    if labels:
+        for name, fields in (("iqr.npz", IQR_FIELDS),) + ((("max_iou.npz", MAXIOU_FIELDS),)
+                                                          if maxiou else ()):
+            with np.load(layer_dir / name) as z:
+                if set(z.files) != fields or any(
+                        z[k].shape != (512, 9) or not np.isfinite(z[k]).all() for k in fields):
+                    raise AssertionError(f"{what}: {name} fields {z.files}")
+        corr = np.load(layer_dir / "correlation.npy")
+        if corr.shape != (512, 9) or not np.isfinite(corr).all():
+            raise AssertionError(f"{what}: correlation.npy {corr.shape}")
+        from ganspace_tpu_torch.dissection import ColorSegmenter
+        if not (rep["labels"] == ColorSegmenter.NAMES and
+                all(u["label"] in rep["labels"] for u in rep["units"])):
+            raise AssertionError(f"{what}: labels {rep['labels']}")
+    tops = [f"unit_{u['unit']}.png" for u in rep["units"][:DISSECT_EXAMPLES]]
+    for name in tops:
+        with Image.open(layer_dir / "image" / name) as im:
+            shape = np.asarray(im).shape
+        if shape != (res, 4 * res, 3):
+            raise AssertionError(f"{what}: {name} is {shape}")
+    best = rep["units"][0]
+    log(f"{what}: {len(rep['units'])} units, best unit {best['unit']} '{best['label']}' IoU "
+        f"{best['iou']:.4f}; {len(tops)} unit images of {res} x {4 * res}; files "
+        f"{sorted(p.name for p in layer_dir.iterdir())}")
+
+
+def check_dissect_vs_cpu(gpu: str) -> dict:
+    """ProGAN-256 at layer4, DISSECT_VS_CPU_N samples: the fused pass, the
+    tally and the scores on the card and on the CPU (the same weights, host
+    latents and sketch flips): top-k values to 1e-4 relative, the sketch's
+    quantile levels to 1e-4 of the activation range, IoUs to 1e-3 with the
+    same best label wherever a unit's top two differ by more; max_iou and
+    max_iqr against the control (the card under other label noise)."""
+    import importlib
+
+    from ganspace_tpu_torch.models.base import InstrumentedModel
+    from ganspace_tpu_torch.models.proggan import ProGAN, ProGANConfig
+    from ganspace_tpu_torch.models.proggan import init_params as pg_init
+    td = importlib.import_module("ganspace_tpu_torch.dissection.dissect")
+    params = pg_init(ProGANConfig.for_resolution(256), seed=0)
+    seg = td.ColorSegmenter()
+    noise = td.label_noise
+    out = {}
+    reset_launches()
+    for run, device in (("card", "cuda"), ("cpu", "cpu"), ("control", "cuda")):
+        if run == "control":
+            td.label_noise = lambda s, i, shape, dev: noise(s + DISSECT_NOISE_SEED, i, shape, dev)
+        try:
+            inst = InstrumentedModel(ProGAN("bedroom", params=params, device=device))
+            t0 = time.perf_counter()
+            stats, cond = td.collect_stats_and_cond_quantiles(
+                inst, DISSECT_PG_LAYER, seg, n_samples=DISSECT_VS_CPU_N, batch=DISSECT_BATCH)
+            report = td.dissect(inst, DISSECT_PG_LAYER, seg, n_samples=DISSECT_VS_CPU_N,
+                                batch=DISSECT_BATCH, stats=stats)
+            out[run] = (stats, report, td.iqr_max_scores(cond), td.maxiou_scores(cond),
+                        time.perf_counter() - t0)
+        finally:
+            td.label_noise = noise
+    launches = read_launches()
+    (s, r, iq, mi, sec), (s0, r0, iq0, mi0, sec0), (_, _, iqc, mic, _) = (
+        out["card"], out["cpu"], out["control"])
+    top_rel = float(np.abs(s["topk_values"] - s0["topk_values"]).max()
+                    / np.abs(s0["topk_values"]).max())
+    qs = np.array([0.0, 0.01, 0.5, 0.99, 0.995, 1.0])
+    ref_q = s0["quantiles"].quantiles(qs)
+    span = float(ref_q.max() - ref_q.min())
+    level_err = float(np.abs(s["quantiles"].quantiles(qs) - ref_q).max() / span)
+    iou_err = float(np.abs(r["iou_matrix"] - r0["iou_matrix"]).max())
+    top2 = np.sort(r0["iou_matrix"], axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 1e-3
+    same_best = bool(np.array_equal(np.argmax(r["iou_matrix"], 1)[clear],
+                                    np.argmax(r0["iou_matrix"], 1)[clear]))
+    log(f"dissect card vs CPU (ProGAN-256 {DISSECT_PG_LAYER}, {DISSECT_VS_CPU_N} samples; "
+        f"{sec:.2f} s on the card, {sec0:.2f} s on the CPU): top-k rel {top_rel:.3e} (bar 1e-4), "
+        f"quantile levels {level_err:.3e} of the range (bar 1e-4), IoU max |d| {iou_err:.3e} "
+        f"(bar 1e-3), best label the same on {int(clear.sum())} clear units: {same_best} [{gpu}]")
+    ok = top_rel <= 1e-4 and level_err <= 1e-4 and iou_err <= 1e-3 and same_best
+    for name, got, ref, ctrl in (("max_iou", mi["max_iou"], mi0["max_iou"], mic["max_iou"]),
+                                 ("max_iqr", iq["max_iqr"], iq0["max_iqr"], iqc["max_iqr"])):
+        d, c = np.abs(got - ref), np.abs(got - ctrl)
+        stats_d = (float(d.mean()), float(np.quantile(d, 0.99)))
+        stats_c = (float(c.mean()), float(np.quantile(c, 0.99)))
+        log(f"  {name}: card vs CPU mean |d| {stats_d[0]:.4e}, p99 {stats_d[1]:.4e}; control "
+            f"(other label noise) {stats_c[0]:.4e}, {stats_c[1]:.4e} (bar "
+            f"{DISSECT_NOISE_RATIO}x the control)")
+        ok = ok and all(a <= DISSECT_NOISE_RATIO * b + 1e-6 for a, b in zip(stats_d, stats_c))
+    if not ok:
+        raise AssertionError("dissection: card and CPU disagree")
+    return {k: v for k, v in launches.items() if v}
+
+
+def run_dissect(gpu: str, recorder: LaunchRecorder) -> dict:
+    """The dissect phase: ProGAN-256 at 1000 samples, StyleGAN2-FFHQ-1024
+    at DISSECT_SG2_N, the ProGAN run again on its caches and with
+    ``--no-labels`` through ``python -m ganspace_tpu_torch.dissection``, a
+    profiled batch of the fused pass, and the card against the CPU."""
+    import importlib
+
+    from ganspace_tpu_torch.models import get_instrumented_model
+    from ganspace_tpu_torch.ops.precision import ieee_f32
+    td = importlib.import_module("ganspace_tpu_torch.dissection.dissect")
+    launches = {}
+    t0 = time.perf_counter()
+    batches = {n: -(-n // DISSECT_BATCH) for n in (DISSECT_PG_N, DISSECT_SG2_N)}
+    with tempfile.TemporaryDirectory() as out:
+        pg_out, sg2_out = str(Path(out, "pg")), str(Path(out, "sg2"))
+        pg_dir = Path(pg_out, DISSECT_PG_LAYER)
+        passes = ("stats+conditional", "tally", "covariance")
+        runs = [
+            ("dissect_pg", [*DISSECT_PG_ARGS, "--outdir", pg_out], "ProGAN",
+             {**{k: batches[DISSECT_PG_N] for k in passes}, "report": DISSECT_EXAMPLES}),
+            ("dissect_sg2", [*DISSECT_SG2_ARGS, "--outdir", sg2_out],
+             "StyleGAN2",
+             {**{k: batches[DISSECT_SG2_N] for k in passes}, "report": DISSECT_EXAMPLES}),
+            # the same flags again: both caches reused, the tally pass
+            # launches nothing; the covariance pass (never cached) and the
+            # report run
+            ("dissect_pg_again", [*DISSECT_PG_ARGS, "--outdir", pg_out],
+             "ProGAN", {"tally": 0, "covariance": batches[DISSECT_PG_N],
+                        "report": DISSECT_EXAMPLES}),
+            ("dissect_pg_no_labels",
+             ["--module", *DISSECT_PG_ARGS[:10], "--no-labels", "--outdir", pg_out], "ProGAN",
+             {"report": DISSECT_EXAMPLES})]
+        done = run_dissect_cli(gpu, recorder, runs)
+        for (path, *_), (res, _) in zip(runs, done):
+            launches[path] = res["launches"]
+        reports = [res["report"] for res, _ in done]
+        check_dissect_outputs("dissect ProGAN-256 layer4", reports[0], pg_dir, 256, maxiou=True)
+        check_dissect_outputs("dissect StyleGAN2-FFHQ-1024 convs.2", reports[1],
+                              Path(sg2_out, DISSECT_SG2_LAYER), 1024, maxiou=False)
+        if reports[2] != reports[0]:
+            raise AssertionError("the rerun on the caches changed the report")
+        again, no_labels = done[2][1], done[3][1]
+        for cache in ("stats_cache.npz", "tally_cache.npz"):
+            kind = cache.split("_")[0]
+            if f"reusing cached {kind}: {pg_dir / cache}" not in again:
+                raise AssertionError(f"the rerun did not reuse {cache}")
+        log(f"dissect ProGAN-256 layer4 again: reused {pg_dir / 'stats_cache.npz'} and "
+            f"{pg_dir / 'tally_cache.npz'}; the same report")
+        if f"reusing cached stats: {pg_dir / 'stats_cache.npz'}" not in no_labels:
+            raise AssertionError("--no-labels did not reuse the stats cache")
+        check_dissect_outputs("dissect --no-labels", reports[3], pg_dir, 256, maxiou=True,
+                              labels=False)
+        if reports[3]["labels"] != [] or any(u["label"] != "-" for u in reports[3]["units"]):
+            raise AssertionError("--no-labels: the report carries labels")
+    log(f"dissect CLI runs wall time: {time.perf_counter() - t0:.1f} s [{gpu}]")
+    inst = get_instrumented_model("ProGAN", "bedroom", DISSECT_PG_LAYER, torch.device("cuda"))
+    with ieee_f32():
+        profile_run(gpu, f"dissect fused pass, one batch of {DISSECT_BATCH} (ProGAN-256 "
+                    f"{DISSECT_PG_LAYER})", lambda: td.collect_stats_and_cond_quantiles(
+                        inst, DISSECT_PG_LAYER, td.ColorSegmenter(), n_samples=DISSECT_BATCH,
+                        batch=DISSECT_BATCH))
+    del inst
+    with ieee_f32():
+        launches["dissect_vs_cpu"] = check_dissect_vs_cpu(gpu)
+    log(f"dissect phase wall time: {time.perf_counter() - t0:.1f} s [{gpu}]")
+    return launches
+
+
 # -- the preview policy: --dtype bfloat16, the bf16 first pass, the viewer ---
 
 def run_bf16_cli(gpu: str, f32_arrays: dict) -> dict:
@@ -3778,6 +4129,8 @@ def main() -> int:
     log(f"ProGAN and DCGAN phases wall time: {time.perf_counter() - t0:.1f} s")
     # the paper's figure scripts and makesample at full width
     launches.update(run_figures(gpu))
+    # GAN dissection: ProGAN-256 and StyleGAN2-FFHQ-1024 through the dispatcher
+    launches.update(run_dissect(gpu, recorder))
     # the preview policy on BigGAN, ProGAN and DCGAN
     t0 = time.perf_counter()
     launches["pg_cli_bf16"] = run_progan_bf16_cli(gpu, pg_l6)

@@ -3,8 +3,8 @@
     python -m ganspace_tpu_torch <command> [args...]
 
 The dispatcher of ``ganspace_tpu/__main__.py``, with the commands the port
-has.  The JAX package's dissection and tool commands (``dissect``,
-``ganseg``, ``allunitsample``) are not ported yet (ROADMAP.md, queue 1).
+has.  The JAX package's tool commands ``ganseg`` and ``allunitsample`` are
+not ported yet (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ COMMANDS = {
                   "compute components and render grids/videos"),
     "interactive": ("ganspace_tpu_torch.apps.interactive",
                     "web viewer with sliders and direction export"),
+    "dissect": ("ganspace_tpu_torch.dissection.__main__",
+                "GAN dissection: unit quantiles, IoU vs segmentation, report"),
     "makesample": ("ganspace_tpu_torch.tools.makesample", "sample images to PNGs"),
 }
 

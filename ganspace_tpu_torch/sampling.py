@@ -21,6 +21,10 @@ from scipy on the host (:func:`truncated_latents`, the JAX package's values)
 and the inverse-CDF draw of ``trunc_normal_`` on a block's generator
 (:func:`device_truncated`), both within +-2 truncation.
 
+The dissection passes draw their latents on the host stream
+(``sample_latent(b, seed=seed + start)``) and their label sampler's Gumbel
+noise on a device stream of its own (``STREAM_LABELS``).
+
 Seed map (reference ``decomposition.py:34-37``):
   SAMPLING=1, RANDOM_DIRS=2, LINREG=3, VISUALIZATION=5.
 """
@@ -43,6 +47,11 @@ SEED_VISUALIZATION = 5
 #: stream (``PRNGKey(SEED_LINREG)``) and the random baseline directions
 #: (``PRNGKey(SEED_RANDOM_DIRS)``).
 STREAM_MAIN, STREAM_W_TAIL, STREAM_LINREG, STREAM_RAND_DIRS = range(4)
+#: the dissection label sampler's Gumbel noise, one block per batch (the
+#: JAX package splits ``PRNGKey(seed)`` once per batch)
+STREAM_LABELS = 4
+#: the key of the label stream's own bijection (the fractional bits of sqrt 2)
+_LABELS_KEY = 0x6A09E667F3BCC908
 
 _INT32_MAX = np.iinfo(np.int32).max
 _MASK64 = (1 << 64) - 1
@@ -58,11 +67,17 @@ def _mix64(v: int) -> int:
 def block_seed(seed: int, stream: int, i: int) -> int:
     """The 64-bit generator seed of block ``i`` of ``stream`` under ``seed``.
 
-    (stream, seed, i) packs into 2 + 31 + 31 bits and goes through a
-    bijection, so no two blocks of any streams share a seed."""
-    if not (stream in range(4) and 0 <= seed <= _INT32_MAX and 0 <= i <= _INT32_MAX):
+    For the four fit streams (stream, seed, i) packs into 2 + 31 + 31 bits
+    and goes through a bijection, so no two of their blocks share a seed.
+    Those words fill all 64 bits, so the label stream takes a second
+    bijection of (seed, i): its blocks never share a seed with each other,
+    and meet a fit stream's with probability about k^2 / 2^64 among k
+    blocks."""
+    if not (stream in range(5) and 0 <= seed <= _INT32_MAX and 0 <= i <= _INT32_MAX):
         raise ValueError(f"block_seed: stream {stream}, seed {seed}, block {i} "
                          f"out of range")
+    if stream == STREAM_LABELS:
+        return _mix64(_mix64((seed << 31) | i) ^ _LABELS_KEY)
     return _mix64((stream << 62) | (seed << 31) | i)
 
 
@@ -134,6 +149,62 @@ def device_truncated(gen: torch.Generator, n: int, dim: int, truncation: float) 
     t = torch.empty((n, dim), dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return truncation * t
+
+
+def gumbel(gen: torch.Generator, shape) -> torch.Tensor:
+    """Standard Gumbel noise of ``shape`` on ``gen``'s device, as
+    ``jax.random.gumbel`` forms it: ``-log(-log(u))``, u uniform in
+    [tiny, 1)."""
+    u = torch.rand(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    return -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
+
+
+def z_sample_for_model(model, size: int = 100, seed: int = 1) -> np.ndarray:
+    """Seeded z batch matching the model's latent dims
+    (reference ``netdissect/zdataset.py:26-40`` ``z_sample_for_model``)."""
+    return gaussian_latents(size, model.get_latent_dims(), seed)
+
+
+class FixedSubsetSampler:
+    """Deterministic index subset (reference ``netdissect/sampler.py``):
+    iterate/sample a fixed list of dataset indices."""
+
+    def __init__(self, samples):
+        self.samples = list(samples)
+
+    def __iter__(self):
+        return iter(self.samples)
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        return self.samples[i]
+
+    def subset(self, new_subset):
+        return FixedSubsetSampler(self.dereference(new_subset))
+
+    def dereference(self, indices):
+        return [self.samples[i] for i in indices]
+
+
+class FixedRandomSubsetSampler(FixedSubsetSampler):
+    """Seeded random shuffle of [start, end), optionally filtered — a
+    reproducible train/val split helper (reference ``sampler.py``)."""
+
+    def __init__(self, data_source_length: int, start=None, end=None,
+                 seed: int = 1):
+        rs = np.random.RandomState(seed)
+        shuffled = rs.permutation(data_source_length)
+        self.start = start or 0
+        end = end if end is not None else data_source_length
+        super().__init__(shuffled[self.start:end].tolist())
+
+    def class_subset(self, labels, class_filter) -> "FixedSubsetSampler":
+        """Keep indices whose label matches ``class_filter``."""
+        keep = [i for i, s in enumerate(self.samples)
+                if labels[s] == class_filter]
+        return self.subset(keep)
 
 
 def random_directions(components: int, dimensions: int) -> np.ndarray:

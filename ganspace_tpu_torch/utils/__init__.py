@@ -1,1 +1,19 @@
-"""Host utilities of the port (``video``)."""
+"""Host utilities of the port: ``video``, and copies of the JAX package's
+host modules ``jobs``, ``progress`` and ``workerpool``."""
+
+from ganspace_tpu_torch.utils.jobs import (
+    claim_job, exit_if_job_done, job_done, mark_job_done, pending_jobs,
+    release_job,
+)
+from ganspace_tpu_torch.utils.progress import (
+    default_progress, desc_progress, post_progress, print_progress,
+    verbose_progress,
+)
+from ganspace_tpu_torch.utils.workerpool import WorkerBase, WorkerPool
+
+__all__ = [
+    "claim_job", "exit_if_job_done", "job_done", "mark_job_done",
+    "pending_jobs", "release_job",
+    "default_progress", "desc_progress", "post_progress", "print_progress",
+    "verbose_progress", "WorkerBase", "WorkerPool",
+]

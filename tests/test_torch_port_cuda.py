@@ -491,3 +491,36 @@ def test_full_batch_estimators_take_kernel_a_on_card(gen, name):
     cos = np.abs(np.sum(card.components_.astype(np.float64) * cpu.components_, axis=1))
     assert cos.min() > 0.999
     np.testing.assert_allclose(card.stdev, cpu.stdev, rtol=1e-4)
+
+
+def test_dissection_on_card_matches_cpu(gen):
+    """A tiny ProGAN's fused stats + conditional pass and tally on the card
+    (kernel B's plain and stride-2 modes) and on the CPU: the same top-k
+    values and levels (the sketch flips are host draws on both), IoUs within
+    1e-3."""
+    import importlib
+
+    import numpy as np
+    from ganspace_tpu_torch.models import proggan as pg
+    from ganspace_tpu_torch.models.base import InstrumentedModel
+    td = importlib.import_module("ganspace_tpu_torch.dissection.dissect")
+    cfg = pg.ProGANConfig((64, 32, 32, 16))
+    params = pg.init_params(cfg, 3)
+    out = {}
+    launches = (conv3x3.launches, upsample_conv.launches)
+    for device in ("cuda", "cpu"):
+        inst = InstrumentedModel(pg.ProGAN("bedroom", cfg=cfg, params=params, device=device))
+        with ieee_f32():
+            stats, cond = td.collect_stats_and_cond_quantiles(
+                inst, "layer2", td.ColorSegmenter(), n_samples=32, batch=8, seed=1)
+            report = td.dissect(inst, "layer2", td.ColorSegmenter(), n_samples=32,
+                                batch=8, seed=1, stats=stats)
+        out[device] = stats, cond, report
+    assert conv3x3.launches > launches[0] and upsample_conv.launches > launches[1]
+    (s, c, r), (s0, c0, r0) = out["cuda"], out["cpu"]
+    vals = s0["topk_values"]
+    assert np.abs(s["topk_values"] - vals).max() <= 1e-4 * np.abs(vals).max()
+    qs = np.array([0.01, 0.5, 0.995])
+    span = float(np.ptp(vals))
+    assert np.abs(s["quantiles"].quantiles(qs) - s0["quantiles"].quantiles(qs)).max() <= 1e-4 * span
+    assert np.abs(r["iou_matrix"] - r0["iou_matrix"]).max() <= 1e-3

@@ -63,6 +63,21 @@ MODULES = [
     "ganspace_tpu_torch.notebooks.figure_biggan_style_resampling",
     "ganspace_tpu_torch.notebooks.figure_biggan_style_mixing",
     "ganspace_tpu_torch.notebooks.figure_biggan_edit_transferability",
+    "ganspace_tpu_torch.utils.jobs",
+    "ganspace_tpu_torch.utils.progress",
+    "ganspace_tpu_torch.utils.workerpool",
+    "ganspace_tpu_torch.stats",
+    "ganspace_tpu_torch.stats.running",
+    "ganspace_tpu_torch.dissection",
+    "ganspace_tpu_torch.dissection.__main__",
+    "ganspace_tpu_torch.dissection.broden",
+    "ganspace_tpu_torch.dissection.dissect",
+    "ganspace_tpu_torch.dissection.report",
+    "ganspace_tpu_torch.dissection.runners",
+    "ganspace_tpu_torch.dissection.sampler",
+    "ganspace_tpu_torch.dissection.viz",
+    "ganspace_tpu_torch.examples",
+    "ganspace_tpu_torch.examples.custom_classifier",
 ]
 
 

@@ -458,8 +458,8 @@ def test_viewer_process_writes_no_bf16_cache(tmp_path, monkeypatch):
 def test_dispatcher(capsys, monkeypatch):
     assert dispatcher.main([]) == 0
     out = capsys.readouterr().out
-    assert "visualize" in out and "interactive" in out
-    assert dispatcher.main(["dissect"]) == 2
+    assert "visualize" in out and "interactive" in out and "dissect" in out
+    assert dispatcher.main(["ganseg"]) == 2
     calls = []
     monkeypatch.setattr(mod, "main", lambda argv: calls.append(argv))
     assert dispatcher.main(["interactive", "--port", "0"]) == 0

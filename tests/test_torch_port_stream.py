@@ -189,7 +189,7 @@ def test_refine_pass_sees_the_first_pass_samples(monkeypatch):
 
 def test_streams_never_share_a_seed():
     streams = (sampling.STREAM_MAIN, sampling.STREAM_W_TAIL, sampling.STREAM_LINREG,
-               sampling.STREAM_RAND_DIRS)
+               sampling.STREAM_RAND_DIRS, sampling.STREAM_LABELS)
     seeds = [sampling.block_seed(s, t, i) for s in (0, 1, 2, 3, 7, 2**31 - 1)
              for t in streams for i in range(300)]
     assert len(set(seeds)) == len(seeds)
@@ -199,7 +199,7 @@ def test_streams_never_share_a_seed():
     # a user seed of 3 (in JAX both are PRNGKey(3))
     assert not torch.equal(_draw(sampling.SEED_LINREG, sampling.STREAM_LINREG, 0),
                            _draw(3, sampling.STREAM_MAIN, 0))
-    for bad in ((-1, 0, 0), (0, 4, 0), (0, 0, 2**31)):
+    for bad in ((-1, 0, 0), (0, 5, 0), (0, 0, 2**31)):
         with pytest.raises(ValueError):
             sampling.block_seed(bad[0], bad[1], bad[2])
 
