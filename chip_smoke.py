@@ -151,9 +151,29 @@ Phases, each of which raises on failure:
    report), then ``--no-labels`` on its directory through ``python -m
    ganspace_tpu_torch.dissection``; the report's files with the JAX
    package's names and npz fields; one fused batch profiled; the fused
-   pass, the tally and the scores at 32 samples on the card against the
+   pass, the tally and the scores at 16 samples on the card against the
    CPU (max_iou and max_iqr against a control under other label noise);
-21. every kernel shape launched over the run (recorded in front of the
+21. GAN dissection, part 2 (``run_dissect_part2``), in a process of its
+   own through the dispatcher: ``dissect --segmenter unified`` (the
+   full-width UPerNet, 513 flat labels, 256 px) on ProGAN-256 ``layer4`` at
+   1000 samples with ``--iqr --maxiou``, the same command again on its
+   caches with ``--ace-class`` (the label with the largest pixel share; 50
+   Adam steps whose backward runs kernel B's plain mode and the stride-2
+   mode's stock adjoint; ``ace.json``, both ablation-effect curves, the ACE
+   page), ``--segmenter ade`` (resnet50-dilated8 + PPM, 150 classes) at 256
+   samples, ``ganseg --segmenter unified`` (16 images) and
+   ``allunitsample`` (128 samples, 512 unit grids); then the dissection
+   server on the unified run's session (127.0.0.1, an ephemeral port:
+   layers, units, rankings, a live ``/api/generate`` whose JPEG equals the
+   session's own grid encoded, features, feature maps, an intervention set,
+   a 65-id batch answering 400; each request timed); ACE on
+   StyleGAN2-FFHQ-1024 ``convs.2`` (5 steps at batch 2: kernel B's
+   modulated adjoint and the stride-2 stock adjoint); every backward shape
+   those runs launched against autograd through the plain version, with its
+   time beside cuDNN's; the unified segmenter (float32 logits, float64
+   probabilities and labels) and 2 ACE steps on the card against the CPU;
+   each with its exact launches, backward included;
+22. every kernel shape launched over the run (recorded in front of the
    kernel library) that phase 5 did not cover, such as the fits' batch-1
    probes and the viewer's batch-1 frames, held against its plain version
    by the same bars, on the datapath it was launched on.
@@ -201,9 +221,10 @@ and 11:
 
 Every path reads the launch counts of the four kernel entries (kernel A;
 kernel B's modulated, plain and stride-2 modes, one launch per call; the
-last three counted apart on the bf16 datapath, ``<name>_bf16``), set to 0
-just before it and read just after, and holds them to the counts its
-shapes give.
+last three counted apart on the bf16 datapath, ``<name>_bf16``; the
+backward's kernel-B launches in their mode's count, the stride-2 mode's
+stock adjoints apart, ``upsample_conv_adjoint``), set to 0 just before it
+and read just after, and holds them to the counts its shapes give.
 
 Kernel times are medians over launches by CUDA events, each launch after a
 write of a 128 MB buffer that evicts the 50 MB L2 (in the render each
@@ -1452,14 +1473,17 @@ def reset_launches() -> None:
         fn.launches = 0
         if name in BF16_COUNTS:
             fn.launches_bf16 = 0
+    _wrappers()["upsample_conv"].stock_adjoints = 0
 
 
 def read_launches() -> dict:
     """Every count: the float32 datapath's under the kernel's name, the bf16
-    datapath's under ``<name>_bf16``."""
+    datapath's under ``<name>_bf16``, and the stride-2 mode's stock x-adjoints
+    (ACE's backward) under ``upsample_conv_adjoint``."""
     wrappers = _wrappers()
     counts = {name: fn.launches for name, fn in wrappers.items()}
     counts.update({f"{name}_bf16": wrappers[name].launches_bf16 for name in BF16_COUNTS})
+    counts["upsample_conv_adjoint"] = wrappers["upsample_conv"].stock_adjoints
     return counts
 
 
@@ -2988,7 +3012,9 @@ def run_figures(gpu: str) -> dict:
 # report one forward of a unit's four top samples for each of its 20 units;
 # the CLI's shape annotation one batch-1 forward up to the layer.
 DISSECT_BATCH, DISSECT_EXAMPLES = 16, 20
-DISSECT_PG_N, DISSECT_SG2_N, DISSECT_VS_CPU_N = 1000, 64, 32
+# the card against the CPU cut from 32 samples to 16 in PR 15, for the
+# smoke's time (the CPU side of the check, ~37 s at 32)
+DISSECT_PG_N, DISSECT_SG2_N, DISSECT_VS_CPU_N = 1000, 64, 16
 DISSECT_PG_LAYER, DISSECT_SG2_LAYER = "layer4", "convs.2"
 DISSECT_PG_ARGS = ["--model", "ProGAN", "--class", "bedroom", "--layer", DISSECT_PG_LAYER,
                    "--samples", str(DISSECT_PG_N), "--batch", str(DISSECT_BATCH),
@@ -3005,7 +3031,8 @@ MAXIOU_FIELDS = {"max_iou", "max_iou_level", "max_iou_quantile"}
 DISSECT_PASSES = {"stats+conditional": ("dissect", "collect_stats_and_cond_quantiles"),
                   "stats": ("dissect", "tally_stats"), "tally": ("dissect", "dissect"),
                   "covariance": ("dissect", "collect_covariance"),
-                  "report": ("report", "generate_report")}
+                  "report": ("report", "generate_report"),
+                  "ace": ("ace", "ace_optimize"), "ace effect": ("ace", "ablation_effect")}
 #: card against CPU: the conditional sketches differ by their label noise
 #: (Philox on the card, the CPU generator there), so max_iou and max_iqr are
 #: held to DISSECT_NOISE_RATIO times the difference that other label noise
@@ -3014,20 +3041,32 @@ DISSECT_NOISE_RATIO = 2.0
 DISSECT_NOISE_SEED = 7919
 
 
+def top_label(outdir: str, layer: str) -> int:
+    """The flat label with the largest pixel share in a dissect run's
+    conditional statistics (its stats cache), label 0 ('-') aside."""
+    with np.load(Path(outdir, layer, "stats_cache.npz")) as z:
+        return int(np.argmax(z["label_fracs"][1:])) + 1
+
+
 def dissect_child(out_json: str, commands: list) -> int:
     """Runs in a process of its own: each command (an argument list) in
     turn, ``python -m ganspace_tpu_torch dissect`` through the dispatcher,
-    or ``python -m ganspace_tpu_torch.dissection`` when it starts with
-    ``--module``; a line ``== dissect command i ==`` on stdout before each.
-    Writes to ``out_json``, per command, its exit code and seconds, its
-    launches (set to 0 just before it), each pass's launches, seconds and
-    peak device memory, the ``dissect.json`` it wrote; and every launched
-    shape."""
+    ``python -m ganspace_tpu_torch.dissection`` when it starts with
+    ``--module``, or another dispatcher command (``ganseg``,
+    ``allunitsample``) named first; a line ``== dissect command i ==`` on
+    stdout before each.  ``@top_label`` in a command stands for
+    :func:`top_label` of its ``--outdir`` and ``--layer``.  Writes to
+    ``out_json``, per command, its exit code and seconds, its launches (set
+    to 0 just before it), each pass's launches, seconds and peak device
+    memory (summed over a pass's calls), the ``dissect.json`` it wrote; every
+    launched shape; and every case of the kernels' backward."""
     import importlib
     import runpy
 
+    from ganspace_tpu_torch.__main__ import COMMANDS
     from ganspace_tpu_torch.__main__ import main as dispatch
     recorder = record_launches()
+    adjoints = record_adjoints()
     passes = {}
 
     def wrap(name, mod, attr):
@@ -3041,9 +3080,11 @@ def dissect_child(out_json: str, commands: list) -> int:
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
             after = read_launches()
-            passes[name] = {"seconds": time.perf_counter() - t0,
-                            "launches": {k: after[k] - before[k] for k in after},
-                            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            p = passes.setdefault(name, {"seconds": 0.0, "launches": dict.fromkeys(after, 0),
+                                         "peak_gib": 0.0})
+            p["seconds"] += time.perf_counter() - t0
+            p["launches"] = {k: p["launches"][k] + after[k] - before[k] for k in after}
+            p["peak_gib"] = max(p["peak_gib"], torch.cuda.max_memory_allocated() / 2 ** 30)
             return out
         setattr(mod, attr, run)
 
@@ -3052,10 +3093,15 @@ def dissect_child(out_json: str, commands: list) -> int:
     results = []
     for i, argv in enumerate(commands):
         print(f"== dissect command {i} ==", flush=True)
+        if "@top_label" in argv:
+            k = top_label(argv[argv.index("--outdir") + 1], argv[argv.index("--layer") + 1])
+            argv = [str(k) if a == "@top_label" else a for a in argv]
         passes.clear()
         reset_launches()
         t0 = time.perf_counter()
-        if argv[:1] == ["--module"]:
+        if argv[0] in COMMANDS:
+            rc = dispatch(argv)
+        elif argv[:1] == ["--module"]:
             sys.argv = ["ganspace_tpu_torch.dissection", *argv[1:]]
             try:
                 runpy.run_module("ganspace_tpu_torch.dissection", run_name="__main__")
@@ -3066,15 +3112,18 @@ def dissect_child(out_json: str, commands: list) -> int:
             rc = dispatch(["dissect", *argv])
         torch.cuda.synchronize()
         sys.stdout.flush()
-        layer = argv[argv.index("--layer") + 1].partition(":")
-        report = Path(argv[argv.index("--outdir") + 1], layer[2] or layer[0], "dissect.json")
-        results.append({"rc": rc, "seconds": time.perf_counter() - t0,
+        report = Path("/nonexistent")
+        if "--layer" in argv and argv[0] not in COMMANDS:
+            layer = argv[argv.index("--layer") + 1].partition(":")
+            report = Path(argv[argv.index("--outdir") + 1], layer[2] or layer[0], "dissect.json")
+        results.append({"argv": argv, "rc": rc, "seconds": time.perf_counter() - t0,
                         "launches": read_launches(), "passes": dict(passes),
                         "report": json.loads(report.read_text()) if report.is_file() else None})
         if rc:
             break
     Path(out_json).write_text(json.dumps({"commands": results,
-                                          "seen": sorted(recorder.seen, key=str)}))
+                                          "seen": sorted(recorder.seen, key=str),
+                                          "adjoints": sorted(adjoints, key=str)}))
     return max(r["rc"] for r in results)
 
 
@@ -3090,21 +3139,38 @@ def dissect_launches(family: str, forwards: int, probe: bool = False) -> dict:
                 upsample_conv=UP_PER_FORWARD * forwards + UP_PER_TAP_FORWARD * probe)
 
 
-def run_dissect_cli(gpu: str, recorder: LaunchRecorder, runs: list) -> list:
-    """The dissect commands ``runs`` (path name, argument list, family, full
-    forwards by pass) in turn in one process of its own
-    (:func:`dissect_child`): each one's exit code, the exact launches of
-    each pass (ceil(n / 16) forwards for a pass over n samples, 20 for the
-    report) and of the whole command (those and the shape annotation); the
-    launched shapes added to the run's record.  Prints each pass's seconds,
-    launches and peak memory; returns each command's stdout."""
+def dissect_run(what: str, argv: list, family: str, pass_forwards: dict) -> tuple:
+    """A dissect command for :func:`run_dissect_cli` whose passes each run
+    full forwards (ceil(n / 16) for a pass over n samples, 20 for the
+    report): (path name, argument list, expected launches by pass, expected
+    launches of the command: the passes' and the shape annotation's)."""
+    return (what, argv, {k: dissect_launches(family, n) for k, n in pass_forwards.items()},
+            dissect_launches(family, sum(pass_forwards.values()), probe=True))
+
+
+def add_launches(*counts: dict) -> dict:
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def run_dissect_cli(gpu: str, recorder: LaunchRecorder, runs: list,
+                    adjoints: set | None = None) -> list:
+    """The commands ``runs`` (path name, argument list, expected launches
+    by pass, expected launches of the whole command) in turn in one process
+    of its own (:func:`dissect_child`): each one's exit code and exact
+    launches; the launched shapes added to the run's record, the backward's
+    cases to ``adjoints``.  Prints each pass's seconds, launches and peak
+    memory; returns each command's (result, stdout)."""
     with tempfile.TemporaryDirectory() as tmp:
         out_json = str(Path(tmp, "child.json"))
         code = ("import json, sys, chip_smoke; "
                 "sys.exit(chip_smoke.dissect_child(sys.argv[1], json.loads(sys.argv[2])))")
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-c", code, out_json,
-                               json.dumps([argv for _, argv, _, _ in runs])],
+                               json.dumps([run[1] for run in runs])],
                               cwd=Path(__file__).resolve().parent, capture_output=True,
                               text=True, timeout=900)
         seconds = time.perf_counter() - t0
@@ -3113,23 +3179,24 @@ def run_dissect_cli(gpu: str, recorder: LaunchRecorder, runs: list) -> list:
                                  f"{proc.stderr[-3000:]}")
         result = json.loads(Path(out_json).read_text())
     recorder.seen.update(tuple(k) for k in result["seen"])
+    if adjoints is not None:
+        adjoints.update(tuple(k) for k in result["adjoints"])
     stdouts = proc.stdout.split("== dissect command ")[1:]
+    if len(result["commands"]) != len(runs):
+        raise AssertionError(f"{len(result['commands'])} of {len(runs)} commands ran")
     in_cli = 0.0
-    for (what, argv, family, pass_forwards), res, stdout in zip(runs, result["commands"],
-                                                                stdouts):
-        if set(res["passes"]) != set(pass_forwards):
+    for (what, _, pass_expect, total), res, stdout in zip(runs, result["commands"], stdouts):
+        if set(res["passes"]) != set(pass_expect):
             raise AssertionError(f"{what}: passes {sorted(res['passes'])}, expected "
-                                 f"{sorted(pass_forwards)}")
-        for name, forwards in pass_forwards.items():
-            expect_launches(res["passes"][name]["launches"], f"{what}, {name}",
-                            **dissect_launches(family, forwards))
-        expect_launches(res["launches"], what,
-                        **dissect_launches(family, sum(pass_forwards.values()), probe=True))
+                                 f"{sorted(pass_expect)}")
+        for name, want in pass_expect.items():
+            expect_launches(res["passes"][name]["launches"], f"{what}, {name}", **want)
+        expect_launches(res["launches"], what, **total)
         in_cli += res["seconds"]
-        log(f"{what} ({' '.join(argv)}): {res['seconds']:.3f} s, launches "
+        log(f"{what} ({' '.join(res['argv'])}): {res['seconds']:.3f} s, launches "
             f"{ {k: v for k, v in res['launches'].items() if v} } [{gpu}]")
         for line in stdout.splitlines():
-            if line.startswith(("pass ", "reusing cached")):
+            if line.startswith(("pass ", "reusing cached", "ace", "wrote")):
                 log(f"  {line}")
         for name, p in res["passes"].items():
             log(f"  {name}: {p['seconds']:.3f} s, peak {p['peak_gib']:.2f} GiB, launches "
@@ -3264,20 +3331,21 @@ def run_dissect(gpu: str, recorder: LaunchRecorder) -> dict:
         pg_dir = Path(pg_out, DISSECT_PG_LAYER)
         passes = ("stats+conditional", "tally", "covariance")
         runs = [
-            ("dissect_pg", [*DISSECT_PG_ARGS, "--outdir", pg_out], "ProGAN",
-             {**{k: batches[DISSECT_PG_N] for k in passes}, "report": DISSECT_EXAMPLES}),
-            ("dissect_sg2", [*DISSECT_SG2_ARGS, "--outdir", sg2_out],
-             "StyleGAN2",
-             {**{k: batches[DISSECT_SG2_N] for k in passes}, "report": DISSECT_EXAMPLES}),
+            dissect_run("dissect_pg", [*DISSECT_PG_ARGS, "--outdir", pg_out], "ProGAN",
+                        {**{k: batches[DISSECT_PG_N] for k in passes},
+                         "report": DISSECT_EXAMPLES}),
+            dissect_run("dissect_sg2", [*DISSECT_SG2_ARGS, "--outdir", sg2_out], "StyleGAN2",
+                        {**{k: batches[DISSECT_SG2_N] for k in passes},
+                         "report": DISSECT_EXAMPLES}),
             # the same flags again: both caches reused, the tally pass
             # launches nothing; the covariance pass (never cached) and the
             # report run
-            ("dissect_pg_again", [*DISSECT_PG_ARGS, "--outdir", pg_out],
-             "ProGAN", {"tally": 0, "covariance": batches[DISSECT_PG_N],
-                        "report": DISSECT_EXAMPLES}),
-            ("dissect_pg_no_labels",
-             ["--module", *DISSECT_PG_ARGS[:10], "--no-labels", "--outdir", pg_out], "ProGAN",
-             {"report": DISSECT_EXAMPLES})]
+            dissect_run("dissect_pg_again", [*DISSECT_PG_ARGS, "--outdir", pg_out], "ProGAN",
+                        {"tally": 0, "covariance": batches[DISSECT_PG_N],
+                         "report": DISSECT_EXAMPLES}),
+            dissect_run("dissect_pg_no_labels",
+                        ["--module", *DISSECT_PG_ARGS[:10], "--no-labels", "--outdir", pg_out],
+                        "ProGAN", {"report": DISSECT_EXAMPLES})]
         done = run_dissect_cli(gpu, recorder, runs)
         for (path, *_), (res, _) in zip(runs, done):
             launches[path] = res["launches"]
@@ -3312,6 +3380,489 @@ def run_dissect(gpu: str, recorder: LaunchRecorder) -> dict:
         launches["dissect_vs_cpu"] = check_dissect_vs_cpu(gpu)
     log(f"dissect phase wall time: {time.perf_counter() - t0:.1f} s [{gpu}]")
     return launches
+
+
+# -- GAN dissection, part 2: the unified and ADE segmenters, ACE, the
+#    dissection server, ganseg and allunitsample ----------------------------
+
+#: the unified segmenter's run: the part-1 ProGAN command's layer, samples
+#: and batch; ACE at the CLI's defaults (50 Adam steps over 4 batches of 4;
+#: ablation effects at 7 cut sizes over 4 batches of 4, for two rankings)
+PART2_PG_ARGS = ["--model", "ProGAN", "--class", "bedroom", "--layer", DISSECT_PG_LAYER,
+                 "--samples", str(DISSECT_PG_N), "--batch", str(DISSECT_BATCH),
+                 "--iqr", "--maxiou"]
+DISSECT_ADE_N = 256          # cut from 1000 samples for time (PERF.md, section 4)
+ACE_STEPS, ACE_BATCHES, ACE_BATCH = 50, 4, 4
+ACE_EFFECT_FORWARDS = 7 * 4
+GANSEG_ARGS = ["ganseg", "--model", "ProGAN", "--class", "bedroom", "--segmenter",
+               "unified", "--size", "16"]
+GANSEG_BATCH = 8             # the command's default --batch
+ALLUNIT_ARGS = ["allunitsample", "--model", "ProGAN", "--class", "bedroom", "--layer",
+                DISSECT_PG_LAYER, "--samples", "128"]
+ALLUNIT_BATCH, ALLUNIT_TOPK = 16, 6    # the command's defaults
+#: ACE on StyleGAN2-FFHQ-1024 convs.2: 5 steps of one batch of 2
+SG2_ACE_STEPS, SG2_ACE_BATCH = 5, 2
+#: card against CPU: a near-tie is a pixel whose two best probabilities on
+#: the CPU lie within this
+SEG_TIE = 1e-4
+
+
+def record_adjoints() -> set:
+    """Record every case of the kernels' backward (ACE's) that this process
+    runs, as (mode, B, C, Co, H, W, ...) of the forward call it belongs to,
+    by wrapping the two autograd functions' backward."""
+    from ganspace_tpu_torch.ops import modconv
+    seen: set = set()
+    conv_bw, up_bw = modconv._Conv3x3Adjoint.backward, modconv._UpsampleConvAdjoint.backward
+
+    def conv(ctx, gy):
+        w, s, d = ctx.saved_tensors
+        b, co, h, wd = gy.shape
+        seen.add(("conv3x3" if s is None else "modconv3x3", b, w.shape[1], co, h, wd,
+                  d is not None))
+        return conv_bw(ctx, gy)
+
+    def up(ctx, gy):
+        w, s, d = ctx.saved_tensors
+        b, co, ho, wo = gy.shape
+        k = w.shape[-1]
+        h, wd = (ho + 2 * ctx.pad - k) // 2 + 1, (wo + 2 * ctx.pad - k) // 2 + 1
+        seen.add(("upsample_conv", b, w.shape[1], co, h, wd, k, ctx.pad, s is not None,
+                  d is not None))
+        return up_bw(ctx, gy)
+
+    modconv._Conv3x3Adjoint.backward = staticmethod(conv)
+    modconv._UpsampleConvAdjoint.backward = staticmethod(up)
+    return seen
+
+
+def pg_ace_launches(steps: int, batches: int) -> dict:
+    """ProGAN-256 launches of ``ace_optimize`` at layer4: the unit probe (a
+    forward up to the layer), the baseline's ``batches`` forwards, and per
+    step a forward and the backward of every layer after the tap (kernel B's
+    plain mode, the stride-2 mode's stock adjoint)."""
+    (plain, up), (p_plain, p_up) = pg_counts(), pg_counts(DISSECT_PG_LAYER)
+    return dict(conv3x3=p_plain + (batches + steps) * plain + steps * (plain - p_plain),
+                upsample_conv=p_up + (batches + steps) * up,
+                upsample_conv_adjoint=steps * (up - p_up))
+
+
+def pg_forwards(full: int, partial: int = 0) -> dict:
+    """ProGAN-256 launches of ``full`` forwards and ``partial`` forwards up
+    to layer4."""
+    (plain, up), (p_plain, p_up) = pg_counts(), pg_counts(DISSECT_PG_LAYER)
+    return dict(conv3x3=full * plain + partial * p_plain, upsample_conv=full * up + partial * p_up)
+
+
+def run_part2_cli(gpu: str, recorder: LaunchRecorder, out: str, adjoints: set) -> dict:
+    """The part-2 commands through the dispatcher, in one process: the
+    unified segmenter at DISSECT_PG_N samples, the same command again on its
+    caches with ``--ace-class`` (the label with the largest pixel share),
+    the ADE segmenter at DISSECT_ADE_N samples, ``ganseg`` and
+    ``allunitsample``; each with its exact launches.  Returns (launches by
+    path, the unified run's report and directory, ACE's class)."""
+    uni_out, ade_out = str(Path(out, "unified")), str(Path(out, "ade"))
+    n_uni, n_ade = -(-DISSECT_PG_N // DISSECT_BATCH), -(-DISSECT_ADE_N // DISSECT_BATCH)
+    uni_args = [*PART2_PG_ARGS, "--segmenter", "unified", "--outdir", uni_out]
+    ade_args = [*PART2_PG_ARGS, "--segmenter", "ade", "--outdir", ade_out]
+    ade_args[ade_args.index("--samples") + 1] = str(DISSECT_ADE_N)
+    effect = pg_forwards(ACE_EFFECT_FORWARDS, 1)
+    runs = [
+        dissect_run("dissect_unified", uni_args, "ProGAN",
+                    {"stats+conditional": n_uni, "tally": n_uni, "report": DISSECT_EXAMPLES}),
+        ("dissect_unified_ace", [*uni_args, "--ace-class", "@top_label"],
+         {"tally": {}, "report": pg_forwards(DISSECT_EXAMPLES),
+          "ace": pg_ace_launches(ACE_STEPS, ACE_BATCHES),
+          "ace effect": add_launches(effect, effect)},
+         add_launches(pg_forwards(DISSECT_EXAMPLES, 1), pg_ace_launches(ACE_STEPS, ACE_BATCHES),
+                      effect, effect)),
+        dissect_run("dissect_ade", ade_args, "ProGAN",
+                    {"stats+conditional": n_ade, "tally": n_ade, "report": DISSECT_EXAMPLES}),
+        ("ganseg", [*GANSEG_ARGS, "--outdir", str(Path(out, "ganseg"))], {},
+         pg_forwards(-(-16 // GANSEG_BATCH))),
+        ("allunitsample", [*ALLUNIT_ARGS, "--outdir", str(Path(out, "units"))], {},
+         pg_forwards(-(-128 // ALLUNIT_BATCH) + 512, 1)),
+    ]
+    done = run_dissect_cli(gpu, recorder, runs, adjoints)
+    launches = {path: res["launches"] for (path, *_), (res, _) in zip(runs, done)}
+    uni_dir, ade_dir = Path(uni_out, DISSECT_PG_LAYER), Path(ade_out, DISSECT_PG_LAYER)
+    reports = [res["report"] for res, _ in done[:3]]
+    check_part2_report("dissect --segmenter unified", reports[0], uni_dir, 1 + 335 + 152 + 25)
+    check_part2_report("dissect --segmenter ade", reports[2], ade_dir, 1 + 150)
+    if reports[1]["units"] != reports[0]["units"]:
+        raise AssertionError("the --ace-class rerun changed the report")
+    again = done[1][1]
+    for cache in ("stats_cache.npz", "tally_cache.npz"):
+        if f"reusing cached {cache.split('_')[0]}: {uni_dir / cache}" not in again:
+            raise AssertionError(f"the --ace-class rerun did not reuse {cache}")
+    classnum = int(done[1][0]["argv"][-1])
+    check_ace_outputs(uni_dir, reports[0], classnum, again)
+    check_tool_outputs(Path(out))
+    return launches, reports[0], uni_dir, classnum
+
+
+def check_part2_report(what: str, rep: dict, layer_dir: Path, n_labels: int) -> None:
+    """A part-2 report: 512 units with finite IoUs in [0, 1] against the
+    segmenter's flat labels, the files of a run with ``--iqr --maxiou``."""
+    names = ["dissect.json", "bargraph.svg", "dissect.html", "stats_cache.npz",
+             "tally_cache.npz", "iqr.npz", "max_iou.npz"]
+    missing = [n for n in names if not (layer_dir / n).is_file()]
+    ious = np.array([u["iou"] for u in rep["units"]])
+    if missing or len(rep["units"]) != 512 or len(rep["labels"]) != n_labels or not (
+            np.isfinite(ious).all() and (0 <= ious).all() and (ious <= 1).all()):
+        raise AssertionError(f"{what}: missing {missing}, {len(rep['units'])} units, "
+                             f"{len(rep['labels'])} labels (expected {n_labels})")
+    best = rep["units"][0]
+    log(f"{what}: {len(rep['labels'])} labels, best unit {best['unit']} '{best['label']}' "
+        f"IoU {best['iou']:.4f}, {len(list((layer_dir / 'image').glob('unit_*.png')))} "
+        f"unit images")
+
+
+def check_ace_outputs(layer_dir: Path, rep: dict, classnum: int, stdout: str) -> None:
+    """``ace.json`` (the class, 512 ablations in [0, 1], 50 losses, the
+    loss at the end no larger than at the start, both effect curves at the
+    seven cut sizes), the ACE page and its two plots, or, where matplotlib
+    is not installed, the page's table and the command's line saying so.
+    The steps cycle through ACE_BATCHES batches of latents, so the loss at
+    the end is the last step's on the first step's batch."""
+    import importlib.util
+
+    from PIL import Image
+    ace = json.loads((layer_dir / "ace.json").read_text())
+    alpha, losses = np.asarray(ace["ablation"]), np.asarray(ace["loss_history"])
+    curves = (ace["ablation_effect"], ace["iou_ablation_effect"])
+    end = (ACE_STEPS - 1) // ACE_BATCHES * ACE_BATCHES      # the first batch's last step
+    if not (ace["classnum"] == classnum and alpha.shape == (512,) and
+            ((0 <= alpha) & (alpha <= 1)).all() and losses.shape == (ACE_STEPS,) and
+            np.isfinite(losses).all() and losses[end] <= losses[0] and
+            all(sorted(map(int, c)) == [0, 1, 2, 4, 8, 16, 32] for c in curves)):
+        raise AssertionError(f"ace.json: class {ace['classnum']}, losses {losses[:3]}..."
+                             f"{losses[-3:]}")
+    page = (layer_dir / "ace.html").read_text()
+    plots = ("ace-loss.png", "ace-effect.png")
+    if "saturated units" not in page:
+        raise AssertionError("ace.html has no table")
+    if importlib.util.find_spec("matplotlib") is None:
+        if "ace: matplotlib is not installed" not in stdout or any(
+                (layer_dir / p).exists() or p in page for p in plots):
+            raise AssertionError("no matplotlib, and the command did not say so")
+        log("ACE plots: matplotlib is not installed on this machine, so ace-loss.png and "
+            "ace-effect.png were not written (ace.json and the ACE page's table were)")
+        shown = "the table (no plots: matplotlib is not installed)"
+    else:
+        for name in plots:
+            if name not in page:
+                raise AssertionError(f"ace.html does not show {name}")
+            with Image.open(layer_dir / name) as im:
+                if min(im.size) < 100:
+                    raise AssertionError(f"{name} is {im.size}")
+        shown = "ace-loss.png and ace-effect.png"
+    log(f"ACE --ace-class {classnum} ('{rep['labels'][classnum]}'): baseline presence "
+        f"{ace['baseline']:.6f}, loss on the first batch {losses[0]:.6f} (step 0) -> "
+        f"{losses[end]:.6f} (step {end}), the last step's {losses[-1]:.6f}; "
+        f"{int((alpha >= 0.999).sum())} units saturated, top units "
+        f"{ace['ranking'][:8]}; presence with the top 8 ablated: by ACE "
+        f"{ace['ablation_effect']['8']:.6f}, by IoU {ace['iou_ablation_effect']['8']:.6f}; "
+        f"ace.html with {shown}")
+
+
+def check_tool_outputs(out: Path) -> None:
+    """``ganseg``'s 16 image|segmentation PNGs (256 x 512) and
+    ``allunitsample``'s 512 unit grids (256 x 1536), each with its page."""
+    from PIL import Image
+    for sub, pattern, count, shape in (("ganseg", "ganseg_*.png", 16, (256, 512, 3)),
+                                       ("units", "unit_*.png", 512,
+                                        (256, 256 * ALLUNIT_TOPK, 3))):
+        files = sorted((out / sub).glob(pattern))
+        if len(files) != count or not (out / sub / "+lightbox.html").is_file():
+            raise AssertionError(f"{sub}: {len(files)} PNGs, expected {count}")
+        for f in (files[0], files[-1]):
+            with Image.open(f) as im:
+                if np.asarray(im).shape != shape:
+                    raise AssertionError(f"{f.name} is {np.asarray(im).shape}")
+    log(f"ganseg: 16 image|segmentation PNGs of 256 x 512; allunitsample: 512 unit grids "
+        f"of 256 x {256 * ALLUNIT_TOPK}")
+
+
+def run_part2_server(gpu: str, report: dict, layer_dir: Path) -> dict:
+    """The dissection server on the unified run's session (ProGAN-256
+    layer4, its report), 127.0.0.1 on an ephemeral port: the layers, units
+    and rankings, a live ``/api/generate`` (its JPEG the bytes of the
+    session's own grid, encoded the same way), features, feature maps, an
+    intervention set and a ``generate`` of two standard ids under it, and a
+    65-id batch that must answer 400; each request timed, the launches
+    exact."""
+    import io
+    import urllib.error
+    import urllib.request
+
+    from PIL import Image
+
+    from ganspace_tpu_torch.dissection.server import DissectionSession, serve
+    from ganspace_tpu_torch.models import get_instrumented_model
+    inst = get_instrumented_model("ProGAN", "bedroom", DISSECT_PG_LAYER, torch.device("cuda"))
+    session = DissectionSession(inst, DISSECT_PG_LAYER, report, outdir=layer_dir)
+    units = [u["unit"] for u in report["units"][:3]]
+    reset_launches()
+    server = serve(session, port=0, block=False)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    times = {}
+
+    def call(path, body=None):
+        req = urllib.request.Request(base + path, method="GET" if body is None else "POST",
+                                     data=None if body is None else json.dumps(body).encode())
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                code, data = r.status, r.read()
+        except urllib.error.HTTPError as e:
+            code, data = e.code, e.read()
+        times[f"{'GET' if body is None else 'POST'} {path.split('?')[0]}"] = (
+            time.perf_counter() - t0) * 1e3
+        return code, data
+
+    try:
+        for path in ("/api/layers", "/api/units?n=5", "/api/rankings"):
+            code, data = call(path)
+            if code != 200 or not json.loads(data):
+                raise AssertionError(f"{path}: {code}")
+        gen_q = f"seed=0&n=4&units={','.join(map(str, units))}&strength=1"
+        call(f"/api/generate?{gen_q}")
+        times["GET /api/generate (first)"] = times.pop("GET /api/generate")
+        code, jpeg = call(f"/api/generate?{gen_q}")
+        grid = session.generate(seed=0, n=4, units=units, strength=1.0)
+        buf = io.BytesIO()
+        Image.fromarray(grid).save(buf, format="JPEG", quality=92)
+        if code != 200 or jpeg != buf.getvalue() or grid.shape != (256, 1024, 3):
+            raise AssertionError(f"/api/generate: {code}, not the session's grid")
+        for path in ("/api/features", "/api/featuremaps"):
+            code, data = call(path, {"ids": [0, 5], "units": units})
+            res = json.loads(data)["res"][DISSECT_PG_LAYER] if code == 200 else None
+            if code != 200 or not res:
+                raise AssertionError(f"{path}: {code}")
+        feats = res
+        ivs = [{"ablations": [{"layer": DISSECT_PG_LAYER, "unit": u, "alpha": 1.0, "value": 0.0}
+                             for u in units]}]
+        code, _ = call("/api/interventions", {"interventions": ivs})
+        code2, data = call("/api/generate", {"ids": [0, 1]})
+        if code != 200 or code2 != 200 or len(json.loads(data)["images"]) != 2:
+            raise AssertionError(f"interventions {code}, generate {code2}")
+        times["POST /api/generate (ids)"] = times.pop("POST /api/generate")
+        code, data = call("/api/generate", {"ids": list(range(65))})
+        if code != 400 or b"1..64" not in data:
+            raise AssertionError(f"65 ids answered {code}")
+        times["POST /api/generate (65 ids: 400)"] = times.pop("POST /api/generate")
+    finally:
+        server.shutdown()
+        server.server_close()
+    launches = read_launches()
+    expect_launches(launches, "dissection server",
+                    **pg_forwards(3 + 1, 2))     # generate (HTTP twice, direct), ids; features
+    log(f"dissection server (ProGAN-256 {DISSECT_PG_LAYER}, unified report): /api/generate "
+        f"JPEG equal to the session's grid; feature maps {np.asarray(feats).shape}; 65 ids "
+        f"-> 400; ms by request: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in times.items()) + f" [{gpu}]")
+    return {k: v for k, v in launches.items() if v}
+
+
+def run_sg2_ace(gpu: str, classnum: int) -> dict:
+    """ACE on StyleGAN2-FFHQ-1024 ``convs.2`` with the unified segmenter:
+    SG2_ACE_STEPS steps of one batch of SG2_ACE_BATCH, the backward through
+    kernel B's modulated mode and the stride-2 mode's stock adjoint at every
+    layer after the tap; exact launches, seconds, peak memory."""
+    from ganspace_tpu_torch.dissection import UnifiedParsingSegmenter
+    from ganspace_tpu_torch.dissection.ace import ace_optimize
+    from ganspace_tpu_torch.models import get_instrumented_model
+    inst = get_instrumented_model("StyleGAN2", "ffhq", DISSECT_SG2_LAYER, torch.device("cuda"))
+    seg = UnifiedParsingSegmenter(device="cuda")
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = ace_optimize(inst, DISSECT_SG2_LAYER, seg, classnum, n_batches=1,
+                       batch=SG2_ACE_BATCH, steps=SG2_ACE_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    steps = SG2_ACE_STEPS
+    expect_launches(launches, "ACE StyleGAN2 convs.2",
+                    modconv3x3=B_PER_TAP_FORWARD + (1 + steps) * B_PER_FORWARD
+                    + steps * (B_PER_FORWARD - B_PER_TAP_FORWARD),
+                    upsample_conv=UP_PER_TAP_FORWARD + (1 + steps) * UP_PER_FORWARD,
+                    upsample_conv_adjoint=steps * (UP_PER_FORWARD - UP_PER_TAP_FORWARD))
+    losses = res["loss_history"]
+    if not (np.isfinite(losses).all() and losses[-1] <= losses[0]):
+        raise AssertionError(f"ACE StyleGAN2: losses {losses}")
+    log(f"ACE StyleGAN2-FFHQ-1024 {DISSECT_SG2_LAYER} (class {classnum}, {steps} steps at "
+        f"batch {SG2_ACE_BATCH}): {seconds:.3f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f}, launches { {k: v for k, v in launches.items() if v} } [{gpu}]")
+    return {k: v for k, v in launches.items() if v}
+
+
+def check_adjoints(gen: torch.Generator, adjoints: set) -> dict:
+    """Every backward case the ACE runs launched: the autograd wrapper's
+    x-bar against ``torch.autograd.grad`` through the plain version on the
+    card, by the forward's bar (CONV_REL); each mode's median backward time
+    (the adjoint alone: kernel B on W~, or the stride-2 mode's stock conv)
+    beside cuDNN's ``conv2d`` computing the same adjoint.  Returns, by mode,
+    the summed times over its cases."""
+    from ganspace_tpu_torch.ops.modconv import (
+        conv3x3, conv3x3_adjoint, conv3x3_adjoint_plain, conv3x3_plain, modconv3x3,
+        modconv3x3_plain, upsample_conv, upsample_conv_adjoint, upsample_conv_plain)
+    rows = {}
+    for key in sorted(adjoints, key=str):
+        kind, b, c, co, h, w, *rest = key
+        x = torch.randn(b, c, h, w, generator=gen, device="cuda").requires_grad_(True)
+        k, pad, has_s, has_d = (rest[0], rest[1], rest[2], rest[3]) if kind == "upsample_conv" \
+            else (3, 1, kind == "modconv3x3", rest[0])
+        wt = torch.randn(co, c, k, k, generator=gen, device="cuda") / (k * k * c) ** 0.5
+        s = 1.0 + 0.5 * torch.randn(b, c, generator=gen, device="cuda") if has_s else None
+        d = torch.rand(b, co, generator=gen, device="cuda") + 0.5 if has_d else None
+        if kind == "upsample_conv":
+            fwd = lambda t: upsample_conv(t, wt, s, d, pad=pad)          # noqa: E731
+            plain = lambda t: upsample_conv_plain(t, wt, s, d, pad=pad)  # noqa: E731
+            adj = lambda g: upsample_conv_adjoint(g, wt, s, d, pad)      # noqa: E731
+            stock = adj
+        else:
+            fwd = (lambda t: conv3x3(t, wt)) if kind == "conv3x3" else \
+                (lambda t: modconv3x3(t, wt, s, d))
+            plain = (lambda t: conv3x3_plain(t, wt)) if kind == "conv3x3" else \
+                (lambda t: modconv3x3_plain(t, wt, s, d))
+            adj = lambda g: conv3x3_adjoint(g, wt, s, d)                 # noqa: E731
+            stock = lambda g: conv3x3_adjoint_plain(g, wt, s, d)         # noqa: E731
+        y = plain(x)
+        gy = torch.randn(y.shape, generator=gen, device="cuda")
+        got = torch.autograd.grad(fwd(x), x, gy)[0]
+        ref = torch.autograd.grad(y, x, gy)[0]
+        err = float((got - ref).abs().max()) / float(ref.abs().max())
+        if not err <= CONV_REL:
+            raise AssertionError(f"{key}: backward max|d|/max|ref| {err:.3e}")
+        again = torch.autograd.grad(fwd(x), x, gy)[0]
+        if not torch.equal(got, again):
+            raise AssertionError(f"{key}: two backward runs differ")
+        ms, stock_ms = median_ms(lambda: adj(gy)), median_ms(lambda: stock(gy))
+        row = rows.setdefault(kind, {"cases": 0, "ms": 0.0, "stock_ms": 0.0, "err": 0.0})
+        row["cases"] += 1
+        row["ms"] += ms
+        row["stock_ms"] += stock_ms
+        row["err"] = max(row["err"], err)
+        log(f"  backward {key}: max|d|/max|ref| {err:.3e} (bar {CONV_REL}), adjoint "
+            f"{ms:.4f} ms, cuDNN conv2d {stock_ms:.4f} ms")
+    for kind, row in rows.items():
+        log(f"backward of {kind}: {row['cases']} shapes, {row['ms']:.4f} ms summed "
+            f"({'the stock adjoint' if kind == 'upsample_conv' else 'kernel B'}), cuDNN "
+            f"conv2d {row['stock_ms']:.4f} ms, max err {row['err']:.3e}")
+    if not {"conv3x3", "modconv3x3", "upsample_conv"} <= set(rows):
+        raise AssertionError(f"backward modes checked: {sorted(rows)}")
+    return rows
+
+
+def check_part2_vs_cpu(gpu: str, classnum: int) -> dict:
+    """The unified segmenter at full width on 4 ProGAN-256 images, card
+    against CPU.  Random full-width weights give logits of ~3e5 (He init,
+    batch norm folded to identity: the residual stream grows through the 16
+    blocks), so softmax amplifies float32 rounding: the CPU's own float32
+    probabilities differ from float64 by ~4e-3 relative.  So the float32
+    nets are held on their logits (the activations bar, 1e-4 relative) with
+    the probabilities' difference printed beside that control, and the
+    probabilities and label maps are held in float64 on both devices
+    (within 1e-4 relative; labels equal but at near-ties).  Then 2 ACE steps
+    at batch 1 on ProGAN-256 layer4 on both: the ablation and the losses
+    within 1e-4."""
+    from ganspace_tpu_torch.dissection import UnifiedParsingSegmenter
+    from ganspace_tpu_torch.dissection.ace import ace_optimize
+    from ganspace_tpu_torch.dissection.segmenter import _BGR_MEAN
+    from ganspace_tpu_torch.models.base import InstrumentedModel
+    from ganspace_tpu_torch.models.proggan import ProGAN, ProGANConfig
+    from ganspace_tpu_torch.models.proggan import init_params as pg_init
+    params = pg_init(ProGANConfig.for_resolution(256), seed=0)
+    segs = {dev: UnifiedParsingSegmenter(device=dev) for dev in ("cuda", "cpu")}
+    reset_launches()
+    card = InstrumentedModel(ProGAN("bedroom", params=params, device="cuda"))
+    with torch.no_grad():
+        imgs = card.model.forward(card.model.sample_latent(4, seed=11)).clamp(0, 1)
+    t0 = time.perf_counter()
+    logits, probs = {}, {}
+    with torch.no_grad():
+        for dev, seg in segs.items():
+            x = imgs.to(dev).flip(1) * 255.0 - torch.tensor(_BGR_MEAN, device=dev).reshape(1, 3, 1, 1)
+            logits[dev] = {k: v.cpu() for k, v in seg.net(x).items()}
+            probs[dev, 32] = {k: v.cpu() for k, v in seg.category_probabilities(imgs.to(dev)).items()}
+            seg.net.double()
+            probs[dev, 64] = {k: v.cpu() for k, v in seg._probs(imgs.to(dev).double(), 256).items()}
+    sec = time.perf_counter() - t0
+    cats = ("object", "part", "material")
+    rel = lambda a, b: float((a.double() - b.double()).abs().max() / b.double().abs().max())  # noqa: E731
+    logit_err = max(rel(logits["cuda"][k], logits["cpu"][k]) for k in logits["cpu"])
+    p32_err = max(rel(probs["cuda", 32][k], probs["cpu", 32][k]) for k in cats)
+    control = max(rel(probs["cpu", 32][k], probs["cpu", 64][k]) for k in cats)
+    p64_err = max(rel(probs["cuda", 64][k], probs["cpu", 64][k]) for k in (*cats, "scene"))
+    flips, ties = 0, 0
+    for cat in cats:
+        got, ref = probs["cuda", 64][cat], probs["cpu", 64][cat]
+        top2 = torch.topk(ref, 2, dim=1).values
+        clear = top2[:, 0] - top2[:, 1] > SEG_TIE
+        flips += int(((got.argmax(dim=1) != ref.argmax(dim=1)) & clear).sum())
+        ties += int((~clear).sum())
+    log(f"unified segmenter card vs CPU (4 ProGAN-256 images; {sec:.2f} s for both, "
+        f"float32 and float64): float32 logits max|d|/max|ref| {logit_err:.3e} (bar 1e-4; "
+        f"max|logit| {max(float(v.abs().max()) for v in logits['cpu'].values()):.4g}), "
+        f"float32 probabilities {p32_err:.3e} beside the CPU's own float32-vs-float64 "
+        f"{control:.3e}; float64 probabilities {p64_err:.3e} (bar 1e-4), labels differing "
+        f"off near-ties {flips} ({ties} near-tie pixels of {3 * imgs.shape[0] * 256 * 256}) "
+        f"[{gpu}]")
+    if not (logit_err <= 1e-4 and p64_err <= 1e-4 and flips == 0):
+        raise AssertionError("unified segmenter: card and CPU disagree")
+    for seg in segs.values():
+        seg.net.float()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        inst = card if dev == "cuda" else InstrumentedModel(ProGAN("bedroom", params=params,
+                                                                   device="cpu"))
+        t0 = time.perf_counter()
+        out[dev] = ace_optimize(inst, DISSECT_PG_LAYER, segs[dev], classnum, n_batches=1,
+                                batch=1, steps=2)
+        out[dev]["seconds"] = time.perf_counter() - t0
+        if dev == "cuda":
+            launches = read_launches()
+    a, b = out["cuda"], out["cpu"]
+    d_alpha = float(np.abs(a["ablation"] - b["ablation"]).max())
+    d_loss = float(np.abs(np.subtract(a["loss_history"], b["loss_history"])).max())
+    log(f"ACE card vs CPU (ProGAN-256 {DISSECT_PG_LAYER}, class {classnum}, 2 steps at batch "
+        f"1; {a['seconds']:.2f} s on the card, {b['seconds']:.2f} s on the CPU): ablation "
+        f"max|d| {d_alpha:.3e}, losses max|d| {d_loss:.3e} (bars 1e-4) [{gpu}]")
+    if not (d_alpha <= 1e-4 and d_loss <= 1e-4):
+        raise AssertionError("ACE: card and CPU disagree")
+    want = add_launches(pg_forwards(1), pg_ace_launches(2, 1))
+    expect_launches(launches, "unified segmenter and ACE card vs CPU", **want)
+    return {k: v for k, v in launches.items() if v}
+
+
+def run_dissect_part2(gpu: str, recorder: LaunchRecorder, gen: torch.Generator) -> tuple:
+    """GAN dissection, part 2 at full width: the unified segmenter (ProGAN-256
+    layer4, 1000 samples), its rerun with ``--ace-class``, the ADE segmenter,
+    ``ganseg`` and ``allunitsample`` through the dispatcher in one process;
+    the dissection server on the unified run's session; ACE on
+    StyleGAN2-FFHQ-1024 ``convs.2``; the backward's shapes against the
+    plain versions; the card against the CPU.  Returns (launches by path,
+    the backward's rows by mode)."""
+    from ganspace_tpu_torch.ops.precision import ieee_f32
+    t0 = time.perf_counter()
+    adjoints = record_adjoints()
+    with tempfile.TemporaryDirectory() as out:
+        launches, report, uni_dir, classnum = run_part2_cli(gpu, recorder, out, adjoints)
+        log(f"part-2 commands wall time: {time.perf_counter() - t0:.1f} s [{gpu}]")
+        with ieee_f32():
+            launches["dissect_server"] = run_part2_server(gpu, report, uni_dir)
+    with ieee_f32():
+        launches["ace_sg2_convs2"] = run_sg2_ace(gpu, classnum)
+        t1 = time.perf_counter()
+        backward = check_adjoints(gen, adjoints)
+        log(f"backward checks wall time: {time.perf_counter() - t1:.1f} s")
+        launches["part2_vs_cpu"] = check_part2_vs_cpu(gpu, classnum)
+    log(f"dissection part 2 phase wall time: {time.perf_counter() - t0:.1f} s [{gpu}]")
+    return launches, backward
 
 
 # -- the preview policy: --dtype bfloat16, the bf16 first pass, the viewer ---
@@ -4131,6 +4682,9 @@ def main() -> int:
     launches.update(run_figures(gpu))
     # GAN dissection: ProGAN-256 and StyleGAN2-FFHQ-1024 through the dispatcher
     launches.update(run_dissect(gpu, recorder))
+    # part 2: the unified and ADE segmenters, ACE, the server, ganseg, allunitsample
+    part2_launches, backward = run_dissect_part2(gpu, recorder, gen)
+    launches.update(part2_launches)
     # the preview policy on BigGAN, ProGAN and DCGAN
     t0 = time.perf_counter()
     launches["pg_cli_bf16"] = run_progan_bf16_cli(gpu, pg_l6)
@@ -4153,6 +4707,14 @@ def main() -> int:
         by_path = {path: n.get(name, 0) for path, n in launches.items()}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
+    def backward_of(name):
+        """ACE's backward of a mode: its shapes' summed median time, cuDNN's
+        conv2d of the same adjoint; the launches are in the counts (the
+        stride-2 mode's adjoint is stock: ``upsample_conv_adjoint``)."""
+        row = backward[name]
+        return {"backward": {"shapes": row["cases"], "ms": row["ms"],
+                             "cudnn_conv2d_ms": row["stock_ms"], "max_rel_err": row["err"]}}
+
     kernels = [
         dict(name="centered_gram", route="cuda",
              source="ganspace_tpu_torch/csrc/centered_gram.cu",
@@ -4161,15 +4723,16 @@ def main() -> int:
         dict(name="modconv3x3", route="cuda",
              source="ganspace_tpu_torch/csrc/modconv3x3.cu",
              replaces="ganspace_tpu/ops/pallas/blockconv.py:178",
-             **counts("modconv3x3"), **conv),
+             **counts("modconv3x3"), **conv, **backward_of("modconv3x3")),
         dict(name="conv3x3", route="cuda",
              source="ganspace_tpu_torch/csrc/modconv3x3.cu",
              replaces="ganspace_tpu/ops/pallas/blockconv.py:178",
-             **counts("conv3x3"), **plain),
+             **counts("conv3x3"), **plain, **backward_of("conv3x3")),
         dict(name="upsample_conv", route="cuda",
              source="ganspace_tpu_torch/csrc/upconv2x.cu",
              replaces="ganspace_tpu/models/stylegan.py:164",
-             **counts("upsample_conv"), **up),
+             **counts("upsample_conv"), **up, **backward_of("upsample_conv"),
+             stock_adjoint_launches=counts("upsample_conv_adjoint")["launches"]),
         # the bf16 datapath (the preview policy): times at bf16 storage, the
         # viewer's, at StyleGAN2's render shapes at B = 5; kernel B's and the
         # stride-2 kernel's each on a body of its own (implicit_conv_bf16.cuh,

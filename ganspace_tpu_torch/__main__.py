@@ -2,9 +2,7 @@
 
     python -m ganspace_tpu_torch <command> [args...]
 
-The dispatcher of ``ganspace_tpu/__main__.py``, with the commands the port
-has.  The JAX package's tool commands ``ganseg`` and ``allunitsample`` are
-not ported yet (ROADMAP.md, queue 1).
+The dispatcher of ``ganspace_tpu/__main__.py``, with its six commands.
 """
 
 from __future__ import annotations
@@ -19,6 +17,10 @@ COMMANDS = {
     "dissect": ("ganspace_tpu_torch.dissection.__main__",
                 "GAN dissection: unit quantiles, IoU vs segmentation, report"),
     "makesample": ("ganspace_tpu_torch.tools.makesample", "sample images to PNGs"),
+    "ganseg": ("ganspace_tpu_torch.tools.ganseg",
+               "image|segmentation visualizations"),
+    "allunitsample": ("ganspace_tpu_torch.tools.allunitsample",
+                      "top-activating grids for every unit of a layer"),
 }
 
 

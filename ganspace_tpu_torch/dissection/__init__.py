@@ -1,10 +1,11 @@
-"""GAN dissection in the port (``ganspace_tpu/dissection``), part 1: the
-running statistics, the stats / conditional / tally / covariance passes,
-the IQR and max-IoU scores, the report, the broden reader, the runners and
-the ``dissect`` command with the color segmenter.  The unified-parsing and
-ADE segmenters, the server and ACE are not ported yet (ROADMAP.md, queue 1).
+"""GAN dissection in the port (``ganspace_tpu/dissection``): the running
+statistics, the stats / conditional / tally / covariance passes, the IQR
+and max-IoU scores, the report, the broden reader, the runners, the color,
+unified-parsing and ADE segmenters (``segmodel``, ``segmenter``), ACE
+(``ace``), the dissection server (``server``) and the ``dissect`` command.
 """
 
+from ganspace_tpu_torch.dissection.ace import ablation_effect, ace_optimize
 from ganspace_tpu_torch.dissection.broden import (
     BrodenDataset,
     MultiSegmentDataset,
@@ -26,6 +27,19 @@ from ganspace_tpu_torch.dissection.dissect import (
 )
 from ganspace_tpu_torch.dissection.report import generate_report, make_svg_bargraph
 from ganspace_tpu_torch.dissection.runners import dissect_classifier, segment_dataset
+from ganspace_tpu_torch.dissection.segmenter import (
+    SemanticSegmenter,
+    UnifiedParsingSegmenter,
+    import_torch_upernet,
+)
+from ganspace_tpu_torch.dissection.segmodel import (
+    ResNet,
+    ResNetConfig,
+    UPerNet,
+    UPerNetConfig,
+    init_resnet_params,
+    init_upernet_params,
+)
 from ganspace_tpu_torch.dissection.viz import (
     activation_overlay,
     activation_surface,
@@ -46,6 +60,17 @@ __all__ = [
     "maxiou_scores",
     "SegmenterBase",
     "ColorSegmenter",
+    "UnifiedParsingSegmenter",
+    "SemanticSegmenter",
+    "import_torch_upernet",
+    "ResNet",
+    "ResNetConfig",
+    "UPerNet",
+    "UPerNetConfig",
+    "init_resnet_params",
+    "init_upernet_params",
+    "ace_optimize",
+    "ablation_effect",
     "BrodenDataset",
     "write_synthetic_broden",
     "MultiSegmentDataset",

@@ -4,17 +4,17 @@ relevant to generator dissection); counterpart of
 ``ganspace_tpu/dissection/__main__.py``.
 
     python -m ganspace_tpu_torch.dissection --model DCGAN --layer deconv1 \
-        --samples 256 --outdir out/dissect [--segmenter color] [--iqr] \
-        [--maxiou] [--cov] [--done-dir JOBDIR] [--no-labels] [--no-report] \
-        [--netname NAME] [--quiet] [--device cuda|cpu]
+        --samples 256 --outdir out/dissect [--segmenter color|unified|ade] \
+        [--seg-params NPZ] [--segsizes 256 ...] [--iqr] [--maxiou] [--cov] \
+        [--ace-class N] [--serve PORT] [--done-dir JOBDIR] [--no-labels] \
+        [--no-report] [--netname NAME] [--quiet] [--device cuda|cpu]
 
 Writes ``dissect.json``, ``bargraph.svg``, ``dissect.html`` and per-unit
-top-image grids under ``--outdir`` (see ``report.py``), and prints the
-seconds of each pass (the quantile sketches' share beside it).  The model
-runs on ``--device`` (default ``cuda``, never falling back to the CPU).
-
-Not ported yet (ROADMAP.md, queue 1, dissection part 2), and refused before
-any work: ``--segmenter unified|ade``, ``--serve`` and ``--ace-class``.
+top-image grids under ``--outdir`` (see ``report.py``), with ``--ace-class``
+``ace.json`` and the ACE page, and prints the seconds of each pass (the
+quantile sketches' share beside it).  The model and the segmenter run on
+``--device`` (default ``cuda``, never falling back to the CPU); with
+``--serve`` the last layer's session is served afterwards.
 """
 
 from __future__ import annotations
@@ -25,10 +25,6 @@ import sys
 from pathlib import Path
 
 import numpy as np
-
-#: the flags of dissection part 2, refused until it lands
-_PART2 = "dissection part 2 (ROADMAP.md, queue 1)"
-
 
 def _strfloat(v: str):
     """Reference ``strfloat`` (``netdissect/__main__.py``): a float quantile
@@ -87,10 +83,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "search) for per-unit thresholds; costs one extra "
                         "stats pass, fused with the quantile/top-k pass")
     p.add_argument("--segmenter", choices=("color", "unified", "ade"),
-                   default="color",
-                   help=f"only 'color' so far; 'unified' and 'ade' come with {_PART2}")
+                   default="color")
     p.add_argument("--seg-params", default=None,
-                   help="npz of imported unified-parsing params")
+                   help="npz of imported segmenter params (the JAX "
+                        "package's flat names); never downloaded")
     p.add_argument("--segsizes", type=int, nargs="+", default=[256])
     p.add_argument("--maxiou", action="store_true",
                    help="per-unit IoU-maximizing thresholds "
@@ -100,8 +96,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cov", action="store_true",
                    help="also run the covariance pass")
     p.add_argument("--ace-class", type=int, default=None,
-                   help=f"optimize an ablation for this flat label number "
-                        f"(comes with {_PART2})")
+                   help="optimize an ablation for this flat label number")
     p.add_argument("--ace-steps", type=int, default=50)
     p.add_argument("--rank-all-labels", action="store_true",
                    help="report top units per LABEL (reference "
@@ -135,7 +130,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "--merge; e.g. mark units uninterpretable from an "
                         "outside analysis)")
     p.add_argument("--serve", type=int, default=None, metavar="PORT",
-                   help=f"serve the report + live-edit viewer (comes with {_PART2})")
+                   help="after dissecting, serve the (last) layer's report "
+                        "+ live-edit viewer on this port")
     p.add_argument("--done-dir", default=None,
                    help="job directory for at-most-once sweep claiming")
     p.add_argument("--device", default="cuda",
@@ -144,20 +140,22 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_part2(args) -> None:
-    """Exit (code 2) before any work when a flag of dissection part 2 is
-    given: the segmenters other than ``color``, ``--serve``, ``--ace-class``."""
-    for given, flag in ((args.segmenter != "color", f"--segmenter {args.segmenter}"),
-                        (args.serve is not None, "--serve"),
-                        (args.ace_class is not None, "--ace-class")):
-        if given:
-            build_parser().error(f"{flag} is not ported to ganspace_tpu_torch yet: "
-                                 f"it comes with {_PART2}")
-
-
-def make_segmenter(args):
-    from ganspace_tpu_torch.dissection import ColorSegmenter
-    return ColorSegmenter()
+def make_segmenter(args, device):
+    """The ``--segmenter`` on ``device``: ``color``, or the unified or ADE
+    net with the ``--seg-params`` weights (seeded random ones without)."""
+    if args.segmenter == "color":
+        from ganspace_tpu_torch.dissection import ColorSegmenter
+        return ColorSegmenter()
+    params = None
+    if args.seg_params:
+        with np.load(args.seg_params) as data:
+            params = {k: data[k] for k in data.files}
+    if args.segmenter == "ade":
+        from ganspace_tpu_torch.dissection.segmenter import SemanticSegmenter
+        return SemanticSegmenter(params=params, segsizes=tuple(args.segsizes), device=device)
+    from ganspace_tpu_torch.dissection import UnifiedParsingSegmenter
+    return UnifiedParsingSegmenter(params=params, segsizes=tuple(args.segsizes),
+                                   device=device)
 
 
 def _rank_all_labels(report, k: int) -> None:
@@ -314,7 +312,9 @@ def _segment_imagedir(args, segmenter, outroot: Path, device) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    refuse_part2(args)
+    if args.serve is not None and (args.features or args.broden or args.imagedir):
+        build_parser().error("--serve needs a generator session; it is not "
+                             "available in --features/--imagedir modes")
     if args.done_dir:
         from ganspace_tpu_torch.utils import exit_if_job_done
         exit_if_job_done(args.done_dir)
@@ -324,14 +324,19 @@ def main(argv=None) -> int:
 
     device = require_device(args.device)
     with ieee_f32():
-        rc = _run(args, device)
+        rc, session = _run(args, device)
     if args.done_dir:
         from ganspace_tpu_torch.utils import mark_job_done
         mark_job_done(args.done_dir)
+    if session is not None:
+        from ganspace_tpu_torch.dissection.server import serve
+        serve(session, port=args.serve)
     return rc
 
 
-def _run(args, device) -> int:
+def _run(args, device):
+    """The command's work: (exit code, the last layer's
+    ``DissectionSession`` when ``--serve`` is given, else None)."""
     from ganspace_tpu_torch.dissection.dissect import (
         DeviceClock, collect_covariance, collect_stats_and_cond_quantiles, dissect,
         iqr_max_scores, load_stats_cache, maxiou_scores, save_stats_cache, tally_stats,
@@ -343,16 +348,17 @@ def _run(args, device) -> int:
     if args.features or args.broden:
         if not (args.features and args.broden):
             build_parser().error("--features and --broden go together")
-        return _dissect_classifier_cli(args, outroot, device)
+        return _dissect_classifier_cli(args, outroot, device), None
 
-    segmenter = make_segmenter(args)
+    segmenter = make_segmenter(args, device)
     if args.imagedir:
-        return _segment_imagedir(args, segmenter, outroot, device)
+        return _segment_imagedir(args, segmenter, outroot, device), None
     if not args.layer:
         build_parser().error("--layer is required unless --imagedir or "
                              "--features is given")
 
     say = (lambda *a, **k: None) if args.quiet else print
+    last_session = None
     for layer_arg in args.layer:
         # NAME:DISPLAY aliases (reference --layers strpair): the display
         # name labels the output directory and report; the real module
@@ -368,10 +374,11 @@ def _run(args, device) -> int:
             # Reference --no-labels: skip the segmentation tally entirely;
             # report units ranked by their top activation.
             if isinstance(args.quantile, str) or args.iqr or args.maxiou \
-                    or args.cov:
+                    or args.cov or args.ace_class is not None:
                 build_parser().error(
                     "--no-labels skips segmentation; it cannot combine with "
-                    "--quantile iqr/maxiou, --iqr, --maxiou or --cov")
+                    "--quantile iqr/maxiou, --iqr, --maxiou, --cov, or "
+                    "--ace-class")
             prov = {"model": args.model, "class": str(args.output_class),
                     "layer": layer, "n": args.samples, "batch": args.batch,
                     "seed": args.seed}
@@ -412,6 +419,10 @@ def _run(args, device) -> int:
                                       html_summary=not args.no_report)
             say(f"pass report: {clock.seconds:.3f} s")
             say(f"report: {out}")
+            if args.serve is not None:
+                from ganspace_tpu_torch.dissection.server import DissectionSession
+                last_session = DissectionSession(inst, layer, report, outdir=outdir,
+                                                 stats=layer_stats)
             continue
 
         # One conditional-quantile pass feeds every consumer: string
@@ -493,6 +504,10 @@ def _run(args, device) -> int:
         report["layer"] = display
         if args.netname:
             report["model"] = args.netname
+        if args.serve is not None:
+            from ganspace_tpu_torch.dissection.server import DissectionSession
+            last_session = DissectionSession(inst, layer, report, outdir=outdir,
+                                             stats=layer_stats)
 
         if args.iqr:
             # Information-quality-ratio level search (reference collect_iqr
@@ -539,7 +554,47 @@ def _run(args, device) -> int:
                                    n_units=args.examples, html_summary=not args.no_report)
         say(f"pass report: {clock.seconds:.3f} s")
         say(f"report: {html}")
-    return 0
+
+        if args.ace_class is not None:
+            _ace(args, inst, layer, segmenter, report, outdir, device, say)
+    return 0, last_session
+
+
+def _ace(args, inst, layer, segmenter, report, outdir: Path, device, say) -> None:
+    """``--ace-class``: optimise the ablation, measure the effect of
+    ablating the top units by ACE's ranking and by IoU with the class, and
+    write ``ace.json`` and the ACE page."""
+    from ganspace_tpu_torch.dissection import ace
+    from ganspace_tpu_torch.dissection.dissect import DeviceClock
+    from ganspace_tpu_torch.dissection.report import generate_ace_report
+
+    with DeviceClock(device) as clock:
+        result = ace.ace_optimize(inst, layer, segmenter, args.ace_class,
+                                  steps=args.ace_steps, seed=args.seed, progress=True)
+    say(f"pass ace: {clock.seconds:.3f} s")
+    # the comparison ranking: units by IoU with the target class
+    # (reference aceplotablate.py: 'Units by ACE' vs 'Top units by IoU')
+    iou_rank = np.argsort(-report["iou_matrix"][:, args.ace_class])
+    with DeviceClock(device) as clock:
+        effect = ace.ablation_effect(inst, layer, segmenter, args.ace_class,
+                                     result["ranking"])
+        iou_effect = ace.ablation_effect(inst, layer, segmenter, args.ace_class, iou_rank)
+    say(f"pass ace effect: {clock.seconds:.3f} s")
+    (outdir / "ace.json").write_text(json.dumps({
+        "classnum": result["classnum"],
+        "baseline": result["baseline"],
+        "ablation": result["ablation"].tolist(),
+        "ranking": result["ranking"].tolist(),
+        "loss_history": result["loss_history"],
+        "ablation_effect": effect,
+        "iou_ablation_effect": iou_effect,
+    }, indent=2))
+    classname = report["labels"][args.ace_class]
+    ace_html = generate_ace_report(
+        outdir, classname, {"ace": result},
+        {"Units by ACE": effect, "Top units by IoU": iou_effect})
+    say(f"ace: baseline {result['baseline']:.5f}, "
+        f"effect@top8 {effect.get(8, float('nan')):.5f}; report: {ace_html}")
 
 
 if __name__ == "__main__":

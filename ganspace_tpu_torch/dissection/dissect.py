@@ -109,6 +109,23 @@ class SegmenterBase:
         raise NotImplementedError(
             f"{type(self).__name__} does not expose class probabilities")
 
+    def _check_classnum(self, classnum: int) -> None:
+        """Validate a flat label index against ``self.labels``."""
+        if not 1 <= classnum < len(self.labels):
+            raise ValueError(
+                f"classnum {classnum} out of range (flat label 0 is '-'; "
+                f"valid classes are 1..{len(self.labels) - 1})")
+
+    def _check_not_divided(self, classnum: int) -> None:
+        """Quadrant-divided pseudo-labels (``segdiv='quad'``) are hard
+        label-map constructs with no differentiable probability."""
+        div_base = getattr(self, "_div_base", None)
+        if div_base is not None and classnum >= div_base:
+            raise ValueError(
+                f"classnum {classnum} ('{self.labels[classnum]}') is a "
+                f"subdivided quadrant label; class probabilities exist only "
+                f"for base labels (< {div_base})")
+
 
 class ColorSegmenter(SegmenterBase):
     """Checkpoint-free segmenter: nearest-anchor color quantization.

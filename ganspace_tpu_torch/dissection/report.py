@@ -3,7 +3,9 @@
 Counterpart of ``ganspace_tpu/dissection/report.py``: the JSON report, an
 SVG IoU bargraph, per-unit top-image grids (regenerated on the model's
 device, quantized there, written by the native writer pool) and a static
-HTML viewer.  The ACE report pages come with ACE (ROADMAP.md, queue 1).
+HTML viewer; and the ACE pages (reference ``acesummarize.py`` /
+``aceplotablate.py``): the loss and ablation-effect plots (matplotlib's Agg
+canvas, where matplotlib is installed) and a summary table.
 """
 
 from __future__ import annotations
@@ -111,5 +113,112 @@ def generate_report(report: Dict, outdir, inst: Optional[InstrumentedModel] = No
 <table><tr><th>unit</th><th>label</th><th>iou</th><th>top images</th></tr>
 {''.join(rows)}</table></body></html>"""
     out = outdir / "dissect.html"
+    out.write_text(page)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# ACE reporting (reference acesummarize.py / aceplotablate.py)
+# ---------------------------------------------------------------------------
+
+def _figure(figsize=(4.5, 3.5)):
+    from matplotlib.backends.backend_agg import FigureCanvasAgg as FigureCanvas
+    from matplotlib.figure import Figure
+    fig = Figure(figsize=figsize)
+    FigureCanvas(fig)
+    return fig
+
+
+def save_ace_loss_plot(runs: Dict[str, Dict], outpath, title: str = "") -> Path:
+    """Loss-history curves, one per labeled run (e.g. different L1
+    strengths) — the ``acesummarize.py:28-60`` plot: per-run optimization
+    loss with the run label in the legend."""
+    outpath = Path(outpath)
+    fig = _figure()
+    ax = fig.add_subplot(111)
+    for label, run in runs.items():
+        ax.plot(run["loss_history"], label=str(label))
+    ax.set_title(title or "ACE optimization loss")
+    ax.grid(True)
+    ax.legend()
+    ax.set_ylabel("Loss")
+    ax.set_xlabel("Steps")
+    fig.tight_layout()
+    outpath.parent.mkdir(parents=True, exist_ok=True)
+    fig.savefig(outpath)
+    return outpath
+
+
+def save_ablation_effect_plot(effects: Dict[str, Dict[int, float]],
+                              baseline: float, outpath,
+                              classname: str = "") -> Path:
+    """Normalized ablation-effect curves ``1 - presence(k) / baseline`` per
+    ranking (``aceplotablate.py:25-51``): x = units ablated, y = portion of
+    class pixels removed, one labeled curve per ranking (ACE vs IoU...)."""
+    outpath = Path(outpath)
+    fig = _figure()
+    ax = fig.add_subplot(111)
+    for label, eff in effects.items():
+        ks = sorted(int(k) for k in eff)
+        base = eff.get(0, baseline) or baseline or 1e-9
+        ax.plot(ks, [1.0 - eff[k] / base for k in ks], marker=".",
+                label=str(label))
+    ax.set_title(f"Effect of ablating units for {classname}".strip())
+    ax.grid(True)
+    ax.legend()
+    ax.set_ylabel(f"Portion of {classname or 'class'} pixels removed")
+    ax.set_xlabel("Number of units ablated")
+    ax.set_ylim(0, 1.0)
+    fig.tight_layout()
+    outpath.parent.mkdir(parents=True, exist_ok=True)
+    fig.savefig(outpath)
+    return outpath
+
+
+def generate_ace_report(outdir, classname: str, runs: Dict[str, Dict],
+                        effects: Optional[Dict[str, Dict[int, float]]] = None,
+                        n_top: int = 20) -> Path:
+    """ACE summary page: loss plot + effect plot + per-run table (baseline
+    presence, final loss, saturated-unit count, top-ranked units).  Returns
+    the ``ace.html`` path.  ``runs`` maps a label to an ``ace_optimize``
+    result; ``effects`` maps a label to an ``ablation_effect`` result.
+    Where matplotlib is not installed the page holds the table alone, and a
+    line on stdout says that the plots were not written."""
+    import importlib.util
+
+    outdir = Path(outdir)
+    outdir.mkdir(parents=True, exist_ok=True)
+    first = next(iter(runs.values()))
+    plots = []
+    if importlib.util.find_spec("matplotlib") is None:
+        print("ace: matplotlib is not installed: the plots ace-loss.png and "
+              "ace-effect.png are not written")
+    else:
+        save_ace_loss_plot(runs, outdir / "ace-loss.png",
+                           title=f"{classname} ACE loss")
+        plots.append("ace-loss.png")
+        if effects:
+            save_ablation_effect_plot(effects, first.get("baseline", 0.0),
+                                      outdir / "ace-effect.png", classname)
+            plots.append("ace-effect.png")
+
+    rows = []
+    for label, run in runs.items():
+        abl = np.asarray(run["ablation"])
+        top = ", ".join(str(int(u)) for u in np.asarray(run["ranking"])[:8])
+        rows.append(
+            f"<tr><td>{html.escape(str(label))}</td>"
+            f"<td>{run.get('baseline', float('nan')):.5f}</td>"
+            f"<td>{run['loss_history'][-1]:.5f}</td>"
+            f"<td>{int((abl >= 0.999).sum())}/{abl.size}</td>"
+            f"<td>{top}</td></tr>")
+    page = f"""<!DOCTYPE html><html><head><title>ACE: {html.escape(classname)}</title>
+<style>body{{font-family:sans-serif}}td{{padding:4px 10px}}</style></head><body>
+<h2>ACE — {html.escape(classname)}</h2>
+{' '.join(f'<img src="{p}"/>' for p in plots)}
+<table><tr><th>run</th><th>baseline presence</th><th>final loss</th>
+<th>saturated units</th><th>top units</th></tr>
+{''.join(rows)}</table></body></html>"""
+    out = outdir / "ace.html"
     out.write_text(page)
     return out

@@ -18,6 +18,7 @@ that models consult when called, with the public API of the reference's
 
 from __future__ import annotations
 
+import functools
 from abc import ABC, abstractmethod
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -32,8 +33,12 @@ from ganspace_tpu_torch.sampling import (
 
 def _match_rank(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Reference broadcast rule (``nethook.make_matching_tensor``): missing
-    dims are filled as (1, *v.shape, 1, ...)."""
-    v = torch.as_tensor(v, dtype=x.dtype, device=x.device)
+    dims are filled as (1, *v.shape, 1, ...).  A tensor keeps its autograd
+    graph (ACE's ablation requires grad)."""
+    if isinstance(v, torch.Tensor):
+        v = v.to(dtype=x.dtype, device=x.device)
+    else:
+        v = torch.as_tensor(v, dtype=x.dtype, device=x.device)
     if v.ndim < x.ndim:
         v = v.reshape((1,) + tuple(v.shape) + (1,) * (x.ndim - v.ndim - 1))
     return v
@@ -52,6 +57,19 @@ def apply_edit(x: torch.Tensor, edit: Dict[str, torch.Tensor]) -> torch.Tensor:
     if b is not None:
         x = x + _match_rank(b, x)
     return x
+
+
+def grad_while_edit_override(run):
+    """Decorator of a generator's ``_run``: autograd on while the
+    instrumentation carries an edit override (ACE's differentiable
+    ablation), and off for every other call, so no other path keeps a
+    graph."""
+    @functools.wraps(run)
+    def wrapped(self, *args, **kwargs):
+        inst = self.inst
+        with torch.set_grad_enabled(inst is not None and inst._edit_override is not None):
+            return run(self, *args, **kwargs)
+    return wrapped
 
 
 class TapState:
@@ -238,6 +256,9 @@ class InstrumentedModel:
         model.inst = self
         self._retained: Dict[str, Optional[torch.Tensor]] = {}
         self._edits: Dict[str, Dict[str, np.ndarray]] = {}
+        # When set, _edit_tree returns this dict verbatim (its tensors may
+        # require grad): the differentiable path of ACE's optimisation.
+        self._edit_override: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
         self.feature_shape: Dict[str, Tuple[int, ...]] = {}
         self.input_shape: Optional[Tuple[int, ...]] = None
 
@@ -302,6 +323,9 @@ class InstrumentedModel:
         return tuple(sorted({self.model.resolve_tap(n) for n in self._retained}))
 
     def _edit_tree(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        if self._edit_override is not None:
+            return {self.model.resolve_tap(n): dict(e)
+                    for n, e in self._edit_override.items()}
         device = self.model.device
         return {
             self.model.resolve_tap(name): {

@@ -62,7 +62,7 @@ from torch import nn
 
 from ganspace_tpu_torch import require_device
 from ganspace_tpu_torch.models import checkpoints, imagenet_classes
-from ganspace_tpu_torch.models.base import BaseGenerator, TapState
+from ganspace_tpu_torch.models.base import BaseGenerator, TapState, grad_while_edit_override
 from ganspace_tpu_torch.models.tf_import import import_biggan_tf
 from ganspace_tpu_torch.models.torch_import import import_biggan
 from ganspace_tpu_torch.ops import precision
@@ -680,7 +680,7 @@ class BigGAN(BaseGenerator):
                  + rgb.copies(rgb.bias, x.dtype)[:3].reshape(1, 3, 1, 1))
         return torch.tanh(x).float()
 
-    @torch.no_grad()
+    @grad_while_edit_override
     def _run(self, x, stop_at: Optional[str], layer_name: Optional[str] = None):
         zs = x if isinstance(x, list) else self.cfg.n_latents * [x]
         if len(zs) != self.cfg.n_latents:

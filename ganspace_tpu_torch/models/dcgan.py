@@ -40,7 +40,7 @@ from torch import nn
 
 from ganspace_tpu_torch import require_device
 from ganspace_tpu_torch.models import checkpoints
-from ganspace_tpu_torch.models.base import BaseGenerator, TapState
+from ganspace_tpu_torch.models.base import BaseGenerator, TapState, grad_while_edit_override
 from ganspace_tpu_torch.models.torch_import import import_ganzoo_dcgan
 from ganspace_tpu_torch.ops import precision
 from ganspace_tpu_torch.ops.modconv import LayerWeights, upsample_conv
@@ -211,7 +211,7 @@ class GANZooModel(BaseGenerator):
             x = y
         return x
 
-    @torch.no_grad()
+    @grad_while_edit_override
     def _run(self, x, stop_at: Optional[str]):
         if isinstance(x, list):
             if len(x) != 1:

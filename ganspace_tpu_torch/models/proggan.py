@@ -58,7 +58,7 @@ from torch import nn
 
 from ganspace_tpu_torch import require_device
 from ganspace_tpu_torch.models import checkpoints
-from ganspace_tpu_torch.models.base import BaseGenerator, TapState
+from ganspace_tpu_torch.models.base import BaseGenerator, TapState, grad_while_edit_override
 from ganspace_tpu_torch.models.tf_import import import_progan_tf
 from ganspace_tpu_torch.models.torch_import import import_progan
 from ganspace_tpu_torch.ops import precision
@@ -285,7 +285,7 @@ class ProGAN(BaseGenerator):
                 return None
         return x.float()
 
-    @torch.no_grad()
+    @grad_while_edit_override
     def _run(self, x, stop_at: Optional[str]):
         if isinstance(x, list):
             if len(x) != 1:

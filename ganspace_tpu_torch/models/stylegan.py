@@ -47,7 +47,7 @@ from torch import nn
 
 from ganspace_tpu_torch import require_device
 from ganspace_tpu_torch.models import checkpoints
-from ganspace_tpu_torch.models.base import BaseGenerator, TapState
+from ganspace_tpu_torch.models.base import BaseGenerator, TapState, grad_while_edit_override
 from ganspace_tpu_torch.models.tf_import import import_stylegan_tf
 from ganspace_tpu_torch.models.torch_import import import_stylegan
 from ganspace_tpu_torch.ops import precision
@@ -496,7 +496,7 @@ class StyleGAN(BaseGenerator):
         rgb = torgb.add_bias(precision.conv2d(x, torgb.scaled_weight()))
         return ts.tap("g_synthesis.torgb", rgb.float())
 
-    @torch.no_grad()
+    @grad_while_edit_override
     def _run(self, x, stop_at: Optional[str]):
         styles = [torch.as_tensor(s, dtype=torch.float32, device=self.device)
                   for s in (x if isinstance(x, list) else [x])]

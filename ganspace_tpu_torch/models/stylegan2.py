@@ -37,7 +37,7 @@ from torch import nn
 
 from ganspace_tpu_torch import require_device
 from ganspace_tpu_torch.models import checkpoints
-from ganspace_tpu_torch.models.base import BaseGenerator, TapState
+from ganspace_tpu_torch.models.base import BaseGenerator, TapState, grad_while_edit_override
 from ganspace_tpu_torch.models.torch_import import import_stylegan2
 from ganspace_tpu_torch.ops.linear import equal_linear, fused_leaky_relu, pixel_norm
 from ganspace_tpu_torch.ops.modconv import LayerWeights, modulated_conv2d
@@ -414,7 +414,7 @@ class StyleGAN2(BaseGenerator):
             i += 2
         return skip.float()
 
-    @torch.no_grad()
+    @grad_while_edit_override
     def _run(self, x, stop_at: Optional[str]):
         styles = [torch.as_tensor(s, dtype=torch.float32, device=self.device)
                   for s in (x if isinstance(x, list) else [x])]

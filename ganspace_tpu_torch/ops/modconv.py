@@ -49,6 +49,23 @@ rounded to ``x``'s dtype.
 The blur after an upsampling conv and the 1x1 ``to_rgb`` conv stay stock
 PyTorch ops, as the JAX package leaves them to XLA; they run under the
 same policy (``ops/precision.conv2d``).
+
+Where ``x`` requires grad (ACE's backward through the generator, after the
+ablated tap), a CUDA call runs through an ``autograd.Function`` whose
+forward is the same launch and whose backward is the adjoint with respect
+to ``x``, with W~ the weight with its channel axes swapped and both spatial
+axes flipped:
+
+* the modulated 3x3 mode: x-bar = s * conv3x3(d * y-bar, W~), kernel B's
+  own modulated mode with s' = d (or 1) and d' = s;
+* the plain 3x3 mode: x-bar = conv3x3(y-bar, W~), kernel B's plain mode;
+* the stride-2 mode: x-bar = s * conv2d(d * y-bar, W^T, stride 2, the
+  forward's padding), a stock IEEE ``F.conv2d``, as the JAX package takes
+  it from XLA's autodiff (counted in ``upsample_conv.stock_adjoints``).
+
+The backward's kernel launches count in the entries' ``launches``.  It is
+taken with respect to ``x`` only (w, s and d requiring grad raise) and on
+the float32 datapath only (the bf16 one raises).
 """
 
 from __future__ import annotations
@@ -179,6 +196,74 @@ def modconv3x3_plain(x: torch.Tensor, w_scaled: torch.Tensor, s: torch.Tensor,
     return y if d is None else y * d[:, :, None, None]
 
 
+def _needs_adjoint(name: str, x: torch.Tensor, w_scaled, s, d) -> bool:
+    """Whether a CUDA call must record its x-adjoint (grad enabled and x
+    requiring grad); raises where the backward cannot serve: w, s or d
+    requiring grad, or x on the bf16 datapath."""
+    if not torch.is_grad_enabled():
+        return False
+    if any(t is not None and t.requires_grad for t in (w_scaled, s, d)):
+        raise ValueError(f"{name}: the kernels' backward is taken with respect to x "
+                         "only; w, s and d must not require grad")
+    if not x.requires_grad:
+        return False
+    if datapath_mode(x) != MODE_F32:
+        raise ValueError(f"{name}: no backward on the bf16 datapath; run float32 at "
+                         "the highest precision")
+    return True
+
+
+def _flipped(w_scaled: torch.Tensor) -> torch.Tensor:
+    """W~: the weight with its channel axes swapped and both spatial axes
+    flipped, the correlation weight of a 3x3 conv's x-adjoint."""
+    return w_scaled.transpose(0, 1).flip(2, 3).contiguous()
+
+
+def conv3x3_adjoint_plain(gy: torch.Tensor, w_scaled: torch.Tensor, s=None,
+                          d=None) -> torch.Tensor:
+    """Plain PyTorch version of the 3x3 modes' x-adjoint: s * conv3x3(d *
+    y-bar, W~) (s and d optional), the oracle of :func:`conv3x3_adjoint`."""
+    g = gy if d is None else gy * d[:, :, None, None]
+    gx = F.conv2d(g, _flipped(w_scaled), padding=1)
+    return gx if s is None else gx * s[:, :, None, None]
+
+
+def conv3x3_adjoint(gy: torch.Tensor, w_scaled: torch.Tensor, s=None,
+                    d=None) -> torch.Tensor:
+    """The x-adjoint of :func:`modconv3x3` (s given) or :func:`conv3x3` (s
+    None) on kernel B, float32: the modulated mode with s' = d (or 1) and
+    d' = s, or the plain mode, on W~; counted in that mode's ``launches``."""
+    gy = gy.contiguous()
+    if datapath_mode(gy) != MODE_F32:
+        raise ValueError("kernel B's backward runs on the float32 datapath only")
+    if s is None:
+        gx = _launch_3x3("conv3x3", gy, _flipped(w_scaled), None, None, None)
+        _count(conv3x3, gy)
+    else:
+        s2 = torch.ones_like(gy[:, :, 0, 0]) if d is None else d
+        gx = _launch_3x3("modconv3x3", gy, _flipped(w_scaled), s2, s, None)
+        _count(modconv3x3, gy)
+    return gx
+
+
+class _Conv3x3Adjoint(torch.autograd.Function):
+    """Kernel B's modulated (s given) or plain mode, with its x-adjoint on
+    kernel B (:func:`conv3x3_adjoint`)."""
+
+    @staticmethod
+    def forward(ctx, x, w_scaled, s, d):
+        wrapper = conv3x3 if s is None else modconv3x3
+        y = _launch_3x3(wrapper.__name__, x, w_scaled, s, d, None)
+        _count(wrapper, x)
+        ctx.save_for_backward(w_scaled, s, d)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        w_scaled, s, d = ctx.saved_tensors
+        return conv3x3_adjoint(gy, w_scaled, s, d), None, None, None
+
+
 def modconv3x3(x: torch.Tensor, w_scaled: torch.Tensor, s: torch.Tensor,
                d: torch.Tensor | None, *, cache: LayerWeights | None = None) -> torch.Tensor:
     """d * conv3x3(x * s, w_scaled), stride 1, zero padding 1, NCHW.
@@ -194,6 +279,8 @@ def modconv3x3(x: torch.Tensor, w_scaled: torch.Tensor, s: torch.Tensor,
         return modconv3x3_plain(x, w_scaled, s, d)
     if s is None:
         raise ValueError("modconv3x3: s is required (conv3x3 is the plain mode)")
+    if _needs_adjoint("modconv3x3", x, w_scaled, s, d):
+        return _Conv3x3Adjoint.apply(x, w_scaled, _scale(s), d)
     y = _launch_3x3("modconv3x3", x, w_scaled, s, d, cache)
     _count(modconv3x3, x)
     return y
@@ -220,6 +307,8 @@ def conv3x3(x: torch.Tensor, w_scaled: torch.Tensor, *,
     _check_3x3("conv3x3", x, w_scaled)
     if x.device.type == "cpu":
         return conv3x3_plain(x, w_scaled)
+    if _needs_adjoint("conv3x3", x, w_scaled, None, None):
+        return _Conv3x3Adjoint.apply(x, w_scaled, None, None)
     y = _launch_3x3("conv3x3", x, w_scaled, None, None, cache)
     _count(conv3x3, x)
     return y
@@ -483,6 +572,14 @@ def upsample_conv(x: torch.Tensor, w_scaled: torch.Tensor,
                          f"{pad} is not a 3x3 or 4x4 kernel over {c} channels")
     if x.device.type == "cpu":
         return upsample_conv_plain(x, w_scaled, s, d, pad)
+    if _needs_adjoint("upsample_conv", x, w_scaled, s, d):
+        return _UpsampleConvAdjoint.apply(x, w_scaled, _scale(s), d, pad, cache)
+    return _launch_up(x, w_scaled, s, d, pad, cache)
+
+
+def _launch_up(x, w_scaled, s, d, pad, cache) -> torch.Tensor:
+    b, c, h, w = x.shape
+    co, _, k, _ = w_scaled.shape
     ho, wo = 2 * h + k - 2 - 2 * pad, 2 * w + k - 2 - 2 * pad
     mode = datapath_mode(x)
     s = _scale(s)
@@ -506,8 +603,40 @@ def upsample_conv(x: torch.Tensor, w_scaled: torch.Tensor,
 
 
 #: kernel launches since the last reset, one per call, by datapath (CPU calls
-#: do not count)
-upsample_conv.launches = upsample_conv.launches_bf16 = 0
+#: do not count); ``stock_adjoints``: calls of the stock x-adjoint
+upsample_conv.launches = upsample_conv.launches_bf16 = upsample_conv.stock_adjoints = 0
+
+
+def upsample_conv_adjoint(gy: torch.Tensor, w_scaled: torch.Tensor, s=None, d=None,
+                          pad: int = 0) -> torch.Tensor:
+    """The x-adjoint of :func:`upsample_conv`: s * conv2d(d * y-bar, W^T,
+    stride 2, padding ``pad``), a stock IEEE ``F.conv2d`` (no TPU kernel
+    computes it: XLA's autodiff does); CUDA calls count in
+    ``upsample_conv.stock_adjoints``."""
+    g = gy if d is None else gy * d[:, :, None, None]
+    with precision.ieee_f32():
+        gx = F.conv2d(g, w_scaled.transpose(0, 1), stride=2, padding=pad)
+    if gy.is_cuda:
+        upsample_conv.stock_adjoints += 1
+    return gx if s is None else gx * s[:, :, None, None]
+
+
+class _UpsampleConvAdjoint(torch.autograd.Function):
+    """The stride-2 kernel, with its stock x-adjoint
+    (:func:`upsample_conv_adjoint`)."""
+
+    @staticmethod
+    def forward(ctx, x, w_scaled, s, d, pad, cache):
+        y = _launch_up(x, w_scaled, s, d, pad, cache)
+        ctx.pad = pad
+        ctx.save_for_backward(w_scaled, s, d)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        w_scaled, s, d = ctx.saved_tensors
+        return (upsample_conv_adjoint(gy, w_scaled, s, d, ctx.pad),
+                None, None, None, None, None)
 
 
 def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor,

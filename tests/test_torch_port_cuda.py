@@ -524,3 +524,70 @@ def test_dissection_on_card_matches_cpu(gen):
     span = float(np.ptp(vals))
     assert np.abs(s["quantiles"].quantiles(qs) - s0["quantiles"].quantiles(qs)).max() <= 1e-4 * span
     assert np.abs(r["iou_matrix"] - r0["iou_matrix"]).max() <= 1e-3
+
+
+def _adjoint_case(gen, b, c, co, h, w):
+    """x (requiring grad), a 3x3 weight, s, d and a same-size y-bar."""
+    x = torch.randn(b, c, h, w, generator=gen, device="cuda").requires_grad_(True)
+    wt = torch.randn(co, c, 3, 3, generator=gen, device="cuda") / (9 * c) ** 0.5
+    s = 1.0 + 0.5 * torch.randn(b, c, generator=gen, device="cuda")
+    gy = torch.randn(b, co, h, w, generator=gen, device="cuda")
+    return x, wt, s, demodulation(wt, s), gy
+
+
+def _grad(fn, x, gy):
+    return torch.autograd.grad(fn(x), x, gy)[0]
+
+
+@pytest.mark.parametrize("mode", ["modulated", "modulated_no_d", "plain"])
+@pytest.mark.parametrize("b,c,co,h,w", [(2, 512, 512, 16, 16), (2, 40, 48, 19, 33),
+                                        (1, 32, 32, 64, 64)])
+def test_kernel_b_adjoint_on_card(gen, mode, b, c, co, h, w):
+    """x-bar through kernel B (one forward and one backward launch of the
+    mode) against autograd through the plain version."""
+    x, wt, s, d, gy = _adjoint_case(gen, b, c, co, h, w)
+    if mode == "plain":
+        wrapper, fn, plain = conv3x3, lambda t: conv3x3(t, wt), lambda t: conv3x3_plain(t, wt)
+    else:
+        dd = None if mode == "modulated_no_d" else d
+        wrapper = modconv3x3
+        fn, plain = (lambda t: modconv3x3(t, wt, s, dd),
+                     lambda t: modconv3x3_plain(t, wt, s, dd))
+    launches = wrapper.launches
+    with ieee_f32():
+        got, ref = _grad(fn, x, gy), _grad(plain, x, gy)
+    assert wrapper.launches == launches + 2
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("b,c,co,h,w,pad", [(2, 512, 512, 16, 16, 0), (2, 64, 32, 9, 7, 1)])
+def test_upsample_adjoint_on_card(gen, b, c, co, h, w, pad):
+    """x-bar of the stride-2 mode (the kernel forward, the stock adjoint)
+    against autograd through the plain version."""
+    x, wt, s, d, _ = _adjoint_case(gen, b, c, co, h, w)
+    ho, wo = 2 * h + 1 - 2 * pad, 2 * w + 1 - 2 * pad
+    gy = torch.randn(b, co, ho, wo, generator=gen, device="cuda")
+    launches, stock = upsample_conv.launches, upsample_conv.stock_adjoints
+    with ieee_f32():
+        got = _grad(lambda t: upsample_conv(t, wt, s, d, pad=pad), x, gy)
+        ref = _grad(lambda t: upsample_conv_plain(t, wt, s, d, pad=pad), x, gy)
+    assert (upsample_conv.launches, upsample_conv.stock_adjoints) == (launches + 1, stock + 1)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_adjoints_refuse_what_they_do_not_take(gen):
+    """w, s or d requiring grad, or the bf16 datapath, raise before any
+    launch."""
+    x, wt, s, d, _ = _adjoint_case(gen, 2, 32, 32, 8, 8)
+    for fn in (lambda: modconv3x3(x, wt.clone().requires_grad_(True), s, d),
+               lambda: modconv3x3(x, wt, s.clone().requires_grad_(True), d),
+               lambda: upsample_conv(x, wt, s, d.clone().requires_grad_(True)),
+               lambda: conv3x3(x.detach(), wt.clone().requires_grad_(True))):
+        with pytest.raises(ValueError, match="with respect to x"):
+            fn()
+    with precision("default"), pytest.raises(ValueError, match="bf16"):
+        conv3x3(x, wt)
+    with pytest.raises(ValueError, match="bf16"):
+        upsample_conv(x.detach().to(torch.bfloat16).requires_grad_(True), wt)
+    with torch.no_grad():                     # no grad wanted: the plain launch
+        assert not modconv3x3(x, wt, s, d).requires_grad

@@ -5,8 +5,8 @@ on the JAX package's sketch flips and label noise: the same file set,
 the caches with identical keys and provenance (a cache the JAX CLI wrote is
 reused by the port's), ``--features`` with the ported classifier against
 ``examples.custom_classifier``, ``--imagedir``, ``--no-labels``,
-``--meta``/``--merge``, ``--done-dir``, the dispatcher, and the refusals of
-what dissection part 2 brings (``--segmenter unified|ade``, ``--serve``,
+``--meta``/``--merge``, ``--done-dir``, the dispatcher, and the flags of
+dissection part 2 (``--segmenter unified|ade`` on tiny nets, ``--serve``,
 ``--ace-class``)."""
 
 import json
@@ -207,16 +207,106 @@ def test_imagedir_mode_matches_jax(tmp_path):
         assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes()
 
 
-@pytest.mark.parametrize("flags", [["--segmenter", "unified"], ["--segmenter", "ade"],
-                                   ["--serve", "8091"], ["--ace-class", "3"]])
-def test_part2_flags_are_refused_before_any_work(flags, tmp_path, capsys):
+def _tiny_segmenters(monkeypatch):
+    """Both CLIs' ``unified`` and ``ade`` segmenters on tiny nets (the JAX
+    tests' TINY UPerNet; a tiny dilated PPM net behind ``build_segmodel``),
+    built through the CLIs' own ``--seg-params`` / ``--segsizes`` wiring."""
+    from functools import partial
+
+    from ganspace_tpu import dissection as jax_dissection
+    from ganspace_tpu.dissection import segmodel as jsm
+    from ganspace_tpu_torch import dissection as port_dissection
+    from ganspace_tpu_torch.dissection import segmenter as tseg
+    from ganspace_tpu_torch.dissection import segmodel as tsm
+
+    from test_torch_port_segmenter import tiny_resnet, tiny_upernet
+
+    for pkg, m in ((jax_dissection, jsm), (port_dissection, tsm)):
+        monkeypatch.setattr(pkg, "UnifiedParsingSegmenter",
+                            partial(pkg.UnifiedParsingSegmenter, cfg=tiny_upernet(m)))
+
+    def tiny_ppm(m):
+        def build(arch_encoder, arch_decoder, num_class=150, seed=0):
+            cfg = m.PPMBilinearConfig(resnet=tiny_resnet(m, 8), num_class=num_class,
+                                      ppm_dim=16)
+            net = partial(jsm.ppm_bilinear_forward, cfg=cfg) if m is jsm else tsm.PPMBilinear
+            return m.init_ppm_params(cfg, seed), net, cfg
+        return build
+    monkeypatch.setattr(jsm, "build_segmodel", tiny_ppm(jsm))
+    monkeypatch.setattr(tseg, "build_segmodel", tiny_ppm(tsm))
+
+
+def _both(args, tmp_path):
+    assert jax_cli.main(args + ["--outdir", str(tmp_path / "jax")]) == 0
+    assert cli.main(args + ["--outdir", str(tmp_path / "port"), "--device", "cpu"]) == 0
+    jdir, tdir = tmp_path / "jax" / "deconv1", tmp_path / "port" / "deconv1"
+    assert _files(tdir) == _files(jdir)
+    return jdir, tdir
+
+
+@pytest.mark.parametrize("segmenter", ["unified", "ade"])
+def test_part2_segmenters_match_jax(segmenter, tiny, monkeypatch, tmp_path):
+    """``--segmenter unified|ade`` on the CPU against the JAX CLI."""
+    _tiny_segmenters(monkeypatch)
+    args = ARGS + ["--segmenter", segmenter, "--segsizes", "16", "--iqr", "--examples", "3"]
+    jdir, tdir = _both(args, tmp_path)
+    rep, ref = _assert_reports_agree(tdir / "dissect.json", jdir / "dissect.json")
+    assert rep["labels"] == ref["labels"] and len(rep["labels"]) == (
+        14 if segmenter == "unified" else 151)
+
+
+def test_part2_ace_class_matches_jax(tiny, monkeypatch, tmp_path, capsys):
+    """``--segmenter unified --ace-class`` on the CPU against the JAX CLI:
+    ``ace.json`` (losses and ablation within 1e-4, both effect curves) and
+    the ACE page with its two plots."""
+    _tiny_segmenters(monkeypatch)
+    args = ARGS + ["--segmenter", "unified", "--segsizes", "16", "--ace-class", "3",
+                   "--ace-steps", "4", "--examples", "2"]
+    jdir, tdir = _both(args, tmp_path)
+    assert "pass ace: " in capsys.readouterr().out
+    for name in ("ace.json", "ace.html", "ace-loss.png", "ace-effect.png"):
+        assert (tdir / name).is_file(), name
+    got, ref = (json.loads((d / "ace.json").read_text()) for d in (tdir, jdir))
+    assert set(got) == set(ref) and got["classnum"] == ref["classnum"] == 3
+    for k in ("loss_history", "ablation"):
+        assert np.abs(np.subtract(got[k], ref[k])).max() <= 1e-4, k
+    assert abs(got["baseline"] - ref["baseline"]) <= 1e-4
+    for k in ("ablation_effect", "iou_ablation_effect"):
+        assert set(got[k]) == set(ref[k])
+        assert max(abs(got[k][n] - ref[k][n]) for n in ref[k]) <= 1e-4, k
+
+
+def test_part2_serve_matches_jax(tiny, monkeypatch, tmp_path):
+    """``--serve``: each CLI serves the last layer's session after the
+    report (here on an ephemeral port, not blocking); the two servers
+    answer alike."""
+    import urllib.request
+
+    from ganspace_tpu.dissection import server as jax_server
+    from ganspace_tpu_torch.dissection import server as port_server
+    servers = {}
+    for name, mod in (("jax", jax_server), ("port", port_server)):
+        serve = mod.serve
+        monkeypatch.setattr(mod, "serve", lambda session, port, _s=serve, _n=name:
+                            servers.setdefault(_n, _s(session, port=0, block=False)))
+    _both(ARGS + ["--serve", "8091", "--examples", "2", "--no-images"], tmp_path)
+    try:
+        answers = {}
+        for name, srv in servers.items():
+            base = f"http://127.0.0.1:{srv.server_address[1]}"
+            answers[name] = [json.loads(urllib.request.urlopen(base + path, timeout=60).read())
+                             for path in ("/api/layers", "/api/rankings")]
+        assert answers["port"][0] == answers["jax"][0]
+        for g, r in zip(answers["port"][1]["rankings"], answers["jax"][1]["rankings"]):
+            assert g["name"] == r["name"]
+            np.testing.assert_allclose(g["scores"], r["scores"], atol=1e-3)
+    finally:
+        for srv in servers.values():
+            srv.shutdown()
+            srv.server_close()
     with pytest.raises(SystemExit) as e:
-        cli.main(["--model", "NoSuchModel", "--layer", "x", *flags,
-                  "--outdir", str(tmp_path / "out"), "--device", "cpu"])
+        cli.main(["--imagedir", str(tmp_path), "--serve", "8091", "--device", "cpu"])
     assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert flags[0] in err and "ROADMAP.md, queue 1" in err
-    assert not (tmp_path / "out").exists()
 
 
 def test_cuda_is_required_by_default(monkeypatch, tmp_path):

@@ -18,6 +18,7 @@ MODULES = [
     "ganspace_tpu_torch.ops.linear",
     "ganspace_tpu_torch.ops.upfirdn",
     "ganspace_tpu_torch.ops.tf32x3",
+    "ganspace_tpu_torch.ops.prroi",
     "ganspace_tpu_torch.estimators",
     "ganspace_tpu_torch.estimators.utils",
     "ganspace_tpu_torch.estimators.ipca",
@@ -49,6 +50,8 @@ MODULES = [
     "ganspace_tpu_torch.tools.lightbox",
     "ganspace_tpu_torch.tools.upconv_split",
     "ganspace_tpu_torch.tools.makesample",
+    "ganspace_tpu_torch.tools.ganseg",
+    "ganspace_tpu_torch.tools.allunitsample",
     "ganspace_tpu_torch.native",
     "ganspace_tpu_torch.notebooks",
     "ganspace_tpu_torch.notebooks.notebook_init",
@@ -76,6 +79,10 @@ MODULES = [
     "ganspace_tpu_torch.dissection.runners",
     "ganspace_tpu_torch.dissection.sampler",
     "ganspace_tpu_torch.dissection.viz",
+    "ganspace_tpu_torch.dissection.segmodel",
+    "ganspace_tpu_torch.dissection.segmenter",
+    "ganspace_tpu_torch.dissection.ace",
+    "ganspace_tpu_torch.dissection.server",
     "ganspace_tpu_torch.examples",
     "ganspace_tpu_torch.examples.custom_classifier",
 ]

@@ -458,8 +458,12 @@ def test_viewer_process_writes_no_bf16_cache(tmp_path, monkeypatch):
 def test_dispatcher(capsys, monkeypatch):
     assert dispatcher.main([]) == 0
     out = capsys.readouterr().out
-    assert "visualize" in out and "interactive" in out and "dissect" in out
-    assert dispatcher.main(["ganseg"]) == 2
+    for cmd in ("visualize", "interactive", "dissect", "makesample", "ganseg",
+                "allunitsample"):
+        assert cmd in out
+    assert list(dispatcher.COMMANDS) == ["visualize", "interactive", "dissect",
+                                         "makesample", "ganseg", "allunitsample"]
+    assert dispatcher.main(["nope"]) == 2
     calls = []
     monkeypatch.setattr(mod, "main", lambda argv: calls.append(argv))
     assert dispatcher.main(["interactive", "--port", "0"]) == 0

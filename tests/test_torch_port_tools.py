@@ -1,12 +1,16 @@
-"""The port's ``makesample`` command, its image writer pool and
-``unregister_model`` against the JAX package's.
+"""The port's ``makesample``, ``ganseg`` and ``allunitsample`` commands,
+its image writer pool and ``unregister_model`` against the JAX package's.
 
 ``makesample`` on the default DCGAN (64 px; both packages build the same
 seeded weights) writes JAX's files, each PNG within one uint8 level of
 JAX's (the two float32 forwards may round a pixel the other way), and the
 gallery page; the dispatcher's cases of ``tests/test_runners_tools.py``;
 the four cases of ``tests/test_native.py`` on the port's pool, which
-builds from its own source into ``build/``.
+builds from its own source into ``build/``.  ``ganseg`` (the color
+segmenter, and the unified one on the JAX tests' TINY net) and
+``allunitsample`` on a tiny DCGAN registered in both packages with the
+same weights: the same files, images within one uint8 level (so the same
+top-k samples), segmentation halves equal but at near-tie pixels.
 """
 
 from pathlib import Path
@@ -16,9 +20,15 @@ import pytest
 import torch
 from PIL import Image
 
+from ganspace_tpu import models as jax_models
+from ganspace_tpu.models import dcgan as jax_dc
+from ganspace_tpu.tools.allunitsample import main as jax_allunitsample
+from ganspace_tpu.tools.ganseg import main as jax_ganseg
 from ganspace_tpu.tools.makesample import main as jax_makesample
 
+from ganspace_tpu_torch import models as torch_models
 from ganspace_tpu_torch.__main__ import main as dispatch
+from ganspace_tpu_torch.models import dcgan as torch_dc
 from ganspace_tpu_torch.native import ImageWriterPool
 from ganspace_tpu_torch.tools.makesample import main as makesample
 
@@ -159,3 +169,67 @@ def test_unregister_model():
     with pytest.raises(RuntimeError, match="Unknown model"):
         get_model("MyGAN", device="cpu")
     unregister_model("MyGAN")                  # a second time: no error
+
+
+@pytest.fixture
+def tiny_dcgan(monkeypatch):
+    """TinyDCGAN (16 px) registered in both packages with the same weights."""
+    cfg = dict(resolution=16, base_channels=64)
+    params = jax_dc.init_params(jax_dc.DCGANConfig(**cfg), 3)
+    jax_model = jax_dc.GANZooModel(cfg=jax_dc.DCGANConfig(**cfg), params=params)
+    port = torch_dc.GANZooModel(cfg=torch_dc.DCGANConfig(**cfg), params=params, device="cpu")
+    monkeypatch.setitem(jax_models._CUSTOM_MODELS, "TinyDCGAN", lambda oc, **kw: jax_model)
+    monkeypatch.setattr(torch_models, "_CUSTOM_MODELS", {})
+    torch_models.register_model("TinyDCGAN", lambda oc, device, **kw: port)
+
+
+def _pngs(root):
+    return sorted(p.name for p in root.glob("*.png"))
+
+
+def _img(path):
+    return np.asarray(Image.open(path), dtype=np.int16)
+
+
+@pytest.mark.parametrize("segmenter", ["color", "unified"])
+def test_ganseg_matches_jax(segmenter, tiny_dcgan, tmp_path, monkeypatch):
+    if segmenter == "unified":
+        from functools import partial
+
+        from ganspace_tpu import dissection as jax_dissection
+        from ganspace_tpu.dissection import segmodel as jsm
+        from ganspace_tpu_torch import dissection as port_dissection
+        from ganspace_tpu_torch.dissection import segmodel as tsm
+
+        from test_torch_port_segmenter import tiny_upernet
+        for pkg, m in ((jax_dissection, jsm), (port_dissection, tsm)):
+            monkeypatch.setattr(pkg, "UnifiedParsingSegmenter",
+                                partial(pkg.UnifiedParsingSegmenter, cfg=tiny_upernet(m),
+                                        segsizes=(32,)))
+    args = ["--model", "TinyDCGAN", "--size", "5", "--batch", "3", "--segmenter", segmenter]
+    assert jax_ganseg(args + ["--outdir", str(tmp_path / "jax")]) == 0
+    assert dispatch(["ganseg", *args, "--outdir", str(tmp_path / "port"), "--device", "cpu"]) == 0
+    names = _pngs(tmp_path / "port")
+    assert names == _pngs(tmp_path / "jax") and len(names) == 5
+    for name in names:
+        got, ref = _img(tmp_path / "port" / name), _img(tmp_path / "jax" / name)
+        assert got.shape == ref.shape == (16, 32, 3)
+        assert np.abs(got[:, :16] - ref[:, :16]).max() <= MAX_LEVELS, name
+        same = np.all(got[:, 16:] == ref[:, 16:], axis=-1)
+        assert same.mean() >= (1.0 if segmenter == "color" else 0.99), name
+    assert (tmp_path / "port" / "+lightbox.html").read_text() == \
+        (tmp_path / "jax" / "+lightbox.html").read_text()
+
+
+def test_allunitsample_matches_jax(tiny_dcgan, tmp_path):
+    args = ["--model", "TinyDCGAN", "--layer", "deconv1", "--samples", "12", "--batch", "4",
+            "--topk", "3"]
+    assert jax_allunitsample(args + ["--outdir", str(tmp_path / "jax")]) == 0
+    assert dispatch(["allunitsample", *args, "--outdir", str(tmp_path / "port"),
+                     "--device", "cpu"]) == 0
+    names = _pngs(tmp_path / "port")
+    assert names == _pngs(tmp_path / "jax") and len(names) > 1
+    for name in names:
+        got, ref = _img(tmp_path / "port" / name), _img(tmp_path / "jax" / name)
+        assert got.shape == ref.shape == (16, 48, 3)
+        assert np.abs(got - ref).max() <= MAX_LEVELS, name
