@@ -173,7 +173,19 @@ Phases, each of which raises on failure:
    time beside cuDNN's; the unified segmenter (float32 logits, float64
    probabilities and labels) and 2 ACE steps on the card against the CPU;
    each with its exact launches, backward included;
-22. every kernel shape launched over the run (recorded in front of the
+22. the examples and the profilers, in process (``run_examples_and_tools``),
+   run after phase 6, before the other profiled phases:
+   one ``utils.tracing.trace`` on the card around an annotated kernel-A
+   launch (its file holds the kernel event and the annotation);
+   ``examples.quickstart`` at its defaults (DCGAN-64 ``deconv1``, n = 512,
+   c = 6, a 64-sample dissection and its report) and on ProGAN-256 bedroom
+   ``layer4``; ``examples.custom_model`` at its defaults (the registered
+   ToyGAN's fit at ``fc2``, kernel A once); ``tools.profile_wpca`` at n =
+   1M and ``tools.profile_convtap`` at n = 20000 (cut from 50000 for time;
+   the fused stream, ``GANSPACE_FUSED_ACTS=1``), ``REPS=1``, the convtap
+   tool's timed fit traced into a temporary ``TRACE_DIR``; each with its
+   exact launches, its cache, strip, direction and report checked;
+23. every kernel shape launched over the run (recorded in front of the
    kernel library) that phase 5 did not cover, such as the fits' batch-1
    probes and the viewer's batch-1 frames, held against its plain version
    by the same bars, on the datapath it was launched on.
@@ -2818,11 +2830,11 @@ def check_progan_dcgan_vs_cpu() -> None:
 # kernel A.  first_20_pcs is cut from 20 rows (c = 20) to FIRST_PCS_ROWS
 # for the phase's time, which the grids' PNG encoding holds (PIL, one
 # thread): at 20 rows the figure took 45 s of the phase's 155 s, at 10 rows
-# 23 s of 136 s (PERF.md §6).  The BigGAN-128 figures (husky,
-# generator.gen_z, -n 512, c = 8) fit gen_z (D = 32768) on the sketch tier,
-# no kernel there; style resampling keeps 1, 5 and 10 of the 11 latent
-# slots (3 rows of 4 frames).
-FIRST_PCS_ROWS = 5
+# 23 s of 136 s, at 5 rows 14 s, so 3 rows now (PERF.md §4, §6).  The
+# BigGAN-128 figures (husky, generator.gen_z, -n 512, c = 8) fit gen_z
+# (D = 32768) on the sketch tier, no kernel there; style resampling keeps
+# 1, 5 and 10 of the 11 latent slots (3 rows of 4 frames).
+FIRST_PCS_ROWS = 3
 FIG_SG2 = [
     ("figure_teaser", [], 8, 8, 1, [("teaser.png", 2, 4)]),
     ("figure_pca_cleanup", [], 10, 50, 0, [("pca_cleanup_global.png", 6, 5),
@@ -3001,8 +3013,9 @@ def run_figures(gpu: str) -> dict:
 # -- GAN dissection, part 1 (ganspace_tpu_torch/dissection) -------------------
 
 # ProGAN-256 (class bedroom) at layer4, GAN Dissection's own model family and
-# its canonical layer (512 units at 8 px), at dissect()'s default of 1000
-# samples; then StyleGAN2-FFHQ-1024 at convs.2 (512 units at 16 px), the
+# its canonical layer (512 units at 8 px), cut from dissect()'s default of
+# 1000 samples to DISSECT_PG_N for the smoke's time (PERF.md §4); then
+# StyleGAN2-FFHQ-1024 at convs.2 (512 units at 16 px), the
 # README's dissection command with the color segmenter in place of the
 # unified one, cut from 1000 samples to DISSECT_SG2_N: each 1024-px image
 # feeds 512 x 2^20 upsampled values to the unconditional sketch, 1024 chunks
@@ -3014,7 +3027,7 @@ def run_figures(gpu: str) -> dict:
 DISSECT_BATCH, DISSECT_EXAMPLES = 16, 20
 # the card against the CPU cut from 32 samples to 16 in PR 15, for the
 # smoke's time (the CPU side of the check, ~37 s at 32)
-DISSECT_PG_N, DISSECT_SG2_N, DISSECT_VS_CPU_N = 1000, 64, 16
+DISSECT_PG_N, DISSECT_SG2_N, DISSECT_VS_CPU_N = 256, 64, 16
 DISSECT_PG_LAYER, DISSECT_SG2_LAYER = "layer4", "convs.2"
 DISSECT_PG_ARGS = ["--model", "ProGAN", "--class", "bedroom", "--layer", DISSECT_PG_LAYER,
                    "--samples", str(DISSECT_PG_N), "--batch", str(DISSECT_BATCH),
@@ -3314,7 +3327,7 @@ def check_dissect_vs_cpu(gpu: str) -> dict:
 
 
 def run_dissect(gpu: str, recorder: LaunchRecorder) -> dict:
-    """The dissect phase: ProGAN-256 at 1000 samples, StyleGAN2-FFHQ-1024
+    """The dissect phase: ProGAN-256 at DISSECT_PG_N samples, StyleGAN2-FFHQ-1024
     at DISSECT_SG2_N, the ProGAN run again on its caches and with
     ``--no-labels`` through ``python -m ganspace_tpu_torch.dissection``, a
     profiled batch of the fused pass, and the card against the CPU."""
@@ -3841,7 +3854,7 @@ def check_part2_vs_cpu(gpu: str, classnum: int) -> dict:
 
 def run_dissect_part2(gpu: str, recorder: LaunchRecorder, gen: torch.Generator) -> tuple:
     """GAN dissection, part 2 at full width: the unified segmenter (ProGAN-256
-    layer4, 1000 samples), its rerun with ``--ace-class``, the ADE segmenter,
+    layer4, DISSECT_PG_N samples), its rerun with ``--ace-class``, the ADE segmenter,
     ``ganseg`` and ``allunitsample`` through the dispatcher in one process;
     the dissection server on the unified run's session; ACE on
     StyleGAN2-FFHQ-1024 ``convs.2``; the backward's shapes against the
@@ -3864,6 +3877,223 @@ def run_dissect_part2(gpu: str, recorder: LaunchRecorder, gen: torch.Generator) 
     log(f"dissection part 2 phase wall time: {time.perf_counter() - t0:.1f} s [{gpu}]")
     return launches, backward
 
+
+# -- the examples, the profilers and the trace -------------------------------
+
+# The quickstart at its defaults (DCGAN-64 deconv1, n = 512, c = 6; a
+# 64-sample dissection at batch 16 with an 8-unit report) and on ProGAN-256
+# bedroom layer4.  Its fit takes the pre-sampled device stream (n is under
+# the fused stream's floor) in one NB = 2000 block of 4 forwards at batch
+# 512, the sketch tier (D = 16384 and 32768) with its refine pass when the
+# policy keeps it, and the regression sweep at the heuristic's batch
+# (256 MiB / (D * 16 B): 1024 for DCGAN, 512 for ProGAN).
+QS_N, QS_C, QS_BATCH = 512, 6, 512
+QS_BLOCK_FORWARDS = -(-2000 // QS_BATCH)
+QS_RUNS = {"quickstart_dcgan": ([], 1024),
+           "quickstart_progan": (["--model", "ProGAN", "--class", "bedroom",
+                                  "--layer", DISSECT_PG_LAYER], 512)}
+QS_DISSECT_N, QS_DISSECT_BATCH, QS_REPORT_UNITS = 64, 16, 8
+# custom_model at its defaults: ToyGAN (fc2: D = 16 * 16 * 16 = 4096, the
+# moments tier), n = 512 at batch 128, one NB = 2000 block: kernel A once,
+# at [2000, 4096]
+# the profilers: profile_wpca at its default n (the fused W stream, kernel A
+# once per block), profile_convtap cut from 50000 to 20000 samples for time
+# (PERF.md section 4) on the fused activation stream below its floor
+# (GANSPACE_FUSED_ACTS=1, as the conv-tap fit of phase 12), each a warm-up
+# and REPS = 1 timed fit, the convtap one traced
+PROFILE_CONVTAP_N = CONV_N
+
+
+def qs_launches(family: str, regression_batch: int, refined: bool) -> dict:
+    """Kernel launches of a quickstart run: the shape annotation and the
+    fit's probe (one forward to the tap each), the block (and the refine
+    pass's), the regression sweep's forwards to the tap; the strip (one
+    5-frame forward), the dissection's stats and tally passes and the
+    report (full forwards).  DCGAN's forward to a tap is a full forward."""
+    tap = (2 + QS_BLOCK_FORWARDS * (1 + refined)
+           + max(10_000, QS_N) // regression_batch)
+    full = 1 + 2 * (QS_DISSECT_N // QS_DISSECT_BATCH) + QS_REPORT_UNITS
+    if family == "ProGAN":
+        return pg_forwards(full, tap)
+    return dict(upsample_conv=len(dc_shapes(1)) * (tap + full))
+
+
+def check_quickstart_outputs(what: str, out: Path, c: int) -> tuple:
+    """The cache (keys, finite, orthonormal rows, _meta), the strip PNG, the
+    direction ``.pkl`` reloaded against the cache, ``dissect.html`` and its
+    unit images: (the refine decision, a summary)."""
+    from PIL import Image
+
+    from ganspace_tpu_torch.directions import load_direction
+    (npz,) = (out / "cache" / "components").glob("*.npz")
+    arrays, meta = load_cache(npz, c=c)
+    expect_meta(meta, what, device_rng=True, fused_linreg=False, dtype="float32")
+    if meta["refine_skipped"] not in (True, False):
+        raise AssertionError(f"{what}: _meta {meta}, no sketch-tier decision")
+    strips = sorted((out / "strips").rglob("quickstart_pc0_*.png"))
+    if len(strips) != 1:
+        raise AssertionError(f"{what}: strip PNGs {strips}")
+    with Image.open(strips[0]) as im:
+        strip_size = im.size
+    (pkl,) = (out / "directions").glob("*.pkl")
+    d = load_direction(pkl)
+    if not (np.array_equal(d["act_comp"], arrays["act_comp"][0])
+            and np.array_equal(d["lat_comp"], arrays["lat_comp"][0])
+            and d["act_stdev"] == float(arrays["act_stdev"][0])
+            and d["decomposition"]["samples"] == QS_N):
+        raise AssertionError(f"{what}: the reloaded direction differs from the cache")
+    report = json.loads((out / "dissect" / "dissect.json").read_text())
+    images = list((out / "dissect" / "image").glob("unit_*.png"))
+    if (not (out / "dissect" / "dissect.html").is_file() or len(images) != QS_REPORT_UNITS
+            or report["n_samples"] != QS_DISSECT_N):
+        raise AssertionError(f"{what}: dissect.html, {len(images)} unit images, "
+                             f"n_samples {report['n_samples']}")
+    top = report["units"][0]
+    return (not meta["refine_skipped"],
+            f"{npz.name} (|C C^T - I| = {arrays['gram_err']:.2e}), strip {strip_size}, "
+            f"{pkl.name}, top unit {top['unit']} {top['label']} iou {top['iou']:.4f}")
+
+
+def run_quickstarts(gpu: str) -> dict:
+    """``ganspace_tpu_torch.examples.quickstart`` at its defaults and on
+    ProGAN-256, in process: launches exact, outputs checked."""
+    from ganspace_tpu_torch.examples import quickstart
+    launches = {}
+    for path, (argv, reg_batch) in QS_RUNS.items():
+        with tempfile.TemporaryDirectory() as out, environ(GANSPACE_OUTPUT_DIR=out):
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            if quickstart.main([*argv, "--outdir", out]) != 0:
+                raise AssertionError(f"{path}: exit code")
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches[path] = read_launches()
+            refined, summary = check_quickstart_outputs(path, Path(out), QS_C)
+            family = "ProGAN" if argv else "DCGAN"
+            expect_launches(launches[path], path, **qs_launches(family, reg_batch, refined))
+        log(f"{path}: {seconds:.3f} s, launches {launches[path]}, refined {refined}; "
+            f"{summary} [{gpu}]")
+    return launches
+
+
+def run_custom_model(gpu: str) -> dict:
+    """``ganspace_tpu_torch.examples.custom_model`` at its defaults: the
+    registered ToyGAN's fit at fc2 through kernel A, its strip PNG."""
+    from ganspace_tpu_torch.examples import custom_model
+    from ganspace_tpu_torch.models import get_model
+    with tempfile.TemporaryDirectory() as out, environ(GANSPACE_OUTPUT_DIR=out):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        if custom_model.main(["--outdir", out]) != 0:
+            raise AssertionError("custom_model: exit code")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        expect_launches(launches, "custom_model", centered_gram=1)
+        (npz,) = Path(out, "cache", "components").glob("toygan-None_fc2_ipca_c4_n512.npz")
+        arrays, meta = load_cache(npz, c=4)
+        expect_meta(meta, "custom_model", device_rng=False, refine_skipped=None)
+        if not Path(out, "toygan_component0_strip.png").is_file():
+            raise AssertionError("custom_model: no strip PNG")
+    try:
+        get_model("ToyGAN", device="cuda")
+        raise AssertionError("custom_model: ToyGAN still registered")
+    except RuntimeError:
+        pass
+    log(f"custom_model: {seconds:.3f} s, launches {launches}; {npz.name}, |C C^T - I| = "
+        f"{arrays['gram_err']:.2e}, var_ratio {np.round(arrays['var_ratio'], 4).tolist()} "
+        f"[{gpu}]")
+    return launches
+
+
+def run_profilers(gpu: str) -> dict:
+    """``tools.profile_wpca`` at n = 1M and ``tools.profile_convtap`` at
+    PROFILE_CONVTAP_N, REPS = 1, in process; the convtap tool's timed fit
+    traced into a temporary TRACE_DIR."""
+    from ganspace_tpu_torch.tools import profile_convtap, profile_wpca
+    launches = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    with environ(REPS=1):
+        profile_wpca.main([str(W_N_1M)])
+    torch.cuda.synchronize()
+    launches["profile_wpca"] = read_launches()
+    expect_launches(launches["profile_wpca"], "profile_wpca", centered_gram=2 * N_W_1M_BLOCKS)
+    log(f"profile_wpca: {time.perf_counter() - t0:.3f} s, launches "
+        f"{launches['profile_wpca']} [{gpu}]")
+
+    with tempfile.TemporaryDirectory() as trace_dir, record_estimators() as made, \
+            environ(REPS=1, TRACE_DIR=trace_dir, GANSPACE_FUSED_ACTS=1):
+        reset_launches()
+        t0 = time.perf_counter()
+        profile_convtap.main([str(PROFILE_CONVTAP_N)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches["profile_convtap"] = read_launches()
+        traces = list(Path(trace_dir).glob("*.pt.trace.json"))
+        if len(traces) != 1 or '"cat": "kernel"' not in traces[0].read_text():
+            raise AssertionError(f"profile_convtap: trace files {traces}")
+        trace_mb = traces[0].stat().st_size / 1e6
+    # the fitted estimators (the cache name builds one first, never fitted):
+    # the warm-up and the timed fit, each its probe and the fused blocks
+    fitted = [e for e in made if e.refine_skipped is not None]
+    if len(fitted) != 2:
+        raise AssertionError(f"profile_convtap: {len(fitted)} fitted estimators")
+    want = {"modconv3x3": B_PER_TAP_FORWARD, "upsample_conv": UP_PER_TAP_FORWARD}
+    for e in fitted:
+        shape = dict(refined=not e.refine_skipped, fused_blocks=CONV20_FUSED_BLOCKS, cli=False)
+        want["modconv3x3"] += conv_tap_launches(**shape)
+        want["upsample_conv"] += conv_tap_launches(**shape, per_tap=UP_PER_TAP_FORWARD,
+                                                   per_full=UP_PER_FORWARD)
+    expect_launches(launches["profile_convtap"], "profile_convtap", **want)
+    log(f"profile_convtap at n = {PROFILE_CONVTAP_N}: {seconds:.3f} s, launches "
+        f"{launches['profile_convtap']}, refined {[not e.refine_skipped for e in fitted]}, "
+        f"{trace_mb:.1f} MB trace [{gpu}]")
+    return launches
+
+
+def trace_events(path: Path, cat: str) -> list:
+    """The events of category ``cat`` in a ``torch.profiler`` chrome trace."""
+    events = json.loads(path.read_text())["traceEvents"]
+    return [e for e in events if e.get("cat") == cat]
+
+
+def check_trace_on_card(gpu: str) -> None:
+    """One ``utils.tracing.trace`` on the card around 20 annotated kernel-A
+    launches: its file holds CUDA kernel events and the annotation."""
+    from ganspace_tpu_torch.ops.moments import centered_gram
+    from ganspace_tpu_torch.utils import tracing
+    x = torch.randn(*GRAM_WIDE, device="cuda")
+    with tempfile.TemporaryDirectory() as d:
+        with tracing.trace(d) as out:
+            with tracing.annotate("chip_smoke_trace_check"):
+                tracing.device_sync([centered_gram(x, x.mean(dim=0)) for _ in range(20)])
+        (path,) = Path(out).glob("*.pt.trace.json")
+        kernels = trace_events(path, "kernel")
+        names = {e.get("name") for e in json.loads(path.read_text())["traceEvents"]}
+    if not kernels or "chip_smoke_trace_check" not in names:
+        raise AssertionError(f"trace on the card: {len(kernels)} kernel events, "
+                             f"annotation {'chip_smoke_trace_check' in names}")
+    log(f"tracing.trace on the card: {len(kernels)} kernel events "
+        f"({', '.join(sorted({e['name'][:40] for e in kernels}))}), the annotation [{gpu}]")
+
+
+def run_examples_and_tools(gpu: str, recorder: LaunchRecorder, gen: torch.Generator) -> dict:
+    """The quickstart (DCGAN-64, ProGAN-256), custom_model, profile_wpca,
+    profile_convtap and a trace on the card, their launches exact, then
+    every shape they launched against its plain version."""
+    from ganspace_tpu_torch.ops.precision import ieee_f32
+    t0 = time.perf_counter()
+    check_trace_on_card(gpu)
+    launches = run_quickstarts(gpu)
+    launches["custom_model"] = run_custom_model(gpu)
+    launches.update(run_profilers(gpu))
+    with ieee_f32():
+        check_launched_shapes(recorder, gen)
+    log(f"examples and tools phase wall time: {time.perf_counter() - t0:.1f} s [{gpu}]")
+    return launches
 
 # -- the preview policy: --dtype bfloat16, the bf16 first pass, the viewer ---
 
@@ -4556,6 +4786,10 @@ def main() -> int:
     launches = {}
     with ieee_f32():
         launches["checkpoint_load"] = check_checkpoint_load(gpu)
+    # the quickstart and custom-model examples, the W and conv-tap profilers
+    # and a trace on the card, before the other profiled phases: late in the
+    # process the profiler has returned no CUDA events for short regions
+    launches.update(run_examples_and_tools(gpu, recorder, gen))
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as w_out:
         launches["w_style_cli"], w_device = run_main_path(gpu, w_out)

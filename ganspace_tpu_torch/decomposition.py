@@ -809,12 +809,26 @@ def _compute(config, dump_name: Path,
     os.replace(tmp_name, dump_name)
     stamp("npz")
     print("Phases: " + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items()))
+    if os.environ.get("GANSPACE_PHASE_TRACE") == "1":
+        _print_phase_trace(phases)
 
     if canceled:
         sys.exit(1)
     if instrumented_model is None:
         inst.close()
     return phases
+
+
+def _print_phase_trace(phases: dict) -> None:
+    """The phase stamps on stderr in the format of the JAX package's
+    ``GANSPACE_PHASE_TRACE=1`` trace (``decomposition.py:1474-1480``): each
+    phase's seconds and the seconds since the start of ``_compute``.  The
+    stamps are taken whether the trace is on or not."""
+    t, lines = 0.0, []
+    for label, dt in phases.items():
+        t += dt
+        lines.append(f"  {label:18s} +{dt:7.3f}s (t={t:7.3f})")
+    print("post-fit phase trace:\n" + "\n".join(lines), file=sys.stderr)
 
 
 def _print_bf16_verdict(bf16_meta: dict, n_components: int) -> None:

@@ -144,8 +144,10 @@ class BaseGenerator(nn.Module, ABC):
         """Canonical tap points in execution order."""
 
     @abstractmethod
-    def _gaussian_latent_dim(self) -> int:
-        """Dim of the raw host gaussian behind ``sample_latent``."""
+    def _gaussian_latent_dim(self) -> Optional[int]:
+        """Dim of the raw host gaussian behind ``sample_latent`` when it is
+        'stream seed -> RandomState gaussian [-> device transform]'; None
+        otherwise (the streams then call ``sample_latent`` itself)."""
 
     @abstractmethod
     def _latents_from_gaussian(self, z: torch.Tensor) -> torch.Tensor:
@@ -201,6 +203,9 @@ class BaseGenerator(nn.Module, ABC):
         the model's device and then kept on ``keep_on`` (default: there), so
         with ``keep_on="cpu"`` the device holds one batch at a time."""
         dim = self._gaussian_latent_dim()
+        if dim is None:
+            return [self.sample_latent(batch_size).to(keep_on or self.device)
+                    for _ in range(n_batches)]
         seeds = [self.host_rng.next_seed() for _ in range(n_batches)]
         return [self._latents_from_gaussian(torch.from_numpy(
                     gaussian_latents(batch_size, dim, s)).to(self.device)).to(

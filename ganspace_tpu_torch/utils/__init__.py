@@ -1,5 +1,6 @@
-"""Host utilities of the port: ``video``, and copies of the JAX package's
-host modules ``jobs``, ``progress`` and ``workerpool``."""
+"""Host utilities of the port: ``video``, ``tracing`` (``torch.profiler``
+traces and phase timers), and copies of the JAX package's host modules
+``jobs``, ``progress``, ``statedict`` and ``workerpool``."""
 
 from ganspace_tpu_torch.utils.jobs import (
     claim_job, exit_if_job_done, job_done, mark_job_done, pending_jobs,
@@ -9,6 +10,10 @@ from ganspace_tpu_torch.utils.progress import (
     default_progress, desc_progress, post_progress, print_progress,
     verbose_progress,
 )
+from ganspace_tpu_torch.utils.statedict import (
+    flatten_tree, load_state_dict, numpy_state_dict, save_state_dict,
+    unflatten_tree,
+)
 from ganspace_tpu_torch.utils.workerpool import WorkerBase, WorkerPool
 
 __all__ = [
@@ -16,4 +21,6 @@ __all__ = [
     "pending_jobs", "release_job",
     "default_progress", "desc_progress", "post_progress", "print_progress",
     "verbose_progress", "WorkerBase", "WorkerPool",
+    "flatten_tree", "unflatten_tree", "save_state_dict",
+    "load_state_dict", "numpy_state_dict",
 ]

@@ -85,6 +85,14 @@ MODULES = [
     "ganspace_tpu_torch.dissection.server",
     "ganspace_tpu_torch.examples",
     "ganspace_tpu_torch.examples.custom_classifier",
+    "ganspace_tpu_torch.examples.custom_model",
+    "ganspace_tpu_torch.examples.quickstart",
+    "ganspace_tpu_torch.utils.statedict",
+    "ganspace_tpu_torch.utils.tracing",
+    "ganspace_tpu_torch.tools.profiling",
+    "ganspace_tpu_torch.tools.profile_wpca",
+    "ganspace_tpu_torch.tools.profile_convtap",
+    "ganspace_tpu_torch.notebooks.make_demo_notebook",
 ]
 
 
