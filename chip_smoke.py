@@ -185,7 +185,22 @@ Phases, each of which raises on failure:
    the fused stream, ``GANSPACE_FUSED_ACTS=1``), ``REPS=1``, the convtap
    tool's timed fit traced into a temporary ``TRACE_DIR``; each with its
    exact launches, its cache, strip, direction and report checked;
-23. every kernel shape launched over the run (recorded in front of the
+23. the mesh (``ganspace_tpu_torch/parallel``), after phase 8 and after
+   phase 12: a one-rank NCCL group on cuda:0 made by ``parallel.launch``
+   (not collapsed to the single-device path), each collective of
+   ``parallel/mesh.py`` on CUDA tensors against known values and the W fit
+   at n = 1M through it, its cache bit for bit phase 8's; then two ranks
+   co-located on cuda:0 over gloo (``devices=["cuda:0", "cuda:0"]``),
+   spawned processes each running ``mesh_child``: the collectives, the W
+   fit at n = 1M, the ``convs.2`` fit at n = 20000 on the fused stream
+   (the sketch tier with refine, the regression riding it) and the W CLI
+   (``visualize.run`` on the mesh), against phase 8's fit, phase 12's fused
+   fit and phase 7's grids by ``tests/test_mesh_pipeline.py``'s bars (the
+   grids within one uint8 level), ``_meta["mesh"]`` ``{"data": 2}``, and
+   the ranks' launches: each its share of the dealt blocks, summing to the
+   single-device counts plus rank 1's probe of the tap (two modulated and
+   two stride-2 launches);
+24. every kernel shape launched over the run (recorded in front of the
    kernel library) that phase 5 did not cover, such as the fits' batch-1
    probes and the viewer's batch-1 frames, held against its plain version
    by the same bars, on the datapath it was launched on.
@@ -259,6 +274,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1565,26 +1581,32 @@ def record_estimators():
 
 
 def fit_only(inst, layer: str, n: int, seed: int = 0, estimator: str = "ipca",
-             sparsity: float = 1.0, **env) -> dict:
+             sparsity: float = 1.0, mesh="config", out: str | None = None, **env) -> dict:
     """``get_or_compute`` alone (no render) on ``inst``'s model, its launch
     counts, cache, wall seconds (device drained) and phase seconds; a
-    full-batch fit prints its iterations, where it has them."""
+    full-batch fit prints its iterations, where it has them.  On ``mesh``
+    (every rank calls this, with one ``out`` directory) rank 0 reads the
+    cache; the others return no arrays."""
     from ganspace_tpu_torch.config import Config
     from ganspace_tpu_torch.decomposition import get_or_compute
     use_w = inst.model.latent_space_name() == "W"
     config = Config(model=inst.model.model_name, output_class=inst.model.outclass, layer=layer,
                     estimator=estimator, components=80, n=n, use_w=use_w,
                     seed=seed or None, sparsity=sparsity, device="cuda")
-    with tempfile.TemporaryDirectory() as out, environ(GANSPACE_OUTPUT_DIR=out, **env):
+    with contextlib.ExitStack() as stack:
+        out = out or stack.enter_context(tempfile.TemporaryDirectory())
+        stack.enter_context(environ(GANSPACE_OUTPUT_DIR=out, **env))
         phases = {}
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
-        path = get_or_compute(config, inst, phases=phases)
+        path = get_or_compute(config, inst, phases=phases, mesh=mesh)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = read_launches()
-        arrays, meta = load_cache(path, orthonormal=estimator not in ("ica", "spca"))
+        arrays = meta = None
+        if isinstance(mesh, str) or mesh.is_root:
+            arrays, meta = load_cache(path, orthonormal=estimator not in ("ica", "spca"))
     return {"launches": launches, "arrays": arrays, "meta": meta,
             "seconds": seconds, "phases": phases}
 
@@ -1593,13 +1615,34 @@ def fmt_phases(phases: dict) -> str:
     return ", ".join(f"{k} {v:.3f} s" for k, v in phases.items())
 
 
-def run_main_path(gpu: str, out: str) -> tuple[dict, dict]:
+@contextlib.contextmanager
+def keep_grids(store: dict):
+    """The CLI's grids' uint8 pixels, by file name, into ``store`` (a dict,
+    or a directory for ``.npy`` files) as they are written."""
+    from ganspace_tpu_torch.apps import visualize
+    own = visualize.save_grid_image
+
+    def save(rows, outpath):
+        grid = own(rows, outpath)
+        if isinstance(store, dict):
+            store[Path(outpath).name] = grid
+        else:
+            np.save(Path(store, Path(outpath).name + ".npy"), grid)
+        return grid
+    visualize.save_grid_image = save
+    try:
+        yield store
+    finally:
+        visualize.save_grid_image = own
+
+
+def run_main_path(gpu: str, out: str, grids: dict) -> tuple[dict, dict]:
     """The W CLI run in the default environment, its output under ``out``
-    (the viewer phase reuses its cache): (its launch counts, its npz
-    arrays)."""
+    (the viewer phase reuses its cache), its grids' pixels into ``grids``
+    (the mesh phase's reference): (its launch counts, its npz arrays)."""
     from ganspace_tpu_torch.apps import visualize
 
-    with environ(GANSPACE_OUTPUT_DIR=out):
+    with environ(GANSPACE_OUTPUT_DIR=out), keep_grids(grids):
         reset_launches()
         result = visualize.main(list(MAIN_ARGS))
         launches = read_launches()
@@ -2862,8 +2905,9 @@ SAMPLE_ARGS = ["--model", SAMPLE_MODEL, "--class", SAMPLE_CLASS, "--size", str(S
 
 def run_figure(gpu: str, spec: tuple, res: int, outdir: str, want) -> dict:
     """One figure's ``main`` on the card: its launches held to
-    ``want(forwards, fits)``, each PNG decoded and its shape checked (rows
-    of frames with white bars of res / 64 px between them); its seconds
+    ``want(forwards, fits)``, each PNG decoded, its shape checked (rows
+    of frames with white bars of res / 64 px between them) and its pixels
+    held bit for bit to the grid queued on the writer pool; its seconds
     split into ``setup`` (the model and its components), the grids (frames
     to uint8, padding, PNG) and the render between them."""
     import importlib
@@ -2883,32 +2927,44 @@ def run_figure(gpu: str, spec: tuple, res: int, outdir: str, want) -> dict:
                 split[key] += time.perf_counter() - t
         return call
 
-    own = mod.setup, mod.save_figure_grid
+    from ganspace_tpu_torch.native import ImageWriterPool
+    from ganspace_tpu_torch.notebooks import notebook_init
+    queued = {}     # the grids as queued on the pool, by path
+
+    def keep(pool, path, img):
+        queued[Path(path).resolve()] = img
+        return own[3](pool, path, img)
+    own = mod.setup, mod.save_figure_grid, notebook_init.drain, ImageWriterPool.save_png
     mod.setup, mod.save_figure_grid = timed_call(own[0], "setup"), timed_call(own[1], "grid")
+    notebook_init.drain = timed_call(own[2], "grid")     # the writer pool's last PNGs
+    ImageWriterPool.save_png = keep
     reset_launches()
     t0 = time.perf_counter()
     try:
         mod.main(["--outdir", outdir, *argv])
         torch.cuda.synchronize()
     finally:
-        mod.setup, mod.save_figure_grid = own
+        mod.setup, mod.save_figure_grid, notebook_init.drain, ImageWriterPool.save_png = own
     seconds = time.perf_counter() - t0
     launches = read_launches()
     expect_launches(launches, name, **want(forwards, fits))
     sizes = []
     for png, rows, per_row in pngs:
         with Image.open(Path(outdir, png)) as im:
-            shape = np.asarray(im).shape
+            pixels = np.asarray(im)
         expected = (rows * res, per_row * res + (per_row - 1) * (res // 64), 3)
-        if shape != expected:
-            raise AssertionError(f"{name}: {png} is {shape}, expected {expected}")
-        sizes.append(f"{png} {shape[1]} x {shape[0]}")
+        if pixels.shape != expected:
+            raise AssertionError(f"{name}: {png} is {pixels.shape}, expected {expected}")
+        if not np.array_equal(pixels, queued[Path(outdir, png).resolve()]):
+            raise AssertionError(f"{name}: {png} does not decode to the grid queued")
+        sizes.append(f"{png} {pixels.shape[1]} x {pixels.shape[0]}")
     render = seconds - split["setup"] - split["grid"]
     log(f"{' '.join([name, *argv])}: {seconds:.3f} s (setup {split['setup']:.3f}, render "
         f"{render:.3f}, grids {split['grid']:.3f}), {frames} frames at {res} px in {forwards} "
         f"forwards, {frames / seconds:.2f} frames/s ({frames / render:.2f} in the render); "
         f"launches {launches}; {', '.join(sizes)} [{gpu}]")
-    return launches
+    return launches, {"seconds": seconds, "setup": split["setup"], "render": render,
+                      "grids": split["grid"]}
 
 
 def check_figures_vs_cpu(outdir: str) -> None:
@@ -2998,10 +3054,16 @@ def run_figures(gpu: str) -> dict:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out, environ(GANSPACE_OUTPUT_DIR=out):
         figs = str(Path(out, "figures"))
-        for specs, res, want in ((FIG_SG2, 1024, sg2), (FIG_BG, FIG_BG_RES, bg)):
+        for specs, res, want, family in ((FIG_SG2, 1024, sg2, "StyleGAN2-1024"),
+                                         (FIG_BG, FIG_BG_RES, bg, "BigGAN-128")):
+            total = {}
             for spec in specs:
                 path = "fig_" + spec[0].removeprefix("figure_")
-                launches[path] = run_figure(gpu, spec, res, figs, want)
+                launches[path], split = run_figure(gpu, spec, res, figs, want)
+                total = {k: total.get(k, 0.0) + v for k, v in split.items()}
+            log(f"figures, the {len(specs)} {family} ones: {total['seconds']:.3f} s (setup "
+                f"{total['setup']:.3f}, render {total['render']:.3f}, grids "
+                f"{total['grids']:.3f}: PNGs through the writer pool) [{gpu}]")
         log(f"figures wall time: {time.perf_counter() - t0:.1f} s [{gpu}]")
         with ieee_f32():
             check_figures_vs_cpu(figs)
@@ -4754,6 +4816,313 @@ def check_vs_cpu(conv_npz: dict, gen_seed: int = 7) -> None:
         raise AssertionError("card and CPU disagree on the latent regression")
 
 
+# -- the mesh (ganspace_tpu_torch/parallel) ------------------------------------
+
+# The bars of tests/test_mesh_pipeline.py: meshed against single device
+MESH_COS, MESH_MEAN_TOL, MESH_STDEV_RTOL = 0.999, 1e-4, 1e-3
+MESH_GRID_LEVELS = 1                     # the grids, uint8 levels
+MESH_IMAGE_TOL = 1e-5                    # tests/test_mesh_pipeline.py's images
+MESH_RANKS = ["cuda:0", "cuda:0"]        # two ranks co-located on the card, over gloo
+MESH_RENDER_N = 4                        # 1024-px images rendered on the mesh: 2 a rank
+
+
+def check_collectives(mesh) -> dict:
+    """Each collective of ``parallel/mesh.py`` once on CUDA tensors (small
+    integers, so every sum is exact) against its known value: the largest
+    |error| by collective."""
+    from ganspace_tpu_torch.parallel import mesh as meshlib
+    r, w, dev = mesh.rank, mesh.size, mesh.device
+    tri = w * (w + 1) / 2                # the sum of (rank + 1) over the ranks
+    ar = torch.arange(6.0, device=dev).reshape(2, 3)
+    errs = {}
+
+    def err(name, got, want):
+        got = torch.as_tensor(got, dtype=torch.float64).cpu()
+        want = torch.as_tensor(want, dtype=torch.float64).cpu()
+        if got.shape != want.shape:
+            raise AssertionError(f"{name}: shape {tuple(got.shape)}, expected {tuple(want.shape)}")
+        errs[name] = float((got - want).abs().max()) if got.numel() else 0.0
+    err("all_reduce", mesh.all_reduce(torch.full((4, 3), r + 1.0, device=dev)),
+        torch.full((4, 3), tri))
+    err("sum_scalar", mesh.sum_scalar(r + 1), tri)
+    part = slice(2 * r, 2 * r + 2)
+    err("reduce_scatter", mesh.reduce_scatter((r + 1) * torch.arange(
+        6.0 * w, device=dev).reshape(2 * w, 3), part),
+        tri * torch.arange(6.0 * w).reshape(2 * w, 3)[part])
+    err("all_gather_rows", mesh.all_gather_rows(ar + 10 * r),
+        torch.cat([ar.cpu() + 10 * k for k in range(w)]))
+    err("broadcast", mesh.broadcast(torch.full((3,), float(r), device=dev)), torch.zeros(3))
+    err("decide", mesh.decide(r), 0)
+    err("all_gather_object", mesh.all_gather_object(r), list(range(w)))
+    root = mesh.reduce_root(torch.full((3,), r + 1.0, device=dev))
+    err("reduce_root", root if mesh.is_root else torch.full((3,), tri),
+        torch.full((3,), tri))
+    # the Chan merge: rank k holds rows (k, k) and (k + 2, k + 2)
+    x = torch.tensor([[r, r], [r + 2.0, r + 2.0]], device=dev)
+    xc = x - x.mean(0)
+    n, mean, m2 = mesh.chan_merge(2, x.mean(0), xc.T @ xc)
+    allx = torch.tensor([[k + d, k + d] for k in range(w) for d in (0.0, 2.0)],
+                        dtype=torch.float64)
+    allc = allx - allx.mean(0)
+    err("chan_merge", torch.cat([torch.tensor([n]), mean.cpu(), m2.cpu().reshape(-1)]),
+        torch.cat([torch.tensor([2.0 * w]), allx.mean(0), (allc.T @ allc).reshape(-1)]))
+    # all-to-all: rank k's 2 rows, D = 2 w features valued 100 k + column
+    y = meshlib.reshard_for_estimator(100.0 * r + torch.arange(
+        2.0 * w, device=dev).repeat(2, 1), mesh)
+    err("reshard_for_estimator", y, torch.cat([
+        100.0 * k + torch.arange(2.0 * r, 2.0 * r + 2).repeat(2, 1) for k in range(w)]))
+    mesh.barrier()
+    if any(v != 0.0 for v in errs.values()):
+        raise AssertionError(f"rank {r}: collectives off their known values: {errs}")
+    return errs
+
+
+def rank_launches(job: str, per_rank: list) -> dict:
+    """The ranks' launches of a job, summed by kernel."""
+    total = {}
+    for rank in per_rank:
+        for name, k in rank[job]["launches"].items():
+            total[name] = total.get(name, 0) + k
+    return total
+
+
+def mesh_render(inst, mesh, recorder: LaunchRecorder) -> dict:
+    """``sample_np`` of MESH_RENDER_N seeded Z latents at 1024 px on the
+    mesh, plain and with a per-row offset at ``convs.2`` (each rank renders
+    its rows, with its rows of the offset): this rank's launches and the
+    batch sizes B and B-up launched at; on rank 0 also the single-device
+    render of the same latents and edit and the largest |difference|."""
+    model = inst.model
+    z = model.sample_latent(MESH_RENDER_N, seed=11)
+    shape = (MESH_RENDER_N, *inst.feature_shape["convs.2"][1:])
+    offset = torch.linspace(-1.0, 1.0, math.prod(shape), device=model.device).reshape(shape)
+
+    def plain_and_edited():
+        plain = model.sample_np(z)
+        inst.edit_layer("convs.2", offset=offset)
+        try:
+            return plain, model.sample_np(z)
+        finally:
+            inst.remove_edits()
+    seen, recorder.seen = recorder.seen, set()
+    model.place_on_mesh(mesh)
+    reset_launches()
+    try:
+        meshed = plain_and_edited()
+    finally:
+        model.place_on_mesh(None)
+    out = {"launches": read_launches(),
+           "batches": sorted({k[1] for k in recorder.seen if k[0] != "centered_gram"})}
+    recorder.seen |= seen
+    if mesh.is_root:
+        reset_launches()
+        single = plain_and_edited()
+        out.update(single_launches=read_launches(),
+                   err=[float(np.abs(a - b).max()) for a, b in zip(meshed, single)],
+                   edit_moved=float(np.abs(single[1] - single[0]).max()))
+    return out
+
+
+def check_mesh_render(render: list) -> str:
+    """The ranks' ``mesh_render``: each rank one forward per image batch
+    (plain, edited) of its half of the rows, so as many launches as rank 0's
+    single-device forwards of all of them, at half the batch; the images
+    within MESH_IMAGE_TOL of the single-device ones."""
+    per_forwards = {"modconv3x3": 2 * B_PER_FORWARD, "upsample_conv": 2 * UP_PER_FORWARD}
+    expect_launches(render[0]["single_launches"], "single-device render", **per_forwards)
+    for rank, r in enumerate(render):
+        expect_launches(r["launches"], f"mesh render, rank {rank}", **per_forwards)
+        if r["batches"] != [MESH_RENDER_N // 2]:
+            raise AssertionError(f"mesh render, rank {rank}: B and B-up launched at batches "
+                                 f"{r['batches']}, expected {MESH_RENDER_N // 2}")
+    err, moved = render[0]["err"], render[0]["edit_moved"]
+    if not (max(err) <= MESH_IMAGE_TOL and moved > 0.01):
+        raise AssertionError(f"mesh render: max |d| {err} (plain, edited) against single "
+                             f"device, bar {MESH_IMAGE_TOL}; the edit moved pixels by {moved}")
+    return (f"mesh render: {MESH_RENDER_N} images at 1024 px, {MESH_RENDER_N // 2} a rank (B "
+            f"and B-up launched at batch {MESH_RENDER_N // 2} on each rank), plain and with a "
+            f"per-row offset at convs.2, against the single-device render: max |d| "
+            f"{err[0]:.3e} plain, {err[1]:.3e} edited (bar {MESH_IMAGE_TOL}); the edit moves "
+            f"pixels by up to {moved:.3f}")
+
+
+def mesh_child(mesh, out: str) -> dict:
+    """One rank of the two co-located ranks: the collectives, the W fit at
+    n = 1M, the ``convs.2`` fit at n = 20000 on the fused stream, a render
+    on the mesh and the W CLI on the mesh, each with this rank's launches
+    and the launched shapes (rank 0 also the caches and the grids' pixels,
+    under ``out``)."""
+    from ganspace_tpu_torch.apps import visualize
+    from ganspace_tpu_torch.config import Config
+    from ganspace_tpu_torch.models import annotate_model_shapes, get_instrumented_model
+    from ganspace_tpu_torch.models.base import InstrumentedModel
+    entered = time.time()
+    if mesh.backend != "gloo" or mesh.size != 2:
+        raise AssertionError(f"expected two ranks over gloo, got {mesh}")
+    recorder = record_launches()
+    result = {"entered": entered, "collectives": check_collectives(mesh)}
+    inst = get_instrumented_model("StyleGAN2", "ffhq", "style", mesh.device, use_w=True)
+    result["w_fit_1m"] = fit_only(inst, "style", W_N_1M, mesh=mesh, out=f"{out}/w")
+    inst.model.use_z()    # the same weights in Z, shape-annotated as the CLI's are
+    conv = annotate_model_shapes(InstrumentedModel(inst.model), ["convs.2"])
+    result["convs2_fit"] = fit_only(conv, "convs.2", CONV_N,
+                                    mesh=mesh, out=f"{out}/conv", GANSPACE_DEVICE_RNG=1,
+                                    GANSPACE_FUSED_ACTS=1)
+    result["render"] = mesh_render(conv, mesh, recorder)
+    del inst
+    grids = Path(out, "grids")
+    grids.mkdir(exist_ok=True)
+    with environ(GANSPACE_OUTPUT_DIR=f"{out}/cli"), keep_grids(
+            str(grids) if mesh.is_root else {}):
+        reset_launches()
+        t0 = time.perf_counter()
+        cli = visualize.run(Config().from_args(list(MAIN_ARGS)), mesh)
+        torch.cuda.synchronize()
+        result["w_cli"] = {"launches": read_launches(), "seconds": time.perf_counter() - t0,
+                           "fit_seconds": cli.fit_seconds,
+                           "render_seconds": cli.render_seconds, "images": cli.images,
+                           "cache": str(cli.cache)}
+    result["seen"] = sorted(recorder.seen, key=str)
+    return result
+
+
+def check_mesh_fit(what: str, got: dict, ref: dict) -> str:
+    """A meshed fit's cache against the single-device one by
+    ``tests/test_mesh_pipeline.py``'s bars; where a near-degenerate pair of
+    the random-weight spectrum breaks the per-component bar, the top-c
+    subspace's principal angles instead (each cos > MESH_COS), the
+    eigen-gaps printed."""
+    a, b = got["arrays"], ref["arrays"]
+    notes = []
+    for key in ("act_comp", "lat_comp"):
+        x, y = a[key].reshape(80, -1), b[key].reshape(80, -1)
+        cos = np.abs(np.sum(x.astype(np.float64) * y, axis=1))
+        if cos.min() > MESH_COS:
+            notes.append(f"{key} min |cos| {cos.min():.9f}")
+            continue
+        angles = 1.0 - min_angle_err(x, y, 80)
+        stdev = b["act_stdev"].astype(np.float64)
+        gaps = 1.0 - stdev[1:] ** 2 / stdev[:-1] ** 2
+        bad = np.flatnonzero(cos <= MESH_COS)
+        log(f"{what}: {key} per-component |cos| under {MESH_COS} at {bad.tolist()} "
+            f"({cos[bad].round(6).tolist()}); relative eigen-gaps there "
+            f"{[round(float(gaps[i - 1]) if i else 1.0, 6) for i in bad]} / "
+            f"{[round(float(gaps[i]), 6) if i < 79 else 1.0 for i in bad]} (above / below)")
+        if not angles > MESH_COS:
+            raise AssertionError(f"{what}: {key} top-80 subspace's least principal cos "
+                                 f"{angles}")
+        notes.append(f"{key} per-component min |cos| {cos.min():.6f} (a near-degenerate "
+                     f"pair), top-80 subspace least principal cos {angles:.9f}")
+    mean_err = float(np.abs(a["act_mean"] - b["act_mean"]).max())
+    stdev_rel = float(np.abs(a["act_stdev"] / b["act_stdev"] - 1).max())
+    if not (mean_err < MESH_MEAN_TOL and stdev_rel < MESH_STDEV_RTOL):
+        raise AssertionError(f"{what}: act_mean max |d| {mean_err}, act_stdev rel {stdev_rel}")
+    expect_meta(got["meta"], what, mesh={"data": 2})
+    return (f"{'; '.join(notes)}; act_mean max |d| {mean_err:.3e}, act_stdev rel "
+            f"{stdev_rel:.3e}")
+
+
+def run_mesh(gpu: str, recorder: LaunchRecorder, w_fit_1m: dict, conv_fused: dict,
+             main_grids: dict, w_cli_launches: dict) -> dict:
+    """The two-rank phase: ``mesh_child`` on ranks co-located on the card
+    over gloo, against the single-device runs of the same configurations."""
+    from ganspace_tpu_torch.parallel import launch
+    t0 = time.perf_counter()
+    started = time.time()
+    with tempfile.TemporaryDirectory() as out:
+        ranks = launch(mesh_child, (out,), shape="2", devices=MESH_RANKS)
+        spawn = min(r["entered"] for r in ranks) - started
+        for r in ranks:
+            recorder.seen.update(tuple(k) for k in r["seen"])
+        jobs = ("w_fit_1m", "convs2_fit", "render", "w_cli")
+        lines = [f"rank {i}: " + "; ".join(f"{job} {r[job]['launches']}" for job in jobs)
+                 for i, r in enumerate(ranks)]
+        log("mesh, two ranks on cuda:0 over gloo: launches by rank: " + " | ".join(lines))
+        launches = {f"mesh_{job}": rank_launches(job, ranks) for job in jobs}
+        # the blocks are dealt to the ranks by index, none twice: W 15 + 4
+        # blocks -> 8 + 2 and 7 + 2; convs.2 156 fused blocks -> 78 each, both
+        # passes; the CLI's strips of 5 frames do not split over 2 ranks and
+        # render on rank 0, its 8 W blocks 4 + 4.  Each rank probes the tap
+        # once: rank 1's probe (2 + 2 launches) is the mesh's overhead.
+        refined = not conv_fused["meta"]["refine_skipped"]
+        per_rank_tap = 2 * (1 + (CONV20_FUSED_BLOCKS // 2) * (2 if refined else 1))
+        want = {"w_fit_1m": [{"centered_gram": 10}, {"centered_gram": 9}],
+                "convs2_fit": [{"modconv3x3": per_rank_tap, "upsample_conv": per_rank_tap}] * 2,
+                "w_cli": [{"centered_gram": 4, "modconv3x3": N_CONV_LAUNCHES,
+                           "upsample_conv": N_UP_LAUNCHES}, {"centered_gram": 4}]}
+        for job, by_rank in want.items():
+            for rank, counts in enumerate(by_rank):
+                expect_launches(ranks[rank][job]["launches"], f"mesh {job}, rank {rank}",
+                                **counts)
+        render_note = check_mesh_render([r["render"] for r in ranks])
+        single = {"mesh_w_fit_1m": w_fit_1m["launches"],
+                  "mesh_convs2_fit": conv_fused["launches"], "mesh_w_cli": w_cli_launches}
+        overhead = {"mesh_convs2_fit": {"modconv3x3": 2, "upsample_conv": 2}}
+        for job, counts in launches.items():
+            if job not in single:
+                continue
+            extra = overhead.get(job, {})
+            want_sum = {k: v + extra.get(k, 0) for k, v in single[job].items()}
+            if counts != want_sum:
+                raise AssertionError(f"{job}: the ranks' launches {counts}, the single-device "
+                                     f"run's {single[job]} plus the overhead {extra}")
+        w_note = check_mesh_fit("mesh W fit at n = 1M", ranks[0]["w_fit_1m"], w_fit_1m)
+        conv_note = check_mesh_fit(f"mesh convs.2 fit at n = {CONV_N}", ranks[0]["convs2_fit"],
+                                   conv_fused)
+        cli = ranks[0]["w_cli"]
+        with np.load(cli["cache"], allow_pickle=False) as data:
+            expect_meta(json.loads(bytes(data["_meta"].item()).decode()), "mesh W CLI",
+                        mesh={"data": 2})
+        worst = 0
+        names = sorted(p.name.removesuffix(".npy") for p in Path(out, "grids").glob("*.npy"))
+        if names != sorted(main_grids):
+            raise AssertionError(f"mesh W CLI grids {names}, single-device {sorted(main_grids)}")
+        for name in names:
+            got = np.load(Path(out, "grids", name + ".npy"), mmap_mode="r")
+            ref = main_grids[name]
+            if got.shape != ref.shape:
+                raise AssertionError(f"mesh W CLI {name}: {got.shape}, expected {ref.shape}")
+            worst = max(worst, int(np.abs(got.astype(np.int16) - ref).max()))
+        if worst > MESH_GRID_LEVELS:
+            raise AssertionError(f"mesh W CLI grids differ by {worst} uint8 levels")
+    seconds = time.perf_counter() - t0
+    log(f"mesh W fit at n = {W_N_1M} against single device: {w_note}; "
+        f"{ranks[0]['w_fit_1m']['seconds']:.3f} s")
+    log(f"mesh convs.2 fit at n = {CONV_N} against single device: {conv_note}; "
+        f"{ranks[0]['convs2_fit']['seconds']:.3f} s")
+    log(render_note)
+    log(f"mesh W CLI: {len(names)} grids within {worst} uint8 level(s) of the single-device "
+        f"CLI's; fit {cli['fit_seconds']:.3f} s, render {cli['images']} images in "
+        f"{cli['render_seconds']:.3f} s; collectives exact on both ranks")
+    log(f"mesh phase (two ranks on cuda:0 over gloo): {seconds:.1f} s, of which spawn, "
+        f"CUDA start and rendezvous to the first rank's job {spawn:.1f} s [{gpu}]")
+    return launches
+
+
+def run_mesh_nccl(gpu: str, w_inst, w_fit_1m: dict) -> dict:
+    """A one-rank NCCL group on cuda:0 by ``launch`` (not collapsed): the
+    collectives, then the W fit at n = 1M through it, bit for bit the
+    single-device fit (every merge of one rank is an identity)."""
+    from ganspace_tpu_torch.parallel import launch
+    t0 = time.perf_counter()
+
+    def job(mesh):
+        if mesh.backend != "nccl" or mesh.size != 1:
+            raise AssertionError(f"expected a one-rank NCCL mesh, got {mesh}")
+        return check_collectives(mesh), fit_only(w_inst, "style", W_N_1M, mesh=mesh)
+    (_, run), = launch(job, shape="1", devices=["cuda:0"])
+    expect_meta(run["meta"], "one-rank NCCL W fit", mesh={"data": 1})
+    same = {k: np.array_equal(run["arrays"][k], w_fit_1m["arrays"][k])
+            for k in NPZ_KEYS - {"_meta"}}
+    if not all(same.values()) or run["launches"] != w_fit_1m["launches"]:
+        raise AssertionError(f"one-rank NCCL W fit: arrays equal {same}, launches "
+                             f"{run['launches']} against {w_fit_1m['launches']}")
+    log(f"mesh, one NCCL rank on cuda:0: collectives exact; the W fit at n = {W_N_1M} bit "
+        f"for bit the single-device fit ({run['seconds']:.3f} s, launches "
+        f"{run['launches']}); {time.perf_counter() - t0:.1f} s [{gpu}]")
+    return run["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke run "
@@ -4791,8 +5160,9 @@ def main() -> int:
     # process the profiler has returned no CUDA events for short regions
     launches.update(run_examples_and_tools(gpu, recorder, gen))
     t0 = time.perf_counter()
+    main_grids = {}     # the W CLI's grids, the mesh phase's reference
     with tempfile.TemporaryDirectory() as w_out:
-        launches["w_style_cli"], w_device = run_main_path(gpu, w_out)
+        launches["w_style_cli"], w_device = run_main_path(gpu, w_out, main_grids)
         log(f"W path wall time: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         viewer_launches, _ = run_viewer(gpu, w_out)
@@ -4803,6 +5173,7 @@ def main() -> int:
                                     use_w=True)
     w_fit_1m = run_w_fit_1m(gpu, w_inst)
     launches["w_fit_1m"] = w_fit_1m["launches"]
+    launches["mesh_nccl_w_fit_1m"] = run_mesh_nccl(gpu, w_inst, w_fit_1m)
     w_host = check_w_stream_gate(gpu, w_inst, w_device)
     launches["w_fit_host"], launches["w_fit_host_seed7"] = (w_host[0]["launches"],
                                                             w_host[7]["launches"])
@@ -4861,6 +5232,10 @@ def main() -> int:
     log(f"bf16 first pass wall time: {time.perf_counter() - t0:.1f} s")
     report_conv_stream_gate(gpu, runs["convs2_fit_fused"], runs["convs2_fit_host"],
                             runs["convs2_fit_host_seed7"])
+    # --mesh: two ranks co-located on the card over gloo
+    launches.update(run_mesh(gpu, recorder, w_fit_1m, runs["convs2_fit_fused"], main_grids,
+                             launches["w_style_cli"]))
+    del main_grids
     log(f"StyleGAN2 phases wall time: {time.perf_counter() - t_start:.1f} s")
 
     # StyleGAN (v1), the CLI's default model, at full FFHQ-1024 width

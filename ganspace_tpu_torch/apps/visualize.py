@@ -25,6 +25,15 @@ PyTorch path):
 
 A conv tap renders activation-mode grids (``*_ACT.jpg``) beside the
 latent-mode ones (``*_Z.jpg`` or ``*_W.jpg``).
+
+``--mesh N`` / ``--mesh AxB`` (default: every visible GPU) runs one process
+per device (``parallel/mesh.py``): the fit is meshed and every render batch
+shards over ``data``; rank 0 prints and writes the files.  Under
+``torchrun`` the ranks come from the environment; otherwise the CLI spawns
+them itself:
+    python -m ganspace_tpu_torch.apps.visualize --model StyleGAN2 --class ffhq \
+        --layer style --use_w --est ipca -c 80 -n 1000000 --mesh 4
+    torchrun --nproc-per-node 4 -m ganspace_tpu_torch.apps.visualize ...
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from ganspace_tpu_torch.decomposition import get_or_compute, read_meta
 from ganspace_tpu_torch.edit import create_strip_centered
 from ganspace_tpu_torch.imaging import pad_frames, to_uint8
 from ganspace_tpu_torch.models import get_instrumented_model
+from ganspace_tpu_torch.parallel import mesh as meshlib
 from ganspace_tpu_torch.sampling import (
     SEED_VISUALIZATION, random_directions, random_directions_device)
 from ganspace_tpu_torch.tools.lightbox import write_lightbox
@@ -78,10 +88,13 @@ def make_grid(inst, layer_key, latent, lat_mean, lat_comp, lat_stdev, act_mean,
     return rows
 
 
-def save_grid_image(rows, outpath):
+def save_grid_image(rows, outpath) -> np.ndarray:
+    """Write the rows of frames as one JPEG; returns its uint8 pixels."""
     strips = [np.hstack(pad_frames([np.atleast_3d(img) for img in row]))
               for row in rows]
-    Image.fromarray(to_uint8(np.vstack(strips))).save(outpath)
+    grid = to_uint8(np.vstack(strips))
+    Image.fromarray(grid).save(outpath)
+    return grid
 
 
 def load_components(path) -> SimpleNamespace:
@@ -112,9 +125,28 @@ def main(args=None):
     """Run the CLI; returns the cache path and the timings: ``fit_seconds``,
     ``render_seconds``, ``images`` rendered (video frames included), the
     ``videos`` written and, when the components were computed, the fit's
-    ``phases`` (seconds by phase)."""
+    ``phases`` (seconds by phase); rank 0's on a mesh."""
     args = args if isinstance(args, Config) else Config().from_args(args)
     device = require_device(args.device)
+    mesh = meshlib.init_from_env()
+    if mesh is None:
+        dims, devices = meshlib.resolve_devices(
+            meshlib.parse_shape(args.mesh_shape), "cpu" if device.type == "cpu" else None)
+        if len(devices) > 1:
+            return meshlib.launch(_rank_main, (args,), shape="x".join(map(str, dims)),
+                                  devices=devices)[0]
+    return run(args, mesh)
+
+
+def _rank_main(mesh, args):
+    return run(args, mesh)
+
+
+def run(args: Config, mesh=None):
+    """The CLI on ``mesh`` (this process's rank of it; None: one device):
+    what :func:`main` runs in every rank it starts."""
+    root = mesh is None or mesh.is_root
+    device = mesh.device if mesh is not None else require_device(args.device)
     t_start = datetime.datetime.now()
     timestamp = lambda: datetime.datetime.now().strftime("%d.%m %H:%M")  # noqa: E731
     print(f"[{timestamp()}] {args.model}, {args.layer}, {args.estimator}")
@@ -140,7 +172,7 @@ def main(args=None):
 
     t_fit = time.perf_counter()
     phases = {}
-    dump_name = get_or_compute(args, inst, phases=phases)
+    dump_name = get_or_compute(args, inst, phases=phases, mesh=mesh)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     fit_seconds = time.perf_counter() - t_fit
@@ -160,12 +192,15 @@ def main(args=None):
     n_images = 0
 
     model.seed_host_rng(SEED_VISUALIZATION)
+    # --mesh: data-parallel rendering, every sample_np batch (grids, strips,
+    # sweeps) sharded over 'data' (ganspace_tpu/apps/visualize.py:88-94)
+    model.place_on_mesh(mesh)
 
     est_id = f"spca_{args.sparsity}" if args.estimator == "spca" else args.estimator
     outdir_comp = outdir / model.name / layer_key.lower() / est_id / "comp"
     outdir_inst = outdir / model.name / layer_key.lower() / est_id / "inst"
     outdir_summ = outdir / model.name / layer_key.lower() / est_id / "summ"
-    for d in (outdir_comp, outdir_inst, outdir_summ):
+    for d in (outdir_comp, outdir_inst, outdir_summ) if root else ():
         makedirs(d, exist_ok=True)
 
     print(f"Sparsity: {np.mean(t.X_comp == 0):.2f}")
@@ -196,7 +231,8 @@ def main(args=None):
                          scale=args.sigma, edit_type=edit_mode, n_rows=n_rows,
                          max_batch=max_batch)
         n_images += sum(len(r) for r in rows)
-        save_grid_image(rows, outdir_summ / f"{name}_{get_edit_name(edit_mode)}.jpg")
+        if root:
+            save_grid_image(rows, outdir_summ / f"{name}_{get_edit_name(edit_mode)}.jpg")
 
     videos = []
 
@@ -208,7 +244,8 @@ def main(args=None):
                          t.X_stdev[c:c + 1], n_rows=1, n_cols=VIDEO_FRAMES, scale=sigma,
                          edit_type=edit_mode, max_batch=max_batch)
         n_images += len(rows[0])
-        videos.append(make_mp4(rows[0] + rows[0][::-1], 5, outpath))
+        if root:
+            videos.append(make_mp4(rows[0] + rows[0][::-1], 5, outpath))
 
     # Summary grid, real components
     for edit_mode in edit_modes:
@@ -245,10 +282,11 @@ def main(args=None):
                               f"img{img_idx}_comp{c}.mp4")
 
     # A browsable gallery page per output directory (visualize.py:258-264).
-    for d in (outdir_comp, outdir_inst, outdir_summ):
+    for d in (outdir_comp, outdir_inst, outdir_summ) if root else ():
         if any(p.suffix.lower() in (".jpg", ".png", ".gif") for p in d.iterdir()):
             write_lightbox(d, title=f"{model.name}/{layer_key}/{est_id} {d.name}")
 
+    model.place_on_mesh(None)
     render_seconds = time.perf_counter() - t_render
     print("Done in", datetime.datetime.now() - t_start)
     return SimpleNamespace(cache=dump_name, fit_seconds=fit_seconds,

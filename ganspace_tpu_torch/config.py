@@ -46,7 +46,8 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=None,
                    help="Seed used in decomposition")
     p.add_argument("--mesh", dest="mesh_shape", type=str, default=None,
-                   help="Device mesh shape; this port runs on one device")
+                   help="Device mesh shape, e.g. '8' or '4x2' (one process per "
+                        "device); default: all visible GPUs, 1-D")
     p.add_argument("--dtype", dest="dtype", type=str, default=None,
                    help="Synthesis precision: float32 (the default for fits) or "
                         "bfloat16 (preview: the bf16 datapath, a _bf16 cache graded "

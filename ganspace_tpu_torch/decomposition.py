@@ -28,6 +28,16 @@ The path is chosen as the JAX package's ``_compute`` chooses it
 
 ``GANSPACE_DEVICE_RNG=0`` is the JAX package's bit-exact host path.
 
+On a mesh (``--mesh``, ``parallel/mesh.py``: one process per device) every
+rank builds the model on its device and runs ``_compute``: the fused
+streams deal their blocks to the ranks by index, the pre-sampled stream
+and the regression sweep give each rank its rows of every batch, and the
+estimator merges the ranks' statistics once per pass (feature-sharded when
+the world size divides D).  The full-batch estimators fit on rank 0 the
+rows the ranks collected, and broadcast the components.  The samples are
+the single-device run's; only the order of float32 sums differs.  Rank 0
+writes the cache, with ``_meta["mesh"]`` the mesh's shape.
+
 Precision (``compute``, JAX ``decomposition.py:608-620``): ``--dtype
 float32`` (the default) fits at the highest precision, ``--dtype bfloat16``
 at the preview precision (the bf16 datapath of the synthesis ops, float32
@@ -64,12 +74,17 @@ from ganspace_tpu_torch.estimators import get_estimator
 from ganspace_tpu_torch.models import get_instrumented_model
 from ganspace_tpu_torch.models.base import InstrumentedModel
 from ganspace_tpu_torch.ops.precision import ieee_f32, precision, synth_dtype
+from ganspace_tpu_torch.parallel.mesh import mesh_desc, pipeline_mesh
 from ganspace_tpu_torch.sampling import (
     SEED_LINREG, SEED_SAMPLING, STREAM_LINREG, STREAM_MAIN, STREAM_W_TAIL,
     block_generator, random_directions, random_directions_device)
 
 #: latent stream block size when ``-b`` is not given (the JAX package's W path)
 W_BATCH = 4096
+
+#: ``mesh=`` default of :func:`compute` and :func:`get_or_compute`: the mesh
+#: of ``config.mesh_shape`` (``parallel.pipeline_mesh``)
+FROM_CONFIG = "config"
 
 #: --dtype -> the synthesis precision of ``ops/precision.py``: float32 fits
 #: at the highest precision (component parity with the reference), bfloat16
@@ -174,7 +189,7 @@ def acts_stream_block(model, layer: str, batch: int, seed: int, stream: int = ST
 # Latent regression (reference decomposition.py:77-148)
 # ---------------------------------------------------------------------------
 
-def linreg_lstsq(comp, mean, stdev, inst: InstrumentedModel, config):
+def linreg_lstsq(comp, mean, stdev, inst: InstrumentedModel, config, mesh=None):
     """Solve min_M ||M A - Z|| where A are the stdev-scaled PCA coordinates
     of fresh ``SEED_LINREG`` samples: the normal equations G = sum A^T A
     (c x c) and R = sum A^T Z accumulate on the device batch by batch, then
@@ -182,7 +197,9 @@ def linreg_lstsq(comp, mean, stdev, inst: InstrumentedModel, config):
 
     The samples come from the regression's device stream when the fused
     stream is wanted for ``n_samp`` samples and ``GANSPACE_DEVICE_RNG=1``
-    (``decomposition.py:356-414``), else from the host stream."""
+    (``decomposition.py:356-414``), else from the host stream.  On a mesh
+    the device stream's blocks are dealt to the ranks, the host stream's
+    batches split into the ranks' rows, and the sums are added up."""
     print("Performing least squares regression", flush=True)
     model = inst.model
     model.seed_host_rng(SEED_LINREG)
@@ -204,10 +221,14 @@ def linreg_lstsq(comp, mean, stdev, inst: InstrumentedModel, config):
         device_block = acts_stream_block(model, config.layer, batch, SEED_LINREG,
                                          STREAM_LINREG)
 
+    lo, hi = mesh.row_range(batch) if mesh is not None else (0, batch)
+
     def host_block(_):
-        z = model.sample_latent(batch)
+        z = model.sample_latent(batch)[lo:hi]
+        if hi == lo:
+            return None
         model.partial_forward(z, config.layer)
-        return inst.retained_features()[config.layer].reshape(batch, -1), z
+        return inst.retained_features()[config.layer].reshape(hi - lo, -1), z
 
     comp_flat = comp.reshape(n_comp, -1)
     # zero-stdev components carry no direction: divide by 1 instead of 0
@@ -215,13 +236,21 @@ def linreg_lstsq(comp, mean, stdev, inst: InstrumentedModel, config):
     g = torch.zeros((n_comp, n_comp), dtype=torch.float32, device=device)
     r = torch.zeros((n_comp, latent_dims), dtype=torch.float32, device=device)
     z_sum = torch.zeros((latent_dims,), dtype=torch.float32, device=device)
-    for i in range(n_samp // batch):
-        act, z = (device_block or host_block)(i)
+    n_blocks = n_samp // batch
+    blocks = (mesh.my_blocks(n_blocks) if mesh is not None and device_block is not None
+              else range(n_blocks))
+    for i in blocks:
+        out = (device_block or host_block)(i)
+        if out is None:
+            continue
+        act, z = out
         coords = ((act - mean) @ comp_flat.T) / safe
-        zf = z.reshape(batch, -1)
+        zf = z.reshape(z.shape[0], -1)
         g += coords.T @ coords
         r += coords.T @ zf
         z_sum += torch.sum(zf, dim=0)
+    if mesh is not None:
+        g, r, z_sum = mesh.all_reduce(g), mesh.all_reduce(r), mesh.all_reduce(z_sum)
 
     # M^T = (A^T A)^-1 A^T Z: rows of M^T are the latent-space directions.
     ridge = 1e-10 * torch.trace(g) / g.shape[0]
@@ -232,7 +261,7 @@ def linreg_lstsq(comp, mean, stdev, inst: InstrumentedModel, config):
     return z_comp, z_mean
 
 
-def regression_from_moments(comp, mean, stdev, reg):
+def regression_from_moments(comp, mean, stdev, reg, fsum=lambda t: t, fslice=None):
     """Closed-form latent regression from the cross-moments that rode the
     fit stream (``IPCAEstimator.fit_stream(with_reg=True)``): no extra
     synthesis (``decomposition.py:489-520``).
@@ -244,7 +273,9 @@ def regression_from_moments(comp, mean, stdev, reg):
     sketch's accuracy on the sketch tier.  It holds only if the moments come
     from the pass the components were fitted on, which ``begin_refine``
     ensures by restarting them.  The caller row-normalizes the result, so
-    only off-diagonal mixing separates it from the explicit solve."""
+    only off-diagonal mixing separates it from the explicit solve.  On a
+    feature-sharded mesh ``sum x^T z`` holds this rank's rows ``fslice`` of
+    D and ``fsum`` adds the ranks' partial products."""
     xz, z_sum, n_reg = reg
     print(f"Regression from fused cross-moments ({n_reg} samples, "
           f"no extra sweep)", flush=True)
@@ -253,19 +284,20 @@ def regression_from_moments(comp, mean, stdev, reg):
     comp = comp.reshape(comp.shape[0], -1)
     mean = torch.as_tensor(mean, dtype=torch.float32).to(device).reshape(-1)
     stdev = torch.as_tensor(stdev, dtype=torch.float32).to(device)
-    r, gram = _reg_solve(comp, mean, stdev, xz, z_sum)
+    r, gram = _reg_solve(comp, mean, stdev, xz, z_sum, fsum, fslice)
     z_comp = r.cpu().numpy() / max(float(n_reg) - 1.0, 1.0)
     z_mean = z_sum.cpu().numpy()[None, :] / max(float(n_reg), 1.0)
     _warn_if_not_orthonormal_gram(gram.cpu().numpy())
     return z_comp, z_mean
 
 
-def _reg_solve(comp, mean, stdev, xz, z_sum):
+def _reg_solve(comp, mean, stdev, xz, z_sum, fsum=lambda t: t, fslice=None):
     """``(R [c, zdim], C C^T)``: the right-hand side from the raw moments,
     and the Gram for the orthonormality check."""
     # zero-stdev components carry no direction: divide by 1 instead of 0
     safe = torch.where(stdev > 0, stdev, torch.ones_like(stdev))
-    r = (comp @ xz - torch.outer(comp @ mean, z_sum)) / safe[:, None]
+    cx = fsum((comp if fslice is None else comp[:, fslice]) @ xz)
+    r = (cx - torch.outer(comp @ mean, z_sum)) / safe[:, None]
     return r, comp @ comp.T
 
 
@@ -283,9 +315,9 @@ def _warn_if_not_orthonormal_gram(m: np.ndarray) -> None:
               f"(determinant={np.linalg.det(m)})")
 
 
-def regression(comp, mean, stdev, inst, config):
+def regression(comp, mean, stdev, inst, config, mesh=None):
     _warn_if_not_orthonormal(comp)
-    return linreg_lstsq(comp, mean, stdev, inst, config)
+    return linreg_lstsq(comp, mean, stdev, inst, config, mesh)
 
 
 #: bf16-datapath sensitivity constant (JAX ``decomposition.py:454-466``):
@@ -324,25 +356,41 @@ def _partial_dump_name(dump_name: Path, config_n: int, n_fitted: int) -> Path:
         f"_n{config_n}", f"_n{n_fitted}", 1)
 
 
+def _device_type(config, inst: Optional[InstrumentedModel]) -> str:
+    return inst.model.device.type if inst is not None else torch.device(config.device).type
+
+
+def _resolve_mesh(config, inst: Optional[InstrumentedModel], mesh):
+    """``config.mesh_shape``'s mesh for ``FROM_CONFIG``, else ``mesh``."""
+    if isinstance(mesh, str) and mesh == FROM_CONFIG:
+        return pipeline_mesh(getattr(config, "mesh_shape", None), _device_type(config, inst))
+    return mesh
+
+
 def compute(config, dump_name: Path,
-            instrumented_model: Optional[InstrumentedModel]) -> dict:
+            instrumented_model: Optional[InstrumentedModel], mesh=FROM_CONFIG) -> dict:
     """Run the decomposition under the config's precision policy (--dtype,
     unset meaning float32); returns the wall seconds of its phases.  The
     activation storage is pinned to float32: a viewer process sets the bf16
     preview policy for itself, and components fitted on preview-grade
-    activations must never reach a cache."""
+    activations must never reach a cache.  ``mesh``: the mesh to run on
+    (every rank calls this), ``config.mesh_shape``'s by default; a run that
+    collapses to one device runs on rank 0 alone."""
     dtype = getattr(config, "dtype", None) or "float32"
     if dtype not in _DTYPE_PRECISION:
         raise ValueError(f"--dtype {dtype!r}: expected 'float32' or 'bfloat16'")
-    if getattr(config, "mesh_shape", None) not in (None, "1"):
-        raise NotImplementedError("--mesh: the port runs on one device "
-                                  "(multi-GPU is a ROADMAP item)")
+    mesh = _resolve_mesh(config, instrumented_model, mesh)
+    # the JAX package's tiny-run collapse (decomposition.py:652-653): below
+    # as many samples as ranks, rank 0 runs alone
+    run_mesh = mesh if mesh is None or config.n >= mesh.size else None
+    if mesh is not None and run_mesh is None and not mesh.is_root:
+        return {}
     with ieee_f32(), precision(_DTYPE_PRECISION[dtype]), synth_dtype(None):
-        return _compute(config, dump_name, instrumented_model)
+        return _compute(config, dump_name, instrumented_model, run_mesh)
 
 
 def _compute(config, dump_name: Path,
-             instrumented_model: Optional[InstrumentedModel]) -> dict:
+             instrumented_model: Optional[InstrumentedModel], mesh=None) -> dict:
     timestamp = lambda: datetime.datetime.now().strftime("%d.%m %H:%M")  # noqa: E731
     print(f"[{timestamp()}] Computing", dump_name.name)
     canonical_name = dump_name.name   # the full-run cache filename
@@ -360,7 +408,8 @@ def _compute(config, dump_name: Path,
 
     if instrumented_model is None:
         inst = get_instrumented_model(config.model, config.output_class, layer_key,
-                                      require_device(config.device))
+                                      mesh.device if mesh is not None
+                                      else require_device(config.device))
         model = inst.model
     else:
         print("Reusing InstrumentedModel instance")
@@ -374,6 +423,23 @@ def _compute(config, dump_name: Path,
         print("Using W latent space")
         model.use_w()
     device = model.device
+    placed = model._mesh
+    if mesh is not None:
+        model.place_on_mesh(mesh)
+        print(f"Mesh: {mesh.shape} over {mesh.size} ranks ({mesh.backend})")
+    try:
+        return _compute_on(config, dump_name, instrumented_model, inst, model, mesh,
+                           stamp, phases, timestamp)
+    finally:
+        model._mesh = placed
+
+
+def _compute_on(config, dump_name, instrumented_model, inst, model, mesh, stamp,
+                phases, timestamp):
+    canonical_name = dump_name.name   # the full-run cache filename
+    layer_key = config.layer
+    device = model.device
+    root = mesh is None or mesh.is_root
 
     inst.retain_layer(layer_key)
     z_probe = model.sample_latent(1)
@@ -394,8 +460,11 @@ def _compute(config, dump_name: Path,
         print(f"WARNING: clamping components {config.components} -> "
               f"{n_components} (feature dim {sample_dims}); the cache "
               f"filename keeps the requested count")
-    transformer = get_estimator(config.estimator, n_components, config.sparsity,
-                                device=device)
+    # Feature-sharded estimator state when D splits evenly over the mesh
+    # (uneven D keeps it replicated; the rows stay sharded either way).
+    transformer = get_estimator(
+        config.estimator, n_components, config.sparsity, device=device, mesh=mesh,
+        feature_sharding=None if mesh is None else mesh.feature_sharding(sample_dims))
     # The full-batch estimators (pca, fbpca, ica, spca) fit the whole sample
     # matrix at once; ipca streams.
     full_batch = not transformer.batch_support
@@ -413,6 +482,9 @@ def _compute(config, dump_name: Path,
 
     # Round N down to full batches, but never below one batch.
     batch = min(batch, config.n)
+    if mesh is not None:
+        # keep minibatches evenly shardable over the data axis
+        batch = max(mesh.n_data, batch // mesh.n_data * mesh.n_data)
     n_total = config.n // batch * batch
 
     if full_batch:
@@ -486,21 +558,36 @@ def _compute(config, dump_name: Path,
     def make_block(gi):
         """One NB-sample block: ceil(NB / B) partial forwards over
         consecutive latents, cut to NB (the last block may run past
-        n_total, as in the JAX package)."""
+        n_total, as in the JAX package).  ``(rows, index)``: this rank's
+        rows of every forward's batch (all of them off a mesh) and their
+        indices in the block, ascending."""
         if samples_are_latents:
-            return latent_slice(gi, gi + nb).reshape(nb, -1)
+            lo, hi = mesh.row_range(nb) if mesh is not None else (0, nb)
+            return (latent_slice(gi + lo, gi + hi).reshape(hi - lo, -1),
+                    torch.arange(lo, hi, device=device))
+        lo, hi = mesh.row_range(batch) if mesh is not None else (0, batch)
+        starts = range(0, nb, batch)
         chunks = []
-        for mb in range(0, nb, batch):
-            z = latent_slice(gi + mb, gi + mb + batch)
-            model.partial_forward(z, layer_key)
-            chunks.append(inst.retained_features()[layer_key].reshape(batch, -1))
-        return torch.cat(chunks, dim=0)[:nb]
+        for mb in starts:
+            if hi > lo:
+                z = latent_slice(gi + mb, gi + mb + batch)[lo:hi]
+                model.partial_forward(z, layer_key)
+                chunks.append(inst.retained_features()[layer_key].reshape(hi - lo, -1))
+        index = torch.cat([torch.arange(mb + lo, mb + hi) for mb in starts])
+        keep = int(torch.sum(index < nb))   # a prefix: the indices ascend
+        rows = (torch.cat(chunks, dim=0) if chunks
+                else torch.zeros((0, sample_dims), dtype=torch.float32, device=device))
+        return rows[:keep], index[:keep].to(device)
+
+    def whole(rows):
+        """A block held whole by this rank, in ``make_block``'s form."""
+        return rows, torch.arange(rows.shape[0], device=device)
 
     stamp("setup")
 
-    def run_sweep(action, feed=lambda gi, xb: transformer.fit_partial(xb)):
-        """Stream every NB block through ``feed(gi, block)``; returns the
-        last assembled block (kept for the stdev baselines)."""
+    def run_sweep(action, feed=lambda gi, xb: transformer.fit_partial(xb[0])):
+        """Stream every NB block through ``feed(gi, (rows, index))``;
+        returns the last assembled block (kept for the stdev baselines)."""
         xb = None
         for bi, gi in enumerate(range(0, n_total, nb)):
             xb = make_block(gi)
@@ -544,8 +631,8 @@ def _compute(config, dump_name: Path,
                                               rand_dirs=rand_dirs):
                     raise RuntimeError("fused latent stream unavailable for this "
                                        "estimator")
-            if transformer.rand_moments() is None:
-                x_block = w_stream(STREAM_MAIN, nb_w)(0)
+            if transformer.rand_moments() is None and root:
+                x_block = whole(w_stream(STREAM_MAIN, nb_w)(0))
         except KeyboardInterrupt:
             canceled = interrupted()
             x_block = None
@@ -574,6 +661,8 @@ def _compute(config, dump_name: Path,
             and transformer._use_nystrom(sample_dims)
             and transformer.refine_policy not in ("0", "never", "off", "false")
             and _fused_acts_info(fused_key).get("policy_refines") is True)
+        if mesh is not None:
+            bf16_pass1 = mesh.decide(bf16_pass1)
         pass1_block, refine_stream = acts_block, None
         if bf16_pass1:
             with synth_dtype("bfloat16"):
@@ -588,12 +677,12 @@ def _compute(config, dump_name: Path,
                                           refine_stream=refine_stream):
                 raise RuntimeError("fused activation stream unavailable for "
                                    "this estimator")
-            if transformer.rand_moments() is None:
+            if transformer.rand_moments() is None and root:
                 x_block = acts_block(0)
-                x_block = x_block[0] if want_reg else x_block
+                x_block = whole(x_block[0] if want_reg else x_block)
             # The policy's decision, for the next run's choice of pass 1
             pws = transformer.policy_would_skip
-            if pws is not None:
+            if pws is not None and root:
                 _record_fused_acts(fused_key, {"policy_refines": not pws})
         except KeyboardInterrupt:
             # fit_stream refines inside: an interrupt in its second pass falls
@@ -612,7 +701,8 @@ def _compute(config, dump_name: Path,
                       "bf16_pass1_aborted)", file=sys.stderr)
     elif full_batch:
         def collect(gi, xb):
-            samples[gi:gi + nb] = xb
+            rows, index = xb
+            samples[gi + index] = rows
             return True
         try:
             run_sweep("Collecting", collect)
@@ -642,24 +732,35 @@ def _compute(config, dump_name: Path,
             canceled = True
     stamp("refine")
 
+    x_centered = None   # rank 0's first centered rows, for the stdev baselines
     if full_batch:
         # The global mean over all n_total + nb rows, the zero tail included
-        # (decomposition.py:1203-1212), then the whole-batch fit.
-        mean_t = torch.mean(samples, dim=0, keepdim=True)
-        samples -= mean_t
-        x_global_mean = mean_t.cpu().numpy()
-        print(f"[{timestamp()}] Fitting whole batch")
-        t_start_fit = datetime.datetime.now()
-        transformer.fit(samples)
-        n_iter = getattr(transformer, "n_iter_", None)
-        print(f"[{timestamp()}] Done in {datetime.datetime.now() - t_start_fit}"
-              + ("" if n_iter is None else f", {n_iter} iterations"))
-        if not np.all(np.abs(transformer.mean_) < 1e-3):
-            raise AssertionError("Mean of normalized data should be zero")
-        # the random baselines read the first 5000 centered rows; the rest
-        # of the matrix goes before the regression sweep
-        x_centered = samples[:5000].clone()
+        # (decomposition.py:1203-1212), then the whole-batch fit, on rank 0
+        # of a mesh (the ranks filled their rows of the matrix apart).
+        if mesh is not None:
+            samples = mesh.reduce_root(samples)
+        fitted = None
+        if root:
+            mean_t = torch.mean(samples, dim=0, keepdim=True)
+            samples -= mean_t
+            print(f"[{timestamp()}] Fitting whole batch")
+            t_start_fit = datetime.datetime.now()
+            transformer.fit(samples)
+            n_iter = getattr(transformer, "n_iter_", None)
+            print(f"[{timestamp()}] Done in {datetime.datetime.now() - t_start_fit}"
+                  + ("" if n_iter is None else f", {n_iter} iterations"))
+            if not np.all(np.abs(transformer.mean_) < 1e-3):
+                raise AssertionError("Mean of normalized data should be zero")
+            # the random baselines read the first 5000 centered rows; the
+            # rest of the matrix goes before the regression sweep
+            x_centered = samples[:5000].clone()
+            # the full-batch estimators hand back host arrays
+            fitted = (mean_t.cpu().numpy(), *transformer.get_components())
         del samples
+        if mesh is not None:
+            fitted = mesh.decide(fitted)
+        x_global_mean, x_comp, x_stdev, x_var_ratio = fitted
+        x_comp = torch.as_tensor(x_comp, device=device)
         stamp("fit")
     else:
         if canceled and transformer.n_samples_seen_ == 0:
@@ -668,8 +769,10 @@ def _compute(config, dump_name: Path,
             sys.exit(1)
         x_global_mean = transformer.mean_.reshape((1, sample_dims))
         if x_block is None:
-            x_block = torch.zeros((1, sample_dims), dtype=torch.float32, device=device)
-        x_centered = x_block[:5000] - torch.as_tensor(x_global_mean, device=device)
+            x_block = whole(torch.zeros((1, sample_dims), dtype=torch.float32,
+                                        device=device))
+        rows, index = x_block
+        x_centered = rows[index < 5000] - torch.as_tensor(x_global_mean, device=device)
 
     # The components stay on the device for the regression; samples-are-
     # latents runs take the moments tier's bundle (lat_stdev and the random
@@ -677,17 +780,13 @@ def _compute(config, dump_name: Path,
     rand_mom = (getattr(transformer, "rand_moments", lambda: None)()
                 if device_rng_used else None)
     bundle_stats = None
-    if samples_are_latents:
+    if samples_are_latents and not full_batch:
         bundle = getattr(transformer, "finish_latent_bundle",
                          lambda **_k: None)(rand_moments=rand_mom)
         if bundle is not None:
             x_comp, bundle_stats = bundle
             x_stdev, x_var_ratio = bundle_stats[0], bundle_stats[1]
-    if bundle_stats is None and full_batch:
-        # the full-batch estimators hand back host arrays
-        x_comp, x_stdev, x_var_ratio = transformer.get_components()
-        x_comp = torch.as_tensor(x_comp, device=device)
-    elif bundle_stats is None:
+    if bundle_stats is None and not full_batch:
         x_comp, x_stdev, x_var_ratio = transformer.get_components(device=True)
     if (tuple(x_comp.shape) != (n_components, sample_dims)
             or x_stdev.shape[0] != n_components):
@@ -707,11 +806,17 @@ def _compute(config, dump_name: Path,
         if reg is not None:
             fused_linreg_used = True
             z_comp, z_global_mean = regression_from_moments(
-                x_comp, x_global_mean, x_stdev, reg)
+                x_comp, x_global_mean, x_stdev, reg, transformer._fsum,
+                transformer.feature_slice)
         else:
             z_comp, z_global_mean = regression(x_comp, x_global_mean, x_stdev,
-                                               inst, config)
+                                               inst, config, mesh)
     stamp("regression")
+    # bf16 datapath: the fitted spectrum grades the cache (every rank takes
+    # part: on a feature-sharded mesh the sketch's factor sums over ranks)
+    dtype = getattr(config, "dtype", None) or "float32"
+    spec_ev = (getattr(transformer, "component_spectrum", lambda: None)()
+               if dtype == "bfloat16" else None)
     z_comp = z_comp / np.maximum(
         np.linalg.norm(z_comp, axis=-1, keepdims=True), 1e-30)
 
@@ -720,6 +825,8 @@ def _compute(config, dump_name: Path,
     # shift-invariant, so the global-mean centering falls out), else over
     # the first 5000 centered rows of the full-batch matrix or of the last
     # block, along directions from the stream the samples came from.
+    # On a mesh the pre-sampled stream's rows lie on the ranks: their
+    # projections' moments are Chan-merged.
     if bundle_stats is not None and rand_mom is not None:
         x_stdev_random = bundle_stats[3]
     elif rand_mom is not None:
@@ -730,8 +837,21 @@ def _compute(config, dump_name: Path,
                        if device_rng_used else
                        torch.as_tensor(random_directions(n_components, sample_dims),
                                        device=device))
-        x_stdev_random = torch.std(random_dirs @ x_centered.T, dim=1,
-                                   correction=0).cpu().numpy()
+        if mesh is not None and not full_batch and not (fused or fused_acts):
+            p = random_dirs @ x_centered.T
+            mu_p = (torch.mean(p, dim=1) if p.shape[1]
+                    else torch.zeros((n_components,), dtype=torch.float32, device=device))
+            n_p, _, pm2 = mesh.chan_merge(p.shape[1], mu_p, torch.sum(
+                torch.square(p - mu_p[:, None]), dim=1))
+            x_stdev_random = torch.sqrt(torch.clamp(pm2 / n_p, min=0.0)).cpu().numpy()
+        elif root:
+            x_stdev_random = torch.std(random_dirs @ x_centered.T, dim=1,
+                                       correction=0).cpu().numpy()
+    if not root:
+        # rank 0 writes the cache
+        if instrumented_model is None:
+            inst.close()
+        return phases
 
     x_comp = x_comp.cpu().numpy().reshape(-1, *sample_shape)
     x_global_mean = np.array(x_global_mean).reshape(sample_shape)
@@ -763,10 +883,8 @@ def _compute(config, dump_name: Path,
     # bf16 datapath: grade the cache from its own fitted spectrum
     # (bf16_component_bounds), full precision in _meta, so that the grade
     # and the list always agree.
-    dtype = getattr(config, "dtype", None) or "float32"
     bf16_meta = {}
     if dtype == "bfloat16":
-        spec_ev = getattr(transformer, "component_spectrum", lambda: None)()
         if spec_ev is not None:
             bounds = bf16_component_bounds(spec_ev, n_components)
             bf16_meta = {"bf16_cos_bounds": [float(b) for b in bounds],
@@ -777,7 +895,7 @@ def _compute(config, dump_name: Path,
     meta = json.dumps({
         "device_rng": device_rng_used,
         "dtype": dtype,
-        "mesh": None,
+        "mesh": dict(mesh.shape) if mesh is not None else None,
         "fused_linreg": fused_linreg_used,
         "refine_skipped": getattr(transformer, "refine_skipped", None),
         "refine_stats": getattr(transformer, "refine_stats", None),
@@ -877,9 +995,12 @@ def component_cache_name(config) -> str:
 
 
 def get_or_compute(config, model: Optional[InstrumentedModel] = None,
-                   phases: Optional[dict] = None) -> Path:
+                   phases: Optional[dict] = None, mesh=FROM_CONFIG) -> Path:
     """Return the cached component file path, computing it if needed; a
-    computed run's phase seconds go into ``phases`` when one is given."""
+    computed run's phase seconds go into ``phases`` when one is given.
+    On a mesh (``config.mesh_shape``'s, or ``mesh``) every rank calls this:
+    rank 0 decides whether the cache is there, all ranks compute, rank 0
+    writes, and the others wait on a barrier for the file."""
     basedir = Path(os.environ.get("GANSPACE_OUTPUT_DIR", Path.cwd()))
     if config.n is None:
         raise RuntimeError("Must specify number of samples with -n=XXX")
@@ -889,15 +1010,22 @@ def get_or_compute(config, model: Optional[InstrumentedModel] = None,
         raise RuntimeError(f"Cannot change latent space of non-StyleGAN model {config.model}")
 
     dump_path = basedir / "cache" / "components" / component_cache_name(config)
-    if not dump_path.is_file() or not _cache_file_readable(dump_path):
+    mesh = _resolve_mesh(config, model, mesh)
+    root = mesh is None or mesh.is_root
+    missing = root and (not dump_path.is_file() or not _cache_file_readable(dump_path))
+    if mesh is not None:
+        missing = mesh.decide(missing)
+    if missing:
         print("Not cached")
         t_start = datetime.datetime.now()
-        timings = compute(config, dump_path, model)
+        timings = compute(config, dump_path, model, mesh=mesh)
         if phases is not None:
             phases.update(timings)
         print("Total time:", datetime.datetime.now() - t_start)
-    else:
-        _warn_on_provenance_mismatch(dump_path)
+        if mesh is not None:
+            mesh.barrier()
+    elif root:
+        _warn_on_provenance_mismatch(dump_path, config)
     return dump_path
 
 
@@ -923,11 +1051,19 @@ def read_meta(data) -> Optional[dict]:
         return None
 
 
-def _warn_on_provenance_mismatch(dump_path: Path) -> None:
+def _prospective_mesh_desc(config) -> Optional[dict]:
+    """The mesh axis -> size map a ``compute()`` of this config would
+    record (``decomposition.py:1551-1557``), the tiny-run collapse
+    included."""
+    return mesh_desc(getattr(config, "mesh_shape", None), config.n)
+
+
+def _warn_on_provenance_mismatch(dump_path: Path, config=None) -> None:
     """Flag a cache hit drawn from the other RNG stream than this run's
-    ``GANSPACE_DEVICE_RNG`` (``decomposition.py:1560-1585``): statistically
-    equivalent components, not bit-identical ones.  Caches without the
-    record (reference exports) are accepted as they are."""
+    ``GANSPACE_DEVICE_RNG``, or made on another mesh than this run's
+    (``decomposition.py:1560-1590``): statistically equivalent components,
+    not bit-identical ones.  Caches without the record (reference exports)
+    are accepted as they are."""
     with np.load(dump_path, allow_pickle=False) as d:
         meta = read_meta(d)
     cached = meta.get("device_rng") if meta else None
@@ -939,3 +1075,12 @@ def _warn_on_provenance_mismatch(dump_path: Path) -> None:
               f"(GANSPACE_DEVICE_RNG); components are statistically "
               f"equivalent, not bit-identical. Use a fresh output dir for a "
               f"like-for-like cache.")
+    if config is not None and meta and "mesh" in meta:
+        want = _prospective_mesh_desc(config)
+        if meta["mesh"] != want:
+            print(f"WARNING: {dump_path.name} was computed on mesh "
+                  f"{meta['mesh'] or 'single-device'} but this run would use "
+                  f"{want or 'single-device'}; sharded reductions reassociate "
+                  f"floating point, so the cached components differ from a fresh "
+                  f"run at the ~1e-4 level. Use a fresh output dir for a "
+                  f"like-for-like cache.")

@@ -23,12 +23,17 @@ from ganspace_tpu_torch.estimators.spca import SPCAEstimator
 
 
 def get_estimator(name: str, n_components: int, alpha: float = 1.0,
-                  refine=None, device="cuda"):
+                  refine=None, device="cuda", mesh=None, feature_sharding=None):
     """Name -> estimator factory (reference ``estimators.py:206-218``).
     ``refine`` pins the sketch tier's refine policy ("auto" / "always" /
-    "never"); None reads GANSPACE_IPCA_REFINE once, at construction."""
+    "never"); None reads GANSPACE_IPCA_REFINE once, at construction.
+    ``mesh`` and ``feature_sharding`` (this rank's slice of D) make the
+    streaming estimator's state per rank, merged once per pass and
+    feature-sharded after the merge; the full-batch estimators ignore both
+    (the pipeline fits them on rank 0)."""
     if name == "ipca":
-        return IPCAEstimator(n_components, refine=refine)
+        return IPCAEstimator(n_components, refine=refine, mesh=mesh,
+                             feature_sharding=feature_sharding)
     if name == "pca":
         return PCAEstimator(n_components, device=device)
     if name == "fbpca":

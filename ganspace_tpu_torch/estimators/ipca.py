@@ -17,6 +17,17 @@ block (``mode="auto"``) or pinned by ``mode``:
 
 Every product runs under the caller's ``ops/precision.ieee_f32`` (TF32 off),
 the counterpart of the JAX package's ``Precision.HIGHEST``.
+
+On a mesh (``parallel/mesh.py``) each rank streams its own blocks into its
+own state; the first read of a statistic after a pass merges the ranks'
+states once (sums by all-reduce, ``(count, mean, M2)`` by the Chan merge).
+With ``feature_sharding`` (this rank's slice of D) the merged [D, .] state
+keeps only the slice: the sketch's ``y`` and ``s``, the regression's
+``sum x^T z``.  The moments tier's scatter is merged whole: rank 0's eigh
+reads all of it.  The finish then sums its
+small Grams over the ranks, gathers a whole [D, .] operand where it needs
+one, and rank 0 makes each host-side factorization and decision, broadcast
+to the others.
 """
 
 from __future__ import annotations
@@ -33,6 +44,10 @@ from ganspace_tpu_torch.ops.moments import centered_gram
 
 _NOT_FINITE = ("non-finite moment statistics: the activation stream contains "
                "NaN/Inf, so the factorization is refused")
+
+
+def _same(t):
+    return t
 
 
 def _f32_on(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
@@ -128,23 +143,24 @@ def nystrom_update(state: NystromState, x: torch.Tensor,
                         torch.addmm(state.y, x.T, xo))
 
 
-def sketch_grams(state: NystromState, omega: torch.Tensor):
+def sketch_grams(state: NystromState, omega: torch.Tensor, fsum=_same):
     """Device half of every sketch factorization: the centered sketch
     Y = M2c @ Omega [D, l], its symmetrized Omega-Gram [l, l] and the exact
     centered energy (scalar).  The centering is the JAX package's, float32
-    cancellation included."""
+    cancellation included.  On feature-sharded state (rows of ``y``, ``s``
+    and ``omega``) ``fsum`` sums the contractions over D across the ranks."""
     n = state.count
     mu = state.s / n
-    y = state.y - n * torch.outer(mu, (mu[None, :] @ omega)[0])
-    m = omega.T @ y
-    total = state.sq - n * torch.sum(torch.square(mu))
+    y = state.y - n * torch.outer(mu, fsum(mu[None, :] @ omega)[0])
+    m = fsum(omega.T @ y)
+    total = state.sq - n * fsum(torch.sum(torch.square(mu)))
     return y, 0.5 * (m + m.T), total
 
 
-def whitened_gram(y: torch.Tensor, w: torch.Tensor):
+def whitened_gram(y: torch.Tensor, w: torch.Tensor, fsum=_same):
     """f = Y @ W [D, l] (the whitened centered sketch) and its Gram f^T f."""
     f = y @ w
-    g = f.T @ f
+    g = fsum(f.T @ f)
     return f, 0.5 * (g + g.T)
 
 
@@ -189,22 +205,32 @@ def noise_floor_scale(e: np.ndarray) -> np.ndarray:
                     1.0 / np.sqrt(np.maximum(e, 1e-300)), 0.0)
 
 
-def sketch_factor(state: NystromState, omega: torch.Tensor):
+def on_root(mesh, fn):
+    """``fn()`` on rank 0, its result on every rank (``fn()`` without a mesh):
+    the host factorizations, so that no two ranks diverge."""
+    if mesh is None:
+        return fn()
+    return mesh.decide(fn() if mesh.is_root else None)
+
+
+def sketch_factor(state: NystromState, omega: torch.Tensor, mesh=None, fsum=_same):
     """``(f [D, l] on the device, e desc f64, v desc f64, total float)``:
     f = Yc W is the whitened centered sketch, (e, v) the eigenpairs of
     f^T f.  Three [D, l] products on the device, two l x l eighs on the
-    host."""
-    y, m, total = sketch_grams(state, omega)
-    w = pinv_sqrt_psd(m.cpu().numpy())
-    f, g = whitened_gram(y, _f32_on(w, y))
-    e, v = eigh_desc(g.cpu().numpy())
+    host (rank 0's, on a mesh)."""
+    y, m, total = sketch_grams(state, omega, fsum)
+    w = on_root(mesh, lambda: pinv_sqrt_psd(m.cpu().numpy()))
+    f, g = whitened_gram(y, _f32_on(w, y), fsum)
+    e, v = on_root(mesh, lambda: eigh_desc(g.cpu().numpy()))
     return f, e, v, float(total)
 
 
-def range_from_factor(f: torch.Tensor, e: np.ndarray, v: np.ndarray) -> torch.Tensor:
+def range_from_factor(f: torch.Tensor, e: np.ndarray, v: np.ndarray,
+                      gather=_same) -> torch.Tensor:
     """Orthonormal basis [D, l] of the centered sketch (zero columns where
-    the spectrum is under the noise floor): the refine pass's test matrix."""
-    return f @ _f32_on(v * noise_floor_scale(e)[None, :], f)
+    the spectrum is under the noise floor): the refine pass's test matrix,
+    ``gather`` making a feature-sharded one whole."""
+    return gather(f @ _f32_on(v * noise_floor_scale(e)[None, :], f))
 
 
 def flip_cols_to_components(u: torch.Tensor) -> torch.Tensor:
@@ -212,11 +238,11 @@ def flip_cols_to_components(u: torch.Tensor) -> torch.Tensor:
     return svd_flip_vt(u.T).contiguous()
 
 
-def finish_from_factor(f, e, v, total, count, n_components):
+def finish_from_factor(f, e, v, total, count, n_components, gather=_same):
     """Nystrom eigen-approximation C ~= Y (Omega^T Y)^+ Y^T of the centered
     covariance: (components [c, D] on the device, stdev [c], var_ratio [c])."""
     ec = e[:n_components]
-    u = f @ _f32_on(v[:, :n_components] * noise_floor_scale(ec)[None, :], f)
+    u = gather(f @ _f32_on(v[:, :n_components] * noise_floor_scale(ec)[None, :], f))
     comp = flip_cols_to_components(u)
     denom = max(count - 1.0, 1.0)
     explained = np.maximum(ec, 0.0) / denom
@@ -302,10 +328,14 @@ def reg_update_(reg, x: torch.Tensor, z: torch.Tensor):
 
 
 class IPCAEstimator:
-    """``ganspace_tpu.estimators.IPCAEstimator`` on one torch device.
+    """``ganspace_tpu.estimators.IPCAEstimator`` on one torch device, or on
+    each rank of a mesh.
 
     State lives on the device of the first block it is given; later blocks
-    are moved there."""
+    are moved there.  ``mesh`` (a ``parallel.Mesh`` with its process group
+    up): each rank streams its own blocks, the ranks' states merge once per
+    pass; ``feature_sharding``: this rank's slice of D for the merged state
+    (``Mesh.feature_sharding``, None to replicate it)."""
 
     #: feature dims up to this use the exact-moments tier (D x D scatter:
     #: 8192^2 float32 = 256 MB); beyond it, the sketch
@@ -319,9 +349,19 @@ class IPCAEstimator:
     REFINE_MIN_GAP = 0.02
 
     def __init__(self, n_components: int, mode: str = "auto",
-                 refine: Optional[str] = None):
+                 refine: Optional[str] = None, mesh=None, feature_sharding=None):
         if mode not in ("auto", "sklearn", "moments", "nystrom"):
             raise ValueError(f"IPCAEstimator: unknown mode {mode!r}")
+        if mesh is not None and mode == "sklearn":
+            raise ValueError("IPCAEstimator: the sklearn tier's updates do not merge "
+                             "across ranks")
+        self._mesh = mesh
+        #: this rank's slice of D in the merged state (None: replicated)
+        self.feature_slice = feature_sharding if mesh is not None else None
+        #: the ranks' accumulators of the current pass await their merge
+        self._pending = False
+        self._merged = False
+        self._d: Optional[int] = None
         self.n_components = n_components
         # Fixed at construction: ``refine`` ("auto" / "always"/"1" /
         # "never"/"0") wins, else GANSPACE_IPCA_REFINE is read once here.
@@ -372,15 +412,73 @@ class IPCAEstimator:
             return True
         return self.mode == "auto" and not self._use_moments(d)
 
+    # -- the mesh ------------------------------------------------------------
+    def _fsum(self, t: torch.Tensor) -> torch.Tensor:
+        """A contraction over feature-sharded D, summed over the ranks."""
+        return t if self.feature_slice is None else self._mesh.all_reduce(t)
+
+    def _fgather(self, t: torch.Tensor) -> torch.Tensor:
+        """Feature-sharded rows [D / world, .] made whole [D, .]."""
+        return t if self.feature_slice is None else self._mesh.all_gather_rows(t)
+
+    def _fslice(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.feature_slice is None else t[self.feature_slice]
+
+    def _mark_streamed(self) -> None:
+        if self._mesh is not None:
+            if self._merged:
+                raise RuntimeError("IPCAEstimator: data after the ranks' states were "
+                                   "merged (a pass streams before any statistic is read)")
+            self._pending = True
+
+    def _sync(self) -> None:
+        """Merge the ranks' accumulators of the pass just streamed, once:
+        every rank calls it at the same point (the first read of a
+        statistic).  A rank that streamed nothing takes rank 0's shapes."""
+        if self._mesh is None or not self._pending:
+            return
+        m = self._mesh
+        spec = m.decide((self._d,
+                         None if self._reg is None else self._reg[0].shape[1],
+                         None if self._rand is None else self._rand[0].shape[0]))
+        d, zdim, crand = spec
+        dev = m.device
+        self._maybe_init_tier(d, dev)
+        if zdim is not None and self._reg is None:
+            self._reg = (torch.zeros((d, zdim), dtype=torch.float32, device=dev),
+                         torch.zeros((zdim,), dtype=torch.float32, device=dev), 0)
+        if crand is not None and self._rand is None:
+            zc = torch.zeros((crand,), dtype=torch.float32, device=dev)
+            self._rand = (zc, zc, 0)
+        fs = self.feature_slice
+        if self._moments is not None:
+            st = self._moments
+            self._moments = MomentsState(*m.chan_merge(st.count, st.mean, st.m2))
+        else:
+            st = self._nystrom
+            self._nystrom = NystromState(m.sum_scalar(st.count), m.reduce_scatter(st.s, fs),
+                                         m.all_reduce(st.sq), m.reduce_scatter(st.y, fs))
+        if self._reg is not None:
+            xz, zs, n = self._reg
+            self._reg = (m.reduce_scatter(xz, fs), m.all_reduce(zs), int(m.sum_scalar(n)))
+        if self._rand is not None:
+            pm, pm2, cnt = self._rand
+            cnt, pm, pm2 = m.chan_merge(cnt, pm, pm2)
+            self._rand = (pm, pm2, cnt)
+        self.n_samples_seen_ = int(m.sum_scalar(self.n_samples_seen_))
+        self._pending, self._merged = False, True
+
     # -- sketch decisions -----------------------------------------------------
     def _sketch_factor_cached(self):
         """``sketch_factor`` of the current sketch, memoized on the identity
         of its ``y`` (a strong reference is held, so no id is recycled):
         should_refine -> begin_refine -> get_components factorize once."""
+        self._sync()
         c = self._sf_cache
         if c is not None and c[0] is self._nystrom.y:
             return c[1]
-        out = sketch_factor(self._nystrom, self._omega)
+        out = sketch_factor(self._nystrom, self._fslice(self._omega), self._mesh,
+                            self._fsum)
         self._sf_cache = (self._nystrom.y, out)
         return out
 
@@ -390,6 +488,7 @@ class IPCAEstimator:
         leaves unresolved, as a fraction of the exact total) and
         ``min_rel_gap_topc`` (smallest relative eigengap among the top c + 1
         estimates, the cut-boundary pair included).  None before data."""
+        self._sync()
         if self._nystrom is None or self._nystrom.count == 0.0:
             return None
         _, evals, _, total = self._sketch_factor_cached()
@@ -408,6 +507,7 @@ class IPCAEstimator:
         policy: ``auto`` skips it only when ``sketch_tail_frac <= 0.012`` and
         ``min_rel_gap_topc >= 0.02``.  Records ``refine_skipped``,
         ``refine_stats`` and ``policy_would_skip``."""
+        self._sync()
         mode = self.refine_policy
         if self._nystrom is None or self._refined:
             return False
@@ -422,6 +522,8 @@ class IPCAEstimator:
             return False
         skip = (stats["sketch_tail_frac"] <= self.REFINE_TAIL_FRAC
                 and stats["min_rel_gap_topc"] >= self.REFINE_MIN_GAP)
+        if self._mesh is not None:
+            skip, stats = self._mesh.decide((skip, stats))
         self.refine_skipped = bool(skip)
         self.policy_would_skip = bool(skip)
         self.refine_stats = stats
@@ -433,29 +535,34 @@ class IPCAEstimator:
         so re-streaming the same samples through ``fit_partial`` is one power
         iteration.  The first-pass sketch is kept for :meth:`abort_refine`.
         A ``never`` policy refuses unless ``force``."""
+        self._sync()
         if self._nystrom is None or self._refined:
             return False
         if not force and self.refine_policy in ("0", "never", "off", "false"):
             return False
         if self.refine_skipped is None:
             self.refine_skipped = False   # direct callers bypass the policy
-        d, l = self._nystrom.y.shape
+        f, e, v, _ = self._sketch_factor_cached()
+        d, l = self._d, self._omega.shape[1]
         self._pre_refine = (self._nystrom, self._omega, self.n_samples_seen_,
                             self._reg, self._rand)
-        f, e, v, _ = self._sketch_factor_cached()
-        self._omega = range_from_factor(f, e, v)
+        self._omega = range_from_factor(f, e, v, self._fgather)
         # drop the whitened [D, l] factor before the second sweep runs
         self._sf_cache = None
         self._nystrom = self._empty_sketch(d, l)
         # The refine pass re-streams the same samples: its cross-moments and
-        # random moments replace the first pass's instead of adding to them.
+        # random moments replace the first pass's instead of adding to them
+        # (each rank's from zero, over the whole D).
         if self._reg is not None:
-            self._reg = (torch.zeros_like(self._reg[0]), torch.zeros_like(self._reg[1]), 0)
+            self._reg = (torch.zeros((d, self._reg[0].shape[1]), dtype=torch.float32,
+                                     device=self._device),
+                         torch.zeros_like(self._reg[1]), 0)
         if self._rand is not None:
             self._rand = (torch.zeros_like(self._rand[0]),
                           torch.zeros_like(self._rand[1]), 0)
         self.n_samples_seen_ = 0
         self._refined = True
+        self._merged = False
         return True
 
     def abort_refine(self) -> None:
@@ -469,6 +576,7 @@ class IPCAEstimator:
          self._rand) = self._pre_refine
         self._pre_refine = None
         self._refined = False
+        self._pending, self._merged = False, self._mesh is not None
         self.refine_skipped = None   # the armed pass never completed
 
     # -- streaming ----------------------------------------------------------
@@ -483,6 +591,7 @@ class IPCAEstimator:
         when a tier is live or the sklearn tier applies)."""
         if self._device is None:
             self._device = device
+        self._d = d
         if not (self._state is None and self._moments is None
                 and self._nystrom is None):
             return
@@ -497,9 +606,14 @@ class IPCAEstimator:
             self._nystrom = self._empty_sketch(d, l)
 
     def fit_partial(self, x) -> bool:
+        """One block; on a mesh, this rank's rows of it (possibly none)."""
         x = torch.as_tensor(x, dtype=torch.float32)
         n, d = x.shape
-        if n < self.n_components:
+        if self._mesh is not None:
+            self._mark_streamed()
+            if n == 0:
+                return True
+        elif n < self.n_components:
             print(f"\nIPCA error: n_samples={n} < n_components={self.n_components}")
             return False
         if self._device is not None:
@@ -576,28 +690,38 @@ class IPCAEstimator:
         full-precision refine pass determines the estimate."""
         if n_blocks <= 0:
             return True
-        first = block_fn(0)        # the shape probe, kept as block 0 of pass 1
-        x, z = first if with_reg else (first, None)
-        nb, d = x.shape
+        # on a mesh, this rank's blocks: i % n_data == its data index
+        blocks = (list(self._mesh.my_blocks(n_blocks)) if self._mesh is not None
+                  else list(range(n_blocks)))
+        # the shape probe, kept as the pass's first block; a rank dealt no
+        # block takes rank 0's shapes
+        first = block_fn(blocks[0]) if blocks else None
+        x, z = (first if with_reg else (first, None)) if blocks else (None, None)
+        probe = None if x is None else (x.shape[0], x.shape[1],
+                                        None if z is None else z.shape[1])
+        if self._mesh is not None:
+            self._mark_streamed()
+            probe = self._mesh.decide(probe)
+        nb, d, zdim = probe
         if nb < self.n_components:
             print(f"\nIPCA error: n_samples={nb} < n_components={self.n_components}")
             return False
-        self._maybe_init_tier(d, torch.as_tensor(x).device)
+        self._maybe_init_tier(d, self._mesh.device if x is None else torch.as_tensor(x).device)
         if self._moments is None and self._nystrom is None:
             return False
         dev = self._device
         if with_reg and self._reg is None:
-            self._reg = (torch.zeros((d, z.shape[1]), dtype=torch.float32, device=dev),
-                         torch.zeros((z.shape[1],), dtype=torch.float32, device=dev), 0)
+            self._reg = (torch.zeros((d, zdim), dtype=torch.float32, device=dev),
+                         torch.zeros((zdim,), dtype=torch.float32, device=dev), 0)
         if rand_dirs is not None:
             rand_dirs = torch.as_tensor(rand_dirs, dtype=torch.float32).to(dev)
             if self._rand is None:
                 zc = torch.zeros((rand_dirs.shape[0],), dtype=torch.float32, device=dev)
                 self._rand = (zc, zc, 0)
-        self._run_stream(block_fn, n_blocks, with_reg, rand_dirs, first, refine_stream)
+        self._run_stream(block_fn, blocks, with_reg, rand_dirs, first, refine_stream)
         return True
 
-    def _run_stream(self, block_fn, n_blocks, with_reg, rand_dirs, first,
+    def _run_stream(self, block_fn, blocks, with_reg, rand_dirs, first,
                     refine_stream=None) -> None:
         """The main pass, then on the sketch tier the adaptive refine pass
         over the regenerated stream, or the mandatory one over
@@ -606,7 +730,7 @@ class IPCAEstimator:
             return torch.as_tensor(a, dtype=torch.float32).to(self._device)
 
         def run_pass(first, fn=block_fn):
-            for i in range(n_blocks):
+            for i in blocks:
                 out = fn(i) if first is None else first
                 first = None
                 x, z = out if with_reg else (out, None)
@@ -641,16 +765,20 @@ class IPCAEstimator:
                 and stats["min_rel_gap_topc"] >= self.REFINE_MIN_GAP)
             if self.begin_refine(force=True):
                 self.refine_skipped = False
+                self._mark_streamed()
                 run_pass(None, refine_stream)
                 self._pre_refine = None   # completed: no abort may roll it back
             return
         if self.should_refine() and self.begin_refine():
+            self._mark_streamed()
             run_pass(None)
             self._pre_refine = None   # completed: no abort may roll it back
 
     def reg_moments(self):
         """``(sum x^T z [D, zdim], sum z [zdim], n)`` over the last completed
-        pass of ``fit_stream(with_reg=True)``, or None."""
+        pass of ``fit_stream(with_reg=True)``, or None; on a feature-sharded
+        mesh the first sum is this rank's rows of D (``feature_slice``)."""
+        self._sync()
         if self._reg is None or self._reg[2] == 0:
             return None
         return self._reg
@@ -658,6 +786,7 @@ class IPCAEstimator:
     def rand_moments(self):
         """``(mean [c], M2 [c], n)`` of the projections onto ``rand_dirs``
         over the last completed pass (Var = M2 / n), or None."""
+        self._sync()
         if self._rand is None or self._rand[2] == 0:
             return None
         return self._rand
@@ -671,18 +800,31 @@ class IPCAEstimator:
 
     # -- results ------------------------------------------------------------
     def _require_moments(self) -> MomentsState:
+        """The merged moments (the scatter whole on every rank)."""
+        self._sync()
         if self._moments is None or self._moments.count == 0.0:
             raise RuntimeError("IPCAEstimator: no samples fitted yet")
-        if not bool(torch.isfinite(self._moments.m2).all()):
+        st = self._moments
+        if not bool(torch.isfinite(st.m2).all()):
             raise FloatingPointError(_NOT_FINITE)
-        return self._moments
+        return st
+
+    def _root_finish(self, fn, shapes):
+        """``fn()`` (device tensors of ``shapes``) on rank 0, broadcast to
+        every rank: the moments tier's eigh runs once."""
+        if self._mesh is None:
+            return fn()
+        out = fn() if self._mesh.is_root else tuple(
+            torch.empty(sh, dtype=torch.float32, device=self._device) for sh in shapes)
+        return tuple(self._mesh.broadcast(t) for t in out)
 
     @property
     def mean_(self) -> np.ndarray:
+        self._sync()
         if self._moments is not None:
             return self._moments.mean.cpu().numpy()
         if self._nystrom is not None:
-            return (self._nystrom.s / self._nystrom.count).cpu().numpy()
+            return (self._fgather(self._nystrom.s) / self._nystrom.count).cpu().numpy()
         return self._state.mean.cpu().numpy()
 
     def get_components(self, device: bool = False):
@@ -691,14 +833,16 @@ class IPCAEstimator:
         var_ratio are numpy either way."""
         # Consuming the estimate finalizes a completed refine pass.
         self._pre_refine = None
+        self._sync()
         if self._moments is not None:
-            comp, stdev, var_ratio = moments_finish(self._require_moments(),
-                                                    self.n_components)
+            c, st = self.n_components, self._require_moments()
+            comp, stdev, var_ratio = self._root_finish(
+                lambda: moments_finish(st, c), ((c, self._d), (c,), (c,)))
             stdev, var_ratio = stdev.cpu().numpy(), var_ratio.cpu().numpy()
         elif self._nystrom is not None:
             f, e, v, total = self._sketch_factor_cached()
             comp, stdev, var_ratio = finish_from_factor(
-                f, e, v, total, self._nystrom.count, self.n_components)
+                f, e, v, total, self._nystrom.count, self.n_components, self._fgather)
         elif self._state is not None:
             comp = self._state.components
             stdev = torch.sqrt(self._state.explained_variance).cpu().numpy()
@@ -712,19 +856,22 @@ class IPCAEstimator:
         [c, D] on the device, stats np [4, c])`` with rows (stdev, var_ratio,
         lat_stdev, random_stdevs, zeros unless ``rand_moments`` is given);
         None off the moments tier."""
+        self._sync()
         if self._moments is None or self._moments.count == 0.0:
             return None
         self._pre_refine = None
-        comp, stats = moments_finish_bundle(self._require_moments(),
-                                            self.n_components, rand_moments)
+        c, st = self.n_components, self._require_moments()
+        comp, stats = self._root_finish(
+            lambda: moments_finish_bundle(st, c, rand_moments), ((c, self._d), (4, c)))
         return comp, stats.cpu().numpy()
 
     def component_spectrum(self) -> Optional[np.ndarray]:
         """Descending eigenvalue estimates of the fitted scatter: exact on
         the moments tier, the l Nystrom estimates on the sketch; None on the
         sklearn tier or before data."""
+        self._sync()
         if self._moments is not None and self._moments.count > 0.0:
-            m = self._moments
+            m = self._require_moments()
             cov = m.m2.to(torch.float64) / max(m.count - 1.0, 1.0)
             ev = torch.flip(torch.linalg.eigvalsh(cov), (0,)).cpu().numpy()
             return np.maximum(ev, 0.0)

@@ -125,6 +125,8 @@ class BaseGenerator(nn.Module, ABC):
         self.inst: Optional["InstrumentedModel"] = None  # set by InstrumentedModel
         self.host_rng = SeedStream()
         self._latent_shape_cache: Dict[Tuple, Tuple[int, ...]] = {}
+        #: the mesh of data-parallel rendering (:meth:`place_on_mesh`)
+        self._mesh = None
 
     # -- abstract -----------------------------------------------------------
     @abstractmethod
@@ -186,14 +188,62 @@ class BaseGenerator(nn.Module, ABC):
     def sample_np(self, z=None, n_samples: int = 1, seed=None,
                   uint8: bool = False) -> np.ndarray:
         """Generate images, return clipped HWC numpy in [0,1] (squeezed);
-        ``uint8=True`` quantizes on the device before the copy to the host."""
+        ``uint8=True`` quantizes on the device before the copy to the host.
+
+        After :meth:`place_on_mesh` the batch shards over the ``data`` axis:
+        each rank renders its rows (and its rows of a per-row edit) and every
+        rank receives the images in order.  A batch that does not divide the
+        axis is rendered by rank 0 alone, as the JAX package leaves it
+        unsharded; the other ranks then get zeros of its shape (only rank 0
+        writes files)."""
         if z is None:
             z = self.sample_latent(n_samples, seed=seed)
-        img = self.forward(z)
+        mesh = self._mesh
+        if mesh is None:
+            return self._images_np(self.forward(z), uint8).squeeze()
+        first = z[0] if isinstance(z, (list, tuple)) else z
+        n = first.shape[0]
+        lo, hi = mesh.row_range(n)
+        piece = None
+        if hi > lo:
+            rows = [l[lo:hi] for l in z] if isinstance(z, (list, tuple)) else z[lo:hi]
+            inst = self.inst
+            if inst is not None:
+                inst._rows = (lo, hi, n)
+            try:
+                piece = self._images_np(self.forward(rows), uint8)
+            finally:
+                if inst is not None:
+                    inst._rows = None
+        if n % mesh.n_data == 0 and mesh.n_data > 1:
+            pieces = mesh.all_gather_object(piece)
+            return np.concatenate([p for p in pieces if p is not None]).squeeze()
+        shape = mesh.decide(None if piece is None else (piece.shape, piece.dtype.str))
+        return (piece if mesh.is_root else np.zeros(shape[0], shape[1])).squeeze()
+
+    @staticmethod
+    def _images_np(img: torch.Tensor, uint8: bool) -> np.ndarray:
         if uint8:
-            return uint8_nhwc(img).squeeze()
-        img_np = img.permute(0, 2, 3, 1).cpu().numpy()
-        return np.clip(img_np, 0.0, 1.0).squeeze()
+            return uint8_nhwc(img)
+        return np.clip(img.permute(0, 2, 3, 1).cpu().numpy(), 0.0, 1.0)
+
+    def place_on_mesh(self, mesh) -> None:
+        """Data-parallel synthesis over ``mesh``: this rank's copy of the
+        model must live on the rank's device, and every rank must hold the
+        same weights (a float64 checksum of parameters and buffers, compared
+        across the ranks: seeded weights or one checkpoint).  ``None`` goes
+        back to single-device rendering."""
+        if mesh is None:
+            self._mesh = None
+            return
+        from ganspace_tpu_torch.parallel.mesh import params_checksum
+        if self.device != mesh.device:
+            raise RuntimeError(f"rank {mesh.rank}: the model is on {self.device}, the "
+                               f"rank's device is {mesh.device}")
+        sums = mesh.all_gather_object(params_checksum(self))
+        if len(set(sums)) != 1:
+            raise RuntimeError(f"the ranks hold different weights (checksums {sums})")
+        self._mesh = mesh
 
     @torch.no_grad()
     def sample_latents_prefetched(self, n_batches: int, batch_size: int, keep_on=None):
@@ -266,6 +316,9 @@ class InstrumentedModel:
         self._edit_override: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
         self.feature_shape: Dict[str, Tuple[int, ...]] = {}
         self.input_shape: Optional[Tuple[int, ...]] = None
+        #: (lo, hi, n) while a meshed render runs rows lo:hi of an n-row
+        #: batch: a per-row edit ([n, ...]) applies its rows lo:hi
+        self._rows: Optional[Tuple[int, int, int]] = None
 
     # -- retention ----------------------------------------------------------
     def retain_layer(self, layername: str):
@@ -332,9 +385,15 @@ class InstrumentedModel:
             return {self.model.resolve_tap(n): dict(e)
                     for n, e in self._edit_override.items()}
         device = self.model.device
+        rows = self._rows
+
+        def cut(v):
+            if rows is not None and getattr(v, "ndim", 0) >= 2 and v.shape[0] == rows[2]:
+                return v[rows[0]:rows[1]]
+            return v
         return {
             self.model.resolve_tap(name): {
-                k: torch.as_tensor(v, dtype=torch.float32, device=device)
+                k: torch.as_tensor(cut(v), dtype=torch.float32, device=device)
                 for k, v in e.items()}
             for name, e in self._edits.items() if e
         }

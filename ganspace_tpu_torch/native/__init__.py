@@ -26,7 +26,7 @@ from typing import Optional
 
 import numpy as np
 
-from ganspace_tpu_torch.ops._build import BUILD_DIR
+from ganspace_tpu_torch.ops._build import BUILD_DIR, build_lock
 
 _SRC = Path(__file__).parent / "src" / "fastio.cpp"
 _CMD = ("g++", "-O2", "-shared", "-fPIC", "-std=c++17")
@@ -50,19 +50,19 @@ def _build() -> Optional[ctypes.CDLL]:
         if _build_failed:
             return None
         lib_path = _lib_path()
-        if not lib_path.is_file():
-            # a per-process name, then an atomic rename: processes that
-            # build at the same time each write their own file
-            tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp.so")
-            try:
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                subprocess.run([*_CMD, str(_SRC), "-o", str(tmp), *_LIBS],
-                               check=True, capture_output=True)
-                os.replace(tmp, lib_path)
-            except (subprocess.CalledProcessError, OSError) as e:
-                print(f"fastio: native build failed ({e}); using PIL fallback")
-                _build_failed = True
-                return None
+        try:
+            # one process at a time builds (the ranks of a mesh start
+            # together); a per-process name, then an atomic rename
+            with build_lock("fastio"):
+                if not lib_path.is_file():
+                    tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp.so")
+                    subprocess.run([*_CMD, str(_SRC), "-o", str(tmp), *_LIBS],
+                                   check=True, capture_output=True)
+                    os.replace(tmp, lib_path)
+        except (subprocess.CalledProcessError, OSError) as e:
+            print(f"fastio: native build failed ({e}); using PIL fallback")
+            _build_failed = True
+            return None
         lib = ctypes.CDLL(str(lib_path))
         lib.fastio_pool_create.restype = ctypes.c_void_p
         lib.fastio_pool_create.argtypes = [ctypes.c_int]

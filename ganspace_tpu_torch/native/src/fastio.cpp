@@ -21,10 +21,15 @@
 //
 // PNG writer: minimal, correct subset — 8-bit RGB/RGBA/gray, filter 0,
 // one zlib-deflated IDAT.  Matches what the visualization pipeline needs;
-// everything else stays with PIL on the Python side.
+// everything else stays with PIL on the Python side.  An image of more
+// than kSplitBytes deflates in pieces on threads of its own, each piece a
+// raw deflate stream ended by a full flush (the last by the final block),
+// joined under one zlib header with the combined Adler-32: one valid
+// stream, as pigz writes it.
 
 #include <zlib.h>
 
+#include <algorithm>
 #include <atomic>
 #include <condition_variable>
 #include <cstdint>
@@ -43,6 +48,9 @@ namespace {
 // Minimal PNG encoder
 // ---------------------------------------------------------------------------
 
+constexpr size_t kSplitBytes = 8u << 20;   // deflate in pieces above this
+constexpr size_t kPieceBytes = 4u << 20;   // scanline bytes per piece
+
 void put_be32(std::vector<uint8_t>& out, uint32_t v) {
   out.push_back((v >> 24) & 0xff);
   out.push_back((v >> 16) & 0xff);
@@ -58,6 +66,64 @@ void put_chunk(std::vector<uint8_t>& out, const char type[4],
   if (len) out.insert(out.end(), data, data + len);
   uint32_t crc = crc32(0L, out.data() + start, static_cast<uInt>(len + 4));
   put_be32(out, crc);
+}
+
+// One piece of a split deflate: raw deflate (no header) at level 6.
+bool deflate_piece(const uint8_t* in, size_t n, bool last, std::vector<uint8_t>& out) {
+  z_stream zs{};
+  if (deflateInit2(&zs, 6, Z_DEFLATED, -15, 8, Z_DEFAULT_STRATEGY) != Z_OK) return false;
+  out.resize(deflateBound(&zs, static_cast<uLong>(n)) + 16);
+  zs.next_in = const_cast<uint8_t*>(in);
+  zs.avail_in = static_cast<uInt>(n);
+  zs.next_out = out.data();
+  zs.avail_out = static_cast<uInt>(out.size());
+  int rc = deflate(&zs, last ? Z_FINISH : Z_FULL_FLUSH);
+  bool ok = last ? rc == Z_STREAM_END : (rc == Z_OK && zs.avail_in == 0);
+  out.resize(zs.total_out);
+  deflateEnd(&zs);
+  return ok;
+}
+
+// The zlib stream of ``raw``: one compress2 call, or pieces on threads.
+bool deflate_zlib(const std::vector<uint8_t>& raw, std::vector<uint8_t>& out) {
+  if (raw.size() <= kSplitBytes) {
+    uLongf bound = compressBound(static_cast<uLong>(raw.size()));
+    out.resize(bound);
+    if (compress2(out.data(), &bound, raw.data(), static_cast<uLong>(raw.size()), 6) != Z_OK) {
+      return false;
+    }
+    out.resize(bound);
+    return true;
+  }
+  const size_t n = (raw.size() + kPieceBytes - 1) / kPieceBytes;
+  std::vector<std::vector<uint8_t>> parts(n);
+  std::vector<uLong> adlers(n);
+  std::atomic<bool> ok{true};
+  std::atomic<size_t> next{0};
+  auto work = [&]() {
+    for (size_t i = next++; i < n; i = next++) {
+      const size_t off = i * kPieceBytes;
+      const size_t len = std::min(kPieceBytes, raw.size() - off);
+      adlers[i] = adler32(1L, raw.data() + off, static_cast<uInt>(len));
+      if (!deflate_piece(raw.data() + off, len, i + 1 == n, parts[i])) ok = false;
+    }
+  };
+  const size_t k = std::min<size_t>(n, std::max(1u, std::thread::hardware_concurrency()));
+  std::vector<std::thread> threads;
+  for (size_t t = 0; t < k; ++t) threads.emplace_back(work);
+  for (auto& t : threads) t.join();
+  if (!ok) return false;
+  out.assign({0x78, 0x9c});            // deflate, 32K window, default level
+  uLong adler = adlers[0];
+  for (size_t i = 0; i < n; ++i) {
+    out.insert(out.end(), parts[i].begin(), parts[i].end());
+    if (i) {
+      const size_t len = std::min(kPieceBytes, raw.size() - i * kPieceBytes);
+      adler = adler32_combine(adler, adlers[i], static_cast<z_off_t>(len));
+    }
+  }
+  put_be32(out, static_cast<uint32_t>(adler));
+  return true;
 }
 
 bool encode_png(const uint8_t* pixels, int h, int w, int channels,
@@ -87,13 +153,9 @@ bool encode_png(const uint8_t* pixels, int h, int w, int channels,
     std::memcpy(&raw[y * (stride + 1) + 1], pixels + y * stride, stride);
   }
 
-  uLongf bound = compressBound(static_cast<uLong>(raw.size()));
-  std::vector<uint8_t> compressed(bound);
-  if (compress2(compressed.data(), &bound, raw.data(),
-                static_cast<uLong>(raw.size()), 6) != Z_OK) {
-    return false;
-  }
-  put_chunk(out, "IDAT", compressed.data(), bound);
+  std::vector<uint8_t> compressed;
+  if (!deflate_zlib(raw, compressed)) return false;
+  put_chunk(out, "IDAT", compressed.data(), compressed.size());
   put_chunk(out, "IEND", nullptr, 0);
   return true;
 }

@@ -7,12 +7,13 @@ because the layer-wise z space is shared).
     python -m ganspace_tpu_torch.notebooks.figure_biggan_edit_transferability --tiny --device cpu
 """
 
-from ganspace_tpu_torch.notebooks.notebook_init import (create_strip, parse_args,
+from ganspace_tpu_torch.notebooks.notebook_init import (create_strip, figure_main, parse_args,
                                                        save_figure_grid, setup)
 
 CLASSES = ["husky", "church", "goldfish"]
 
 
+@figure_main
 def main(argv=None):
     args = parse_args(argv, model="BigGAN-128", output_class="husky",
                       layer="generator.gen_z", components=8, n=512)

@@ -7,7 +7,8 @@ layer slots and the column's for the rest).
     python -m ganspace_tpu_torch.notebooks.figure_biggan_style_mixing --tiny --device cpu
 """
 
-from ganspace_tpu_torch.notebooks.notebook_init import parse_args, save_figure_grid, setup
+from ganspace_tpu_torch.notebooks.notebook_init import (figure_main, parse_args,
+                                                       save_figure_grid, setup)
 
 CONTENT_SEEDS = [1, 2, 3]
 STYLE_SEEDS = [41, 42, 43]
@@ -23,6 +24,7 @@ def mixed_latents(model, content_seed: int, style_seed: int):
     return [z_c] * split + [z_s] * (max_lat - split)
 
 
+@figure_main
 def main(argv=None):
     args = parse_args(argv, model="BigGAN-128", output_class="husky",
                       layer="generator.gen_z", components=8, n=512)

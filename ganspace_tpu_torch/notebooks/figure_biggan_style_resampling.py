@@ -7,9 +7,11 @@ z is the analog of StyleGAN style mixing).
     python -m ganspace_tpu_torch.notebooks.figure_biggan_style_resampling --tiny --device cpu
 """
 
-from ganspace_tpu_torch.notebooks.notebook_init import parse_args, save_figure_grid, setup
+from ganspace_tpu_torch.notebooks.notebook_init import (figure_main, parse_args,
+                                                       save_figure_grid, setup)
 
 
+@figure_main
 def main(argv=None):
     args = parse_args(argv, model="BigGAN-128", output_class="husky",
                       layer="generator.gen_z", components=8, n=512)

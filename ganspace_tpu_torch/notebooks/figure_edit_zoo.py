@@ -16,10 +16,11 @@ import tempfile
 from pathlib import Path
 
 from ganspace_tpu_torch import directions as dirlib
-from ganspace_tpu_torch.notebooks.notebook_init import (create_strip, parse_args,
+from ganspace_tpu_torch.notebooks.notebook_init import (create_strip, figure_main, parse_args,
                                                        save_figure_grid, setup)
 
 
+@figure_main
 def main(argv=None):
     inputs = None
     argv_rest = []

@@ -5,10 +5,11 @@
     python -m ganspace_tpu_torch.notebooks.figure_first_20_pcs --tiny --device cpu
 """
 
-from ganspace_tpu_torch.notebooks.notebook_init import (create_strip_centered, parse_args,
-                                                       save_figure_grid, setup)
+from ganspace_tpu_torch.notebooks.notebook_init import (create_strip_centered, figure_main,
+                                                       parse_args, save_figure_grid, setup)
 
 
+@figure_main
 def main(argv=None):
     args = parse_args(argv, model="StyleGAN2", layer="style", components=20)
     ns = setup(args, use_w=True)

@@ -6,8 +6,8 @@ then the same PCs restricted to tuned layer windows).
     python -m ganspace_tpu_torch.notebooks.figure_pca_cleanup --tiny --device cpu
 """
 
-from ganspace_tpu_torch.notebooks.notebook_init import (create_strip_centered, parse_args,
-                                                       save_figure_grid, setup)
+from ganspace_tpu_torch.notebooks.notebook_init import (create_strip_centered, figure_main,
+                                                       parse_args, save_figure_grid, setup)
 
 # (component, (layer start, layer end), sigma) — the reference hand-tunes
 # per-PC windows; the *windowing mechanism* is what the figure demonstrates.
@@ -19,6 +19,7 @@ HAND_TUNED = [
 ]
 
 
+@figure_main
 def main(argv=None):
     args = parse_args(argv, model="StyleGAN2", layer="style", components=8)
     ns = setup(args, use_w=True)

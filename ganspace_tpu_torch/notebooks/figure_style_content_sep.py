@@ -9,7 +9,7 @@ directions are compared against a random orthonormal basis).
 
 import numpy as np
 
-from ganspace_tpu_torch.notebooks.notebook_init import (create_strip, parse_args,
+from ganspace_tpu_torch.notebooks.notebook_init import (create_strip, figure_main, parse_args,
                                                        save_figure_grid, setup)
 
 
@@ -20,6 +20,7 @@ def random_basis(dims: int, n: int, seed: int = 0) -> np.ndarray:
     return q.T[:n].astype(np.float32)
 
 
+@figure_main
 def main(argv=None):
     args = parse_args(argv, model="StyleGAN2", layer="style", components=8)
     ns = setup(args, use_w=True)

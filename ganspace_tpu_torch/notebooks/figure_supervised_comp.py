@@ -18,7 +18,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ganspace_tpu_torch.notebooks.notebook_init import (create_strip, parse_args,
+from ganspace_tpu_torch.notebooks.notebook_init import (create_strip, figure_main, parse_args,
                                                        save_figure_grid, setup)
 
 
@@ -43,6 +43,7 @@ def synthetic_supervised(t, dims, seed=4):
     return out
 
 
+@figure_main
 def main(argv=None):
     data_dir = None
     argv_rest = []

@@ -8,7 +8,8 @@ each edit in the chain).
 
 import numpy as np
 
-from ganspace_tpu_torch.notebooks.notebook_init import parse_args, save_figure_grid, setup
+from ganspace_tpu_torch.notebooks.notebook_init import (figure_main, parse_args,
+                                                       save_figure_grid, setup)
 
 # (component idx, layer start, layer end, target strength, invert)
 EDITS = [
@@ -53,6 +54,7 @@ def chain_edits(components: int):
     return [e for _, e in EDITS[:min(3, components)]]
 
 
+@figure_main
 def main(argv=None):
     args = parse_args(argv, model="StyleGAN2", layer="style", components=8)
     ns = setup(args, use_w=True)

@@ -7,6 +7,11 @@ numpy arrays, and the output directory.  The figure modules reach the port
 through its public API only (``get_instrumented_model``, ``get_or_compute``,
 ``create_strip(_centered)``, ``save_frames``, ``sample_np``).
 
+A figure's grids go to the image writer pool (``native.ImageWriterPool``:
+C++ threads, zlib PNG) of its run: ``@figure_main`` gives each run one
+pool and drains it before ``main`` returns, so a grid encodes while the
+next one renders.
+
 Every script takes ``--tiny`` to run on randomly initialised reduced models
 (the JAX package's reduced configs, built with the same weights), so the
 suite runs offline; at full width the same scripts render the paper's
@@ -16,6 +21,8 @@ figures from whatever checkpoints are found, or seeded random weights.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import os
 from pathlib import Path
 from types import SimpleNamespace
@@ -26,8 +33,12 @@ from ganspace_tpu_torch.config import Config
 from ganspace_tpu_torch.decomposition import get_or_compute
 from ganspace_tpu_torch.edit import create_strip, create_strip_centered, save_frames  # noqa: F401  (re-export)
 from ganspace_tpu_torch.models import get_instrumented_model
+from ganspace_tpu_torch.native import ImageWriterPool
 
 OUTDIR = Path(os.environ.get("GANSPACE_FIGURE_DIR", "out/figures"))
+
+#: the running figure's writer pool (:func:`figure_writer`)
+_WRITER = None
 
 
 def tiny_overrides(model: str) -> dict:
@@ -102,14 +113,49 @@ def setup(args, use_w: bool = True, estimator: str = "ipca"):
                            outdir=outdir)
 
 
+def drain(pool: ImageWriterPool) -> None:
+    """Wait for every queued grid; raise if a write failed."""
+    pool.wait()
+    failed = pool.errors()
+    pool.close()
+    if failed:
+        raise OSError(f"{failed} figure grid(s) failed to write")
+
+
+@contextlib.contextmanager
+def figure_writer():
+    """The writer pool of a figure run, opened here unless one is running,
+    and then drained on the way out."""
+    global _WRITER
+    if _WRITER is not None:
+        yield _WRITER
+        return
+    _WRITER = ImageWriterPool(4)
+    try:
+        yield _WRITER
+    finally:
+        pool, _WRITER = _WRITER, None
+        drain(pool)
+
+
+def figure_main(main):
+    """Run a figure script's ``main`` with one writer pool for its grids,
+    drained before it returns."""
+    @functools.wraps(main)
+    def run(*args, **kwargs):
+        with figure_writer():
+            return main(*args, **kwargs)
+    return run
+
+
 def save_figure_grid(rows, outpath, pad: int = 2):
-    """Stack rows of HWC images (float [0, 1] or uint8) into one PNG.
+    """Stack rows of HWC images (float [0, 1] or uint8) into one PNG,
+    queued on the figure run's writer pool (written before the figure's
+    ``main`` returns; at once outside a run).
 
     The frames are quantized one by one and padded in uint8 (white: 255,
     what a float 1.0 quantizes to), so a grid of 1024-px frames never
     exists as float32; the pixels are those of the float grid quantized."""
-    from PIL import Image
-
     from ganspace_tpu_torch.imaging import pad_frames, to_uint8
     strips = [np.hstack(pad_frames([to_uint8(np.atleast_3d(f)) for f in row]))
               for row in rows]
@@ -118,6 +164,7 @@ def save_figure_grid(rows, outpath, pad: int = 2):
                      constant_values=255) for s in strips]
     grid = np.vstack(strips)
     Path(outpath).parent.mkdir(parents=True, exist_ok=True)
-    Image.fromarray(grid).save(outpath)
+    with figure_writer() as pool:
+        pool.save_png(outpath, grid)
     print(f"wrote {outpath}")
     return outpath

@@ -11,11 +11,18 @@ builds and loads the library.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
+A raw launch goes to the calling thread's current device, so
+:func:`stream_handle` refuses a tensor on another device than the current
+one.  Processes that build at the same time (the ranks of a mesh on a clean
+checkout) take turns on a lock file in the build directory: the first
+compiles, the others load its library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import contextlib
+import fcntl
 import hashlib
 import os
 import shutil
@@ -116,10 +123,25 @@ def _compile_and_link(sources, lib_path: Path) -> str:
     return log
 
 
+@contextlib.contextmanager
+def build_lock(name: str):
+    """Hold ``build/ganspace_tpu_torch/<name>.lock`` exclusively: one
+    process at a time compiles and links into the build directory."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{name}.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def load_kernels() -> KernelLibrary:
     """Build the library if needed and load it (once per process)."""
     global _loaded
-    with _lock:
+    if _loaded is not None:
+        return _loaded
+    with _lock, build_lock("kernels"):
         if _loaded is not None:
             return _loaded
         sources = sorted(CSRC.glob("*.cu"))
@@ -128,7 +150,6 @@ def load_kernels() -> KernelLibrary:
         log_path = lib_path.with_suffix(".log")
         seconds = 0.0
         if not lib_path.is_file():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
             t0 = time.perf_counter()
             log = _compile_and_link(sources, lib_path)
             seconds = time.perf_counter() - t0
@@ -146,6 +167,11 @@ def check(code: int, name: str) -> None:
 
 
 def stream_handle(tensor) -> int:
-    """The raw handle of the current CUDA stream on ``tensor``'s device."""
+    """The raw handle of the current CUDA stream on ``tensor``'s device,
+    which must be the current device: a ``ctypes`` launch runs there."""
     import torch
+    if tensor.device.index != torch.cuda.current_device():
+        raise RuntimeError(f"kernel launch on {tensor.device} while the current device is "
+                           f"cuda:{torch.cuda.current_device()}; call "
+                           f"torch.cuda.set_device({tensor.device.index}) first")
     return torch.cuda.current_stream(tensor.device).cuda_stream

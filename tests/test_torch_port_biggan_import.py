@@ -17,6 +17,15 @@ from ganspace_tpu_torch.models import checkpoints, tf_import, torch_import
 
 from test_tf_import import _biggan_stats_list, _biggan_tf_vars
 
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
 TINY = dict(output_dim=32, z_dim=16, channel_width=8,
             layers=((False, 16, 16), (True, 16, 8), (True, 8, 4), (True, 4, 2)),
             attention_layer_position=2)

@@ -22,6 +22,15 @@ from ganspace_tpu_torch.models import checkpoints
 from ganspace_tpu_torch.models import stylegan as torch_sg1
 from ganspace_tpu_torch.models import stylegan2 as torch_sg2
 
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
 SG2_CHANNELS = ((4, 32), (8, 32), (16, 16))
 SG1_FMAP_BASE = 128
 RES = 16

@@ -18,6 +18,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 from ganspace_tpu import models as jax_models
 from ganspace_tpu.apps import visualize as jax_visualize
@@ -35,6 +36,15 @@ from ganspace_tpu_torch.edit import create_strip_centered
 from ganspace_tpu_torch.estimators import ipca
 from ganspace_tpu_torch.models import stylegan2 as torch_sg2
 from ganspace_tpu_torch.models.base import InstrumentedModel
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
 
 CHANNELS = ((4, 64), (8, 64), (16, 32), (32, 32))
 TAP, C = "convs.1", 8

@@ -16,6 +16,15 @@ from ganspace_tpu_torch.ops.modconv import (
 from ganspace_tpu_torch.ops.moments import centered_gram, centered_gram_plain
 from ganspace_tpu_torch.ops.precision import ieee_f32, precision
 
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
 pytestmark = pytest.mark.cuda
 
 

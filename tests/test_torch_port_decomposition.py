@@ -10,6 +10,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from ganspace_tpu import models as jax_models
 from ganspace_tpu.apps import visualize as jax_visualize
@@ -25,6 +26,15 @@ from ganspace_tpu_torch.decomposition import get_or_compute
 from ganspace_tpu_torch.models import stylegan2 as torch_sg2
 from ganspace_tpu_torch.models.base import InstrumentedModel
 from ganspace_tpu_torch.ops.moments import centered_gram
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
 
 CHANNELS = ((4, 64), (8, 64), (16, 32), (32, 32))
 FIXTURE = (Path(__file__).resolve().parent.parent / "notebooks" / "cache"

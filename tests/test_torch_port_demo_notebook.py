@@ -7,8 +7,18 @@ from pathlib import Path
 
 import nbformat
 import pytest
+import torch
 
 from ganspace_tpu_torch.notebooks import make_demo_notebook
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
 
 PATH = (Path(__file__).resolve().parent.parent / "ganspace_tpu_torch" / "notebooks"
         / "Ganspace_torch.ipynb")

@@ -33,6 +33,15 @@ from ganspace_tpu_torch.decomposition import (
 from ganspace_tpu_torch.models import stylegan2 as torch_sg2
 from ganspace_tpu_torch.models.base import InstrumentedModel
 
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
 CHANNELS = ((4, 64), (8, 64), (16, 32), (32, 32))
 W_KW = dict(model="StyleGAN2", output_class="ffhq", layer="style", estimator="ipca",
             components=80, n=40960, use_w=True)

@@ -1,8 +1,22 @@
-"""The port imports torch and never jax or ganspace_tpu."""
+"""The port imports torch and never jax or ganspace_tpu, nor does a rank
+that ``parallel.launch`` spawns."""
 
+import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -93,6 +107,8 @@ MODULES = [
     "ganspace_tpu_torch.tools.profile_wpca",
     "ganspace_tpu_torch.tools.profile_convtap",
     "ganspace_tpu_torch.notebooks.make_demo_notebook",
+    "ganspace_tpu_torch.parallel",
+    "ganspace_tpu_torch.parallel.mesh",
 ]
 
 
@@ -104,8 +120,16 @@ def test_port_never_imports_jax():
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'ganspace_tpu'))\n"
         "assert not bad, bad\n"
+        # a spawned rank (gloo, two CPU ranks) imports no more than the port
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_port_mesh_jobs as jobs\n"
+        "from ganspace_tpu_torch.parallel import launch\n"
+        "ranks = launch(jobs.imported_modules, shape='2', devices='cpu')\n"
+        "bad = sorted({m for r in ranks for m in r if m in ('jax', 'jaxlib', 'ganspace_tpu')})\n"
+        "assert len(ranks) == 2 and 'ganspace_tpu_torch' in ranks[1] and not bad, bad\n"
         "print('ok')\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env={
+                             **os.environ, "OMP_NUM_THREADS": "1"},
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"

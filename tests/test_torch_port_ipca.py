@@ -11,6 +11,14 @@ from ganspace_tpu_torch.estimators.ipca import IPCAEstimator, proj_variance
 from ganspace_tpu_torch.estimators.utils import svd_flip_vt
 
 
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _stream(n_blocks=4, n=600, d=48, seed=0):
     """Anisotropic blocks with a nonzero mean, so centering and the Chan
     merge both matter."""

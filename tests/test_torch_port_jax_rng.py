@@ -10,9 +10,18 @@ from functools import partial
 
 import numpy as np
 import torch
+import pytest
 
 import jax
 import jax.numpy as jnp
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
 
 
 @partial(jax.jit, static_argnums=1)

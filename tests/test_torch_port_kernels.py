@@ -32,6 +32,14 @@ from ganspace_tpu_torch.ops.tf32x3 import sw128_image, wgmma_tile_bf16
 from ganspace_tpu_torch.ops.upfirdn import make_fir_kernel
 
 
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _rel(got, ref):
     return float(np.abs(got - ref).max() / np.abs(ref).max())
 

@@ -14,6 +14,14 @@ from ganspace_tpu_torch.models import stylegan2 as torch_sg2
 from ganspace_tpu_torch.ops import linear, upfirdn
 
 
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _rel(got, ref):
     return float(np.abs(np.asarray(got) - np.asarray(ref)).max()
                  / np.abs(np.asarray(ref)).max())

@@ -28,6 +28,15 @@ from ganspace_tpu_torch.estimators.ipca import IPCAEstimator
 from ganspace_tpu_torch.estimators.utils import gram_svd
 from ganspace_tpu_torch.ops.precision import ieee_f32
 
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
 D, NB, C, N_BLOCKS = 512, 256, 8, 16
 L = max(4 * C, C + 32)
 REL = 1e-4                      # float32 products in another order

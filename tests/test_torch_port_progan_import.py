@@ -24,6 +24,15 @@ from ganspace_tpu_torch.models import proggan as torch_pg
 from test_tf_import import _install_fake_nvlabs_modules, _network_state, _progan_tf_vars
 from test_torch_import import _ZooGNet
 
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
 SIZES = (64, 32, 32, 16)
 
 

@@ -14,6 +14,15 @@ from ganspace_tpu.ops.prroi import prroi_pool2d as jax_prroi
 
 from ganspace_tpu_torch.ops.prroi import prroi_pool2d
 
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
 REL = 1e-5
 
 ROIS = np.array([[0, 1.3, 0.7, 6.2, 5.9],      # interior

@@ -14,6 +14,15 @@ from ganspace_tpu.models import stylegan2 as jax_sg2
 from ganspace_tpu_torch.models import stylegan2 as torch_sg2
 from ganspace_tpu_torch.models.base import InstrumentedModel
 
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
 CHANNELS = ((4, 64), (8, 64), (16, 32), (32, 32))
 TAPS = ("input", "conv1", "to_rgb1", "convs.0.conv", "convs.1", "convs.3", "to_rgbs.2")
 REL = 1e-5

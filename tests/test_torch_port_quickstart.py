@@ -17,6 +17,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 from PIL import Image
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +32,14 @@ from ganspace_tpu_torch.models import dcgan as port_dcgan
 
 from test_torch_port_examples import (  # noqa: F401 (autouse fixtures)
     REL, _assert_same_cache, _few_threads, _host_rng_one_device, _jax_example)
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
 
 
 def _assert_same_outputs(port_dir: Path, jax_dir: Path, same_npz: bool = True):

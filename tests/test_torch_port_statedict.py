@@ -12,6 +12,14 @@ from ganspace_tpu_torch import utils as port_utils
 from ganspace_tpu_torch.utils import statedict as sd
 
 
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _tree():
     return {"a": {"w": np.ones((2, 3)), "b": np.zeros(4)},
             "layers": [np.full(2, 7.0), np.full(2, 8.0)]}

@@ -32,6 +32,15 @@ from ganspace_tpu_torch.estimators.ipca import IPCAEstimator
 from ganspace_tpu_torch.models import stylegan2 as torch_sg2
 from ganspace_tpu_torch.models.base import InstrumentedModel
 
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
 D, NB, ZDIM, C, N_BLOCKS = 96, 256, 32, 5, 12
 REL = 1e-5
 CHANNELS = ((4, 64), (8, 64), (16, 32), (32, 32))

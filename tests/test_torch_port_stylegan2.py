@@ -15,6 +15,15 @@ from ganspace_tpu.models.base import InstrumentedModel as JaxInstrumented
 from ganspace_tpu_torch.models import stylegan2 as torch_sg2
 from ganspace_tpu_torch.models.base import InstrumentedModel
 
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
 CHANNELS = ((4, 64), (8, 64), (16, 64), (32, 32), (64, 16))
 TAPS = ("conv1", "convs.2", "to_rgbs.1")
 

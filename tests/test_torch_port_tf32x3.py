@@ -19,6 +19,15 @@ to the exact product as IEEE float32 is; one pass misses both bars.
 
 import numpy as np
 import pytest
+import torch
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
 
 
 def tf32(a: np.ndarray) -> np.ndarray:

@@ -13,6 +13,7 @@ same weights: the same files, images within one uint8 level (so the same
 top-k samples), segmentation halves equal but at near-tie pixels.
 """
 
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -93,6 +94,37 @@ def test_async_png_roundtrip(tmp_path):
         assert pool.errors() == 0
     for name, img in imgs.items():
         assert np.array_equal(np.asarray(Image.open(tmp_path / name)), img), name
+
+
+def _idat_stream(path) -> bytes:
+    """The concatenated IDAT data of a PNG: its one zlib stream."""
+    data, pos, out = Path(path).read_bytes(), 8, b""
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        if data[pos + 4:pos + 8] == b"IDAT":
+            out += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    return out
+
+
+# raw scanline bytes (h * (3 w + 1)) just over the 8 MiB split threshold,
+# and an uneven multiple of the 4 MiB piece: both deflate in pieces
+@pytest.mark.parametrize("rows", [2730, 4777])
+def test_split_deflate_png_roundtrip(tmp_path, rows):
+    rs = np.random.RandomState(rows)
+    img = (rs.randint(0, 4, (rows, 1024, 3))
+           + np.arange(1024)[None, :, None] // 8).astype(np.uint8)
+    assert rows * (3 * 1024 + 1) > 8 << 20
+    with ImageWriterPool(2) as pool:
+        assert pool.native, "native build expected in this environment"
+        pool.save_png(tmp_path / "big.png", img)
+        pool.wait()
+        assert pool.errors() == 0
+    assert np.array_equal(np.asarray(Image.open(tmp_path / "big.png")), img)
+    # zlib checks the combined Adler-32 of the pieces
+    raw = zlib.decompress(_idat_stream(tmp_path / "big.png"))
+    scanlines = np.concatenate([np.zeros((rows, 1), np.uint8), img.reshape(rows, -1)], 1)
+    assert raw == scanlines.tobytes()
 
 
 def test_grayscale_and_rgba(tmp_path):
