@@ -78,6 +78,7 @@ from ganspace_tpu_torch.parallel.mesh import mesh_desc, pipeline_mesh
 from ganspace_tpu_torch.sampling import (
     SEED_LINREG, SEED_SAMPLING, STREAM_LINREG, STREAM_MAIN, STREAM_W_TAIL,
     block_generator, random_directions, random_directions_device)
+from ganspace_tpu_torch.utils.tracing import annotate, count, format_unit
 
 #: latent stream block size when ``-b`` is not given (the JAX package's W path)
 W_BATCH = 4096
@@ -179,8 +180,10 @@ def acts_stream_block(model, layer: str, batch: int, seed: int, stream: int = ST
         return None
 
     def block(i):
-        lat = lat_fn(block_generator(seed, stream, i, model.device), batch)
-        acts = acts_fn(lat)
+        with annotate("stream.latents"):
+            lat = lat_fn(block_generator(seed, stream, i, model.device), batch)
+        with annotate("model.forward"):
+            acts = acts_fn(lat)
         return (acts, lat.reshape(batch, -1)) if with_latents else acts
     return block
 
@@ -375,7 +378,9 @@ def compute(config, dump_name: Path,
     preview policy for itself, and components fitted on preview-grade
     activations must never reach a cache.  ``mesh``: the mesh to run on
     (every rank calls this), ``config.mesh_shape``'s by default; a run that
-    collapses to one device runs on rank 0 alone."""
+    collapses to one device runs on rank 0 alone.  The run is one ``fit``
+    request of ``utils.tracing``; with ``GANSPACE_PHASE_TRACE=1`` its span
+    table follows the phase trace on stderr, on every rank."""
     dtype = getattr(config, "dtype", None) or "float32"
     if dtype not in _DTYPE_PRECISION:
         raise ValueError(f"--dtype {dtype!r}: expected 'float32' or 'bfloat16'")
@@ -385,8 +390,13 @@ def compute(config, dump_name: Path,
     run_mesh = mesh if mesh is None or config.n >= mesh.size else None
     if mesh is not None and run_mesh is None and not mesh.is_root:
         return {}
-    with ieee_f32(), precision(_DTYPE_PRECISION[dtype]), synth_dtype(None):
-        return _compute(config, dump_name, instrumented_model, run_mesh)
+    with ieee_f32(), precision(_DTYPE_PRECISION[dtype]), synth_dtype(None), \
+            annotate("fit") as request:
+        phases = _compute(config, dump_name, instrumented_model, run_mesh)
+    if os.environ.get("GANSPACE_PHASE_TRACE") == "1" and request.record is not None:
+        prefix = "" if run_mesh is None or run_mesh.is_root else f"rank {run_mesh.rank}: "
+        print(format_unit(request.record, prefix), file=sys.stderr)
+    return phases
 
 
 def _compute(config, dump_name: Path,
@@ -399,9 +409,11 @@ def _compute(config, dump_name: Path,
     clock = [time.perf_counter()]
 
     def stamp(name):
-        """Wall seconds since the last stamp, the device drained first."""
+        """Wall seconds since the last stamp, the device drained first (in a
+        ``fit.drain`` span: the host's lead over the device)."""
         if device.type == "cuda":
-            torch.cuda.synchronize(device)
+            with annotate("fit.drain"):
+                torch.cuda.synchronize(device)
         now = time.perf_counter()
         phases[name] = now - clock[0]
         clock[0] = now
@@ -571,7 +583,8 @@ def _compute_on(config, dump_name, instrumented_model, inst, model, mesh, stamp,
         for mb in starts:
             if hi > lo:
                 z = latent_slice(gi + mb, gi + mb + batch)[lo:hi]
-                model.partial_forward(z, layer_key)
+                with annotate("model.forward"):
+                    model.partial_forward(z, layer_key)
                 chunks.append(inst.retained_features()[layer_key].reshape(hi - lo, -1))
         index = torch.cat([torch.arange(mb + lo, mb + hi) for mb in starts])
         keep = int(torch.sum(index < nb))   # a prefix: the indices ascend
@@ -589,10 +602,12 @@ def _compute_on(config, dump_name, instrumented_model, inst, model, mesh, stamp,
         """Stream every NB block through ``feed(gi, (rows, index))``;
         returns the last assembled block (kept for the stdev baselines)."""
         xb = None
+        count("stream.passes")
         for bi, gi in enumerate(range(0, n_total, nb)):
-            xb = make_block(gi)
-            if not feed(gi, xb):
-                break
+            with annotate("stream.block"):
+                xb = make_block(gi)
+                if not feed(gi, xb):
+                    break
             print(f"\r{action} batches (NB={nb}): {bi + 1}/{n_blocks}",
                   end="", flush=True)
         print()
@@ -622,12 +637,14 @@ def _compute_on(config, dump_name, instrumented_model, inst, model, mesh, stamp,
               + (" (+rand moments)" if rand_dirs is not None else ""), flush=True)
 
         def w_stream(stream, n):
-            return lambda i: lat_fn(block_generator(seed0, stream, i, device),
-                                    n).reshape(n, -1)
+            def block(i):
+                with annotate("stream.latents"):
+                    return lat_fn(block_generator(seed0, stream, i, device), n).reshape(n, -1)
+            return block
         try:
-            for stream, n, count in ((STREAM_MAIN, nb_w, n_stream_blocks),
-                                     (STREAM_W_TAIL, nb, n_tail_blocks)):
-                if not transformer.fit_stream(w_stream(stream, n), count,
+            for stream, n, n_blocks_of in ((STREAM_MAIN, nb_w, n_stream_blocks),
+                                           (STREAM_W_TAIL, nb, n_tail_blocks)):
+                if not transformer.fit_stream(w_stream(stream, n), n_blocks_of,
                                               rand_dirs=rand_dirs):
                     raise RuntimeError("fused latent stream unavailable for this "
                                        "estimator")
@@ -719,8 +736,11 @@ def _compute_on(config, dump_name, instrumented_model, inst, model, mesh, stamp,
     # refine inside fit_stream): the latents are kept, so one more sweep buys
     # a power iteration on the scatter, unless the adaptive policy finds the
     # first-pass sketch resolved (the moments tier never refines).
-    if (not canceled and not (fused or fused_acts or full_batch)
-            and transformer.should_refine() and transformer.begin_refine()):
+    refine = not canceled and not (fused or fused_acts or full_batch)
+    if refine:
+        with annotate("estimator.decide"):
+            refine = transformer.should_refine() and transformer.begin_refine()
+    if refine:
         try:
             run_sweep("Refine pass")
         except KeyboardInterrupt:

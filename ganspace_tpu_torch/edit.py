@@ -22,6 +22,8 @@ from typing import List
 import numpy as np
 import torch
 
+from ganspace_tpu_torch.utils.tracing import annotate
+
 
 def _normalize(v):
     return v / torch.sqrt(torch.sum(v ** 2, dim=-1, keepdim=True) + 1e-8)
@@ -32,22 +34,26 @@ def create_strip(inst, mode, layer, latents, x_comp, z_comp, act_stdev, lat_stde
                  max_batch=None):
     """Apply the edit to the given latents; a strip of images per latent.
     ``as_uint8=True`` quantizes the frames on the device before the copy to
-    the host; ``max_batch`` caps the frames per forward."""
-    return _create_strip_impl(inst, mode, layer, latents, x_comp, z_comp,
-                              act_stdev, lat_stdev, None, None, sigma,
-                              layer_start, layer_end, num_frames, center=False,
-                              as_uint8=as_uint8, max_batch=max_batch)
+    the host; ``max_batch`` caps the frames per forward.  One ``edit.strip``
+    span (a request of ``utils.tracing`` when called alone)."""
+    with annotate("edit.strip"):
+        return _create_strip_impl(inst, mode, layer, latents, x_comp, z_comp,
+                                  act_stdev, lat_stdev, None, None, sigma,
+                                  layer_start, layer_end, num_frames, center=False,
+                                  as_uint8=as_uint8, max_batch=max_batch)
 
 
 def create_strip_centered(inst, mode, layer, latents, x_comp, z_comp, act_stdev,
                           lat_stdev, act_mean, lat_mean, sigma, layer_start,
                           layer_end, num_frames=5, as_uint8=False,
                           max_batch=None):
-    """Strip where the sample is centered along the component first."""
-    return _create_strip_impl(inst, mode, layer, latents, x_comp, z_comp,
-                              act_stdev, lat_stdev, act_mean, lat_mean, sigma,
-                              layer_start, layer_end, num_frames, center=True,
-                              as_uint8=as_uint8, max_batch=max_batch)
+    """Strip where the sample is centered along the component first (an
+    ``edit.strip`` span, as :func:`create_strip`)."""
+    with annotate("edit.strip"):
+        return _create_strip_impl(inst, mode, layer, latents, x_comp, z_comp,
+                                  act_stdev, lat_stdev, act_mean, lat_mean, sigma,
+                                  layer_start, layer_end, num_frames, center=True,
+                                  as_uint8=as_uint8, max_batch=max_batch)
 
 
 @torch.no_grad()

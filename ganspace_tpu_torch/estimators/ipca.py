@@ -41,6 +41,7 @@ import torch
 
 from ganspace_tpu_torch.estimators.utils import gram_svd, svd_flip_vt, topk_eigh_desc
 from ganspace_tpu_torch.ops.moments import centered_gram
+from ganspace_tpu_torch.utils.tracing import annotate, count
 
 _NOT_FINITE = ("non-finite moment statistics: the activation stream contains "
                "NaN/Inf, so the factorization is refused")
@@ -595,15 +596,16 @@ class IPCAEstimator:
         if not (self._state is None and self._moments is None
                 and self._nystrom is None):
             return
-        if self._use_moments(d):
-            self._moments = MomentsState(
-                0.0, torch.zeros((d,), dtype=torch.float32, device=device),
-                torch.zeros((d, d), dtype=torch.float32, device=device))
-        elif self._use_nystrom(d):
-            l = min(self.oversample, d)
-            self._omega = torch.as_tensor(sketch_test_matrix(d, l),
-                                          dtype=torch.float32).to(device)
-            self._nystrom = self._empty_sketch(d, l)
+        with annotate("estimator.init"):
+            if self._use_moments(d):
+                self._moments = MomentsState(
+                    0.0, torch.zeros((d,), dtype=torch.float32, device=device),
+                    torch.zeros((d, d), dtype=torch.float32, device=device))
+            elif self._use_nystrom(d):
+                l = min(self.oversample, d)
+                self._omega = torch.as_tensor(sketch_test_matrix(d, l),
+                                              dtype=torch.float32).to(device)
+                self._nystrom = self._empty_sketch(d, l)
 
     def fit_partial(self, x) -> bool:
         """One block; on a mesh, this rank's rows of it (possibly none)."""
@@ -616,27 +618,28 @@ class IPCAEstimator:
         elif n < self.n_components:
             print(f"\nIPCA error: n_samples={n} < n_components={self.n_components}")
             return False
-        if self._device is not None:
-            x = x.to(self._device)
-        self._maybe_init_tier(d, x.device)
-        if self._moments is not None:
-            self._moments = moments_update(self._moments, x)
-        elif self._nystrom is not None:
-            self._nystrom = nystrom_update(self._nystrom, x, self._omega)
-        else:
-            first = self._state is None
-            if first:
-                zeros_d = torch.zeros((d,), dtype=torch.float32, device=x.device)
-                zeros_c = torch.zeros((self.n_components,), dtype=torch.float32,
-                                      device=x.device)
-                self._state = IPCAState(
-                    zeros_d, zeros_d,
-                    torch.zeros((self.n_components, d), dtype=torch.float32,
-                                device=x.device),
-                    zeros_c, zeros_c, zeros_c)
-            self._state = partial_fit_math(
-                self._state, x, float(self.n_samples_seen_),
-                n_components=self.n_components, first=first)
+        with annotate("estimator.update"):
+            if self._device is not None:
+                x = x.to(self._device)
+            self._maybe_init_tier(d, x.device)
+            if self._moments is not None:
+                self._moments = moments_update(self._moments, x)
+            elif self._nystrom is not None:
+                self._nystrom = nystrom_update(self._nystrom, x, self._omega)
+            else:
+                first = self._state is None
+                if first:
+                    zeros_d = torch.zeros((d,), dtype=torch.float32, device=x.device)
+                    zeros_c = torch.zeros((self.n_components,), dtype=torch.float32,
+                                          device=x.device)
+                    self._state = IPCAState(
+                        zeros_d, zeros_d,
+                        torch.zeros((self.n_components, d), dtype=torch.float32,
+                                    device=x.device),
+                        zeros_c, zeros_c, zeros_c)
+                self._state = partial_fit_math(
+                    self._state, x, float(self.n_samples_seen_),
+                    n_components=self.n_components, first=first)
         self.n_samples_seen_ += n
         return True
 
@@ -730,26 +733,29 @@ class IPCAEstimator:
             return torch.as_tensor(a, dtype=torch.float32).to(self._device)
 
         def run_pass(first, fn=block_fn):
+            count("stream.passes")
             for i in blocks:
-                out = fn(i) if first is None else first
-                first = None
-                x, z = out if with_reg else (out, None)
-                x = on_device(x)
-                st = (moments_update(self._moments, x) if self._moments is not None
-                      else nystrom_update(self._nystrom, x, self._omega))
-                rand = (rand_update(self._rand, x, rand_dirs) if rand_dirs is not None
-                        else self._rand)
-                # a block lands whole: an interrupt between blocks leaves the
-                # tier, the accumulators and the count consistent.  The
-                # cross-moments update in place, last, right before the
-                # commit; ``begin_refine`` gives the refine pass fresh sums,
-                # so ``abort_refine``'s snapshot is never written.
-                reg = reg_update_(self._reg, x, on_device(z)) if with_reg else self._reg
-                if self._moments is not None:
-                    self._moments, self._reg, self._rand = st, reg, rand
-                else:
-                    self._nystrom, self._reg, self._rand = st, reg, rand
-                self.n_samples_seen_ += x.shape[0]
+                with annotate("stream.block"):
+                    out = fn(i) if first is None else first
+                    first = None
+                    x, z = out if with_reg else (out, None)
+                    with annotate("estimator.update"):
+                        x = on_device(x)
+                        st = (moments_update(self._moments, x) if self._moments is not None
+                              else nystrom_update(self._nystrom, x, self._omega))
+                        rand = (rand_update(self._rand, x, rand_dirs) if rand_dirs is not None
+                                else self._rand)
+                        # a block lands whole: an interrupt between blocks leaves the
+                        # tier, the accumulators and the count consistent.  The
+                        # cross-moments update in place, last, right before the
+                        # commit; ``begin_refine`` gives the refine pass fresh sums,
+                        # so ``abort_refine``'s snapshot is never written.
+                        reg = reg_update_(self._reg, x, on_device(z)) if with_reg else self._reg
+                    if self._moments is not None:
+                        self._moments, self._reg, self._rand = st, reg, rand
+                    else:
+                        self._nystrom, self._reg, self._rand = st, reg, rand
+                    self.n_samples_seen_ += x.shape[0]
 
         run_pass(first)
         if self._nystrom is None:
@@ -757,19 +763,23 @@ class IPCAEstimator:
         if refine_stream is not None:
             # The full-precision refine pass is load-bearing: the adaptive
             # skip is bypassed, its decision recorded for the caller.
-            stats = self.sketch_convergence()
-            self.refine_stats = stats
-            self.policy_would_skip = bool(
-                stats is not None
-                and stats["sketch_tail_frac"] <= self.REFINE_TAIL_FRAC
-                and stats["min_rel_gap_topc"] >= self.REFINE_MIN_GAP)
-            if self.begin_refine(force=True):
+            with annotate("estimator.decide"):
+                stats = self.sketch_convergence()
+                self.refine_stats = stats
+                self.policy_would_skip = bool(
+                    stats is not None
+                    and stats["sketch_tail_frac"] <= self.REFINE_TAIL_FRAC
+                    and stats["min_rel_gap_topc"] >= self.REFINE_MIN_GAP)
+                armed = self.begin_refine(force=True)
+            if armed:
                 self.refine_skipped = False
                 self._mark_streamed()
                 run_pass(None, refine_stream)
                 self._pre_refine = None   # completed: no abort may roll it back
             return
-        if self.should_refine() and self.begin_refine():
+        with annotate("estimator.decide"):
+            armed = self.should_refine() and self.begin_refine()
+        if armed:
             self._mark_streamed()
             run_pass(None)
             self._pre_refine = None   # completed: no abort may roll it back

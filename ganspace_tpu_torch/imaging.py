@@ -11,6 +11,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ganspace_tpu_torch.utils.tracing import annotate
+
 _VALID = set("-_" + string.ascii_letters + string.digits)
 
 
@@ -43,9 +45,11 @@ def to_uint8(img01: np.ndarray) -> np.ndarray:
 def uint8_nhwc(img: torch.Tensor) -> np.ndarray:
     """[B,3,H,W] float [0,1] -> host [B,H,W,3] uint8, quantized on the
     tensor's device so only a quarter of the bytes cross to the host (the
-    same clip-and-round rule as :func:`to_uint8`)."""
-    x = torch.clamp(img.permute(0, 2, 3, 1), 0.0, 1.0)
-    return (x * 255.0 + 0.5).to(torch.uint8).cpu().numpy()
+    same clip-and-round rule as :func:`to_uint8`).  The copy is pageable
+    and blocking, so its span waits for the device to finish the image."""
+    with annotate("imaging.readback"):
+        x = torch.clamp(img.permute(0, 2, 3, 1), 0.0, 1.0)
+        return (x * 255.0 + 0.5).to(torch.uint8).cpu().numpy()
 
 
 def frame_u8(img: torch.Tensor, max_hw: int | None = None) -> np.ndarray:

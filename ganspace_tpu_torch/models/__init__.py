@@ -20,6 +20,7 @@ from ganspace_tpu_torch.models.dcgan import GANZooModel
 from ganspace_tpu_torch.models.proggan import ProGAN
 from ganspace_tpu_torch.models.stylegan import StyleGAN
 from ganspace_tpu_torch.models.stylegan2 import StyleGAN2
+from ganspace_tpu_torch.utils.tracing import annotate
 
 #: user-registered model factories: name -> callable(output_class, device=, **kwargs)
 _CUSTOM_MODELS = {}
@@ -98,30 +99,32 @@ def annotate_model_shapes(inst: InstrumentedModel, layers) -> InstrumentedModel:
 
 def get_instrumented_model(name, output_class=None, layers=None, device="cuda",
                            **kwargs) -> InstrumentedModel:
-    """Build, wrap, validate and shape-annotate (reference ``wrappers.py:693-735``)."""
+    """Build, wrap, validate and shape-annotate (reference
+    ``wrappers.py:693-735``), in a ``model.build`` span."""
     if isinstance(name, Config):
         cfg = name
         kwargs.setdefault("use_w", cfg.use_w)
         return get_instrumented_model(cfg.model, cfg.output_class, cfg.layer,
                                       cfg.device, **kwargs)
 
-    use_w = kwargs.pop("use_w", False)
-    model = get_model(name, output_class, device, **kwargs)
-    if kwargs.get("inst"):
-        kwargs["inst"].close()
-    if not isinstance(layers, (list, tuple)):
-        layers = [layers]
-    for layer_name in layers:
-        model.resolve_tap(layer_name)
+    with annotate("model.build"):
+        use_w = kwargs.pop("use_w", False)
+        model = get_model(name, output_class, device, **kwargs)
+        if kwargs.get("inst"):
+            kwargs["inst"].close()
+        if not isinstance(layers, (list, tuple)):
+            layers = [layers]
+        for layer_name in layers:
+            model.resolve_tap(layer_name)
 
-    # StyleGANs annotate in Z (reference wrappers.py:713-715).
-    if hasattr(model, "use_z"):
-        model.use_z()
-    inst = InstrumentedModel(model)
-    annotate_model_shapes(inst, layers)
-    if use_w and hasattr(model, "use_w"):
-        model.use_w()
-    return inst
+        # StyleGANs annotate in Z (reference wrappers.py:713-715).
+        if hasattr(model, "use_z"):
+            model.use_z()
+        inst = InstrumentedModel(model)
+        annotate_model_shapes(inst, layers)
+        if use_w and hasattr(model, "use_w"):
+            model.use_w()
+        return inst
 
 
 __all__ = [

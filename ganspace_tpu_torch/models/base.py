@@ -29,6 +29,7 @@ from torch import nn
 from ganspace_tpu_torch.imaging import uint8_nhwc
 from ganspace_tpu_torch.sampling import (
     STREAM_MAIN, SeedStream, block_generator, device_gaussian, gaussian_latents)
+from ganspace_tpu_torch.utils.tracing import annotate
 
 
 def _match_rank(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -200,7 +201,9 @@ class BaseGenerator(nn.Module, ABC):
             z = self.sample_latent(n_samples, seed=seed)
         mesh = self._mesh
         if mesh is None:
-            return self._images_np(self.forward(z), uint8).squeeze()
+            with annotate("model.forward"):
+                img = self.forward(z)
+            return self._images_np(img, uint8).squeeze()
         first = z[0] if isinstance(z, (list, tuple)) else z
         n = first.shape[0]
         lo, hi = mesh.row_range(n)
@@ -211,7 +214,9 @@ class BaseGenerator(nn.Module, ABC):
             if inst is not None:
                 inst._rows = (lo, hi, n)
             try:
-                piece = self._images_np(self.forward(rows), uint8)
+                with annotate("model.forward"):
+                    img = self.forward(rows)
+                piece = self._images_np(img, uint8)
             finally:
                 if inst is not None:
                     inst._rows = None

@@ -72,6 +72,7 @@ from ganspace_tpu_torch.ops.precision import (
     StorageCopies, bf16_operands, bf16_values, get_precision, ieee_f32, round_bf16,
     synth_dtype_name)
 from ganspace_tpu_torch.sampling import device_truncated, truncated_latents
+from ganspace_tpu_torch.utils.tracing import annotate
 
 # (up-sample?, in-width-mult, out-width-mult), reference biggan config.py:21-31
 LAYERS_128 = ((False, 16, 16), (True, 16, 16), (False, 16, 16), (True, 16, 8),
@@ -562,10 +563,12 @@ class BigGAN(BaseGenerator):
         return self.cfg.n_latents
 
     def sample_latent(self, n_samples=1, truncation=None, seed=None):
-        if seed is None:
-            seed = self.host_rng.next_seed()
-        z = truncated_latents(n_samples, self.cfg.z_dim, truncation or self.truncation, seed)
-        return torch.from_numpy(z).to(self.device)
+        with annotate("model.sample_latent"):
+            if seed is None:
+                seed = self.host_rng.next_seed()
+            z = truncated_latents(n_samples, self.cfg.z_dim, truncation or self.truncation,
+                                  seed)
+            return torch.from_numpy(z).to(self.device)
 
     @torch.no_grad()
     def sample_latents_prefetched(self, n_batches: int, batch_size: int, keep_on=None):

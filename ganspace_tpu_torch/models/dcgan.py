@@ -46,6 +46,7 @@ from ganspace_tpu_torch.ops import precision
 from ganspace_tpu_torch.ops.modconv import LayerWeights, upsample_conv
 from ganspace_tpu_torch.ops.precision import ieee_f32
 from ganspace_tpu_torch.sampling import gaussian_latents
+from ganspace_tpu_torch.utils.tracing import annotate
 
 BN_EPS = 1e-5
 
@@ -170,10 +171,11 @@ class GANZooModel(BaseGenerator):
         return tuple(f"deconv{i}" for i in range(self.cfg.n_up)) + ("output",)
 
     def sample_latent(self, n_samples=1, seed=0, truncation=None):
-        if seed is None:
-            seed = self.host_rng.next_seed()
-        z = gaussian_latents(n_samples, self.cfg.z_total, seed)
-        return torch.from_numpy(z).to(self.device)
+        with annotate("model.sample_latent"):
+            if seed is None:
+                seed = self.host_rng.next_seed()
+            z = gaussian_latents(n_samples, self.cfg.z_total, seed)
+            return torch.from_numpy(z).to(self.device)
 
     def _gaussian_latent_dim(self):
         return self.cfg.z_total

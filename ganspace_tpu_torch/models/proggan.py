@@ -67,6 +67,7 @@ from ganspace_tpu_torch.ops.modconv import (
 from ganspace_tpu_torch.ops.precision import (
     StorageCopies, bf16_operands, ieee_f32, synth_dtype_name)
 from ganspace_tpu_torch.sampling import gaussian_latents
+from ganspace_tpu_torch.utils.tracing import annotate
 
 VALID_CLASSES = ["bedroom", "churchoutdoor", "conferenceroom", "diningroom",
                  "kitchen", "livingroom", "restaurant"]
@@ -258,11 +259,12 @@ class ProGAN(BaseGenerator):
         return tuple(name for name, *_ in self.cfg.layer_plan())
 
     def sample_latent(self, n_samples=1, seed=None, truncation=None):
-        if seed is None:
-            seed = self.host_rng.next_seed()
-        # zdataset.z_sample_for_model semantics (netdissect/zdataset.py:26-40)
-        z = gaussian_latents(n_samples, self.cfg.sizes[0], seed)
-        return torch.from_numpy(z).to(self.device)
+        with annotate("model.sample_latent"):
+            if seed is None:
+                seed = self.host_rng.next_seed()
+            # zdataset.z_sample_for_model semantics (netdissect/zdataset.py:26-40)
+            z = gaussian_latents(n_samples, self.cfg.sizes[0], seed)
+            return torch.from_numpy(z).to(self.device)
 
     def _gaussian_latent_dim(self):
         return self.cfg.sizes[0]

@@ -55,6 +55,7 @@ from ganspace_tpu_torch.ops.linear import equal_linear, pixel_norm
 from ganspace_tpu_torch.ops.modconv import LayerWeights, conv3x3, upsample_conv
 from ganspace_tpu_torch.ops.precision import StorageCopies, ieee_f32, synth_dtype_name
 from ganspace_tpu_torch.sampling import gaussian_latents
+from ganspace_tpu_torch.utils.tracing import annotate
 
 # Reference wrapper class->resolution table (wrappers.py:276-291).
 CONFIGS = {
@@ -436,10 +437,11 @@ class StyleGAN(BaseGenerator):
 
     def sample_latent(self, n_samples=1, seed=None, truncation=None):
         # ``truncation`` is BigGAN's; StyleGAN truncates in synthesis
-        if seed is None:
-            seed = self.host_rng.next_seed()
-        z = torch.from_numpy(gaussian_latents(n_samples, self.cfg.w_dim, seed))
-        return self._latents_from_gaussian(z.to(self.device))
+        with annotate("model.sample_latent"):
+            if seed is None:
+                seed = self.host_rng.next_seed()
+            z = torch.from_numpy(gaussian_latents(n_samples, self.cfg.w_dim, seed))
+            return self._latents_from_gaussian(z.to(self.device))
 
     def _gaussian_latent_dim(self):
         return self.cfg.w_dim

@@ -44,6 +44,7 @@ from ganspace_tpu_torch.ops.modconv import LayerWeights, modulated_conv2d
 from ganspace_tpu_torch.ops.precision import StorageCopies, ieee_f32, synth_dtype_name
 from ganspace_tpu_torch.ops.upfirdn import make_fir_kernel, upsample2x
 from ganspace_tpu_torch.sampling import gaussian_latents
+from ganspace_tpu_torch.utils.tracing import annotate
 
 # Reference wrapper class->resolution table (wrappers.py:106-117).
 CONFIGS = {
@@ -340,10 +341,11 @@ class StyleGAN2(BaseGenerator):
 
     def sample_latent(self, n_samples=1, seed=None, truncation=None):
         # ``truncation`` is BigGAN's; StyleGAN truncates in synthesis
-        if seed is None:
-            seed = self.host_rng.next_seed()
-        z = torch.from_numpy(gaussian_latents(n_samples, self.cfg.w_dim, seed))
-        return self._latents_from_gaussian(z.to(self.device))
+        with annotate("model.sample_latent"):
+            if seed is None:
+                seed = self.host_rng.next_seed()
+            z = torch.from_numpy(gaussian_latents(n_samples, self.cfg.w_dim, seed))
+            return self._latents_from_gaussian(z.to(self.device))
 
     def _gaussian_latent_dim(self):
         return self.cfg.w_dim
@@ -361,13 +363,15 @@ class StyleGAN2(BaseGenerator):
         """The staged walk of ``wrappers.py:194-259`` for one call; returns
         the raw [-1, 1] image in float32, or None when ``ts`` stopped at a
         tap.  ``act_dtype`` (``'bfloat16'`` or None): the activation
-        storage, from the latent on."""
+        storage, from the latent on.  Each layer runs in a ``synth.<layer>``
+        span (the mapping in ``synth.mapping``)."""
         cfg = self.cfg
         n_latent = cfg.n_latent
         if self.w_primary:
             ws = list(styles)
         else:
-            ws = [ts.tap("style", self.style(s)) for s in styles]
+            with annotate("synth.mapping"):
+                ws = [ts.tap("style", self.style(s)) for s in styles]
         if self.truncation < 1.0:
             ws = [self.latent_avg + self.truncation * (w - self.latent_avg) for w in ws]
 
@@ -392,23 +396,27 @@ class StyleGAN2(BaseGenerator):
         out = ts.tap("input", const.expand(batch, -1, -1, -1))
         if ts.stopped:
             return None
-        out = self.conv1("conv1", out, latent[:, 0], self.noise_0, blur_k, ts)
+        with annotate("synth.conv1"):
+            out = self.conv1("conv1", out, latent[:, 0], self.noise_0, blur_k, ts)
         if ts.stopped:
             return None
-        skip = self.to_rgb1("to_rgb1", out, latent[:, 1], None, blur_k, ts)
+        with annotate("synth.to_rgb1"):
+            skip = self.to_rgb1("to_rgb1", out, latent[:, 1], None, blur_k, ts)
         if ts.stopped:
             return None
 
         i = 1
         for pair in range(cfg.log_size - 2):
             for j in range(2):
-                out = self.convs[i - 1 + j](
-                    f"convs.{i - 1 + j}", out, latent[:, i + j],
-                    getattr(self, f"noise_{i + j}"), blur_k, ts)
+                name = f"convs.{i - 1 + j}"
+                with annotate("synth." + name):
+                    out = self.convs[i - 1 + j](name, out, latent[:, i + j],
+                                                getattr(self, f"noise_{i + j}"), blur_k, ts)
                 if ts.stopped:
                     return None
-            skip = self.to_rgbs[pair](f"to_rgbs.{pair}", out, latent[:, i + 2],
-                                      skip, blur_k, ts)
+            with annotate(f"synth.to_rgbs.{pair}"):
+                skip = self.to_rgbs[pair](f"to_rgbs.{pair}", out, latent[:, i + 2],
+                                          skip, blur_k, ts)
             if ts.stopped:
                 return None
             i += 2

@@ -40,6 +40,7 @@ caller keeps the single-device path.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 import pickle
@@ -52,12 +53,24 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from ganspace_tpu_torch.utils.tracing import annotate
+
 #: the mesh of the process group this process is a rank of (set by
 #: :func:`launch` and by the ``torchrun`` path of :func:`init_from_env`)
 _CURRENT: Optional["Mesh"] = None
 
 #: collective timeout of the process groups made here
 TIMEOUT = timedelta(minutes=30)
+
+
+def _collective(fn):
+    """A collective of :class:`Mesh` in a ``mesh.collective`` span: on each
+    rank, the time it spent in (and waiting at) the merges."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with annotate("mesh.collective"):
+            return fn(*args, **kwargs)
+    return wrapped
 
 
 def parse_shape(shape: Optional[str]) -> Optional[tuple]:
@@ -172,6 +185,7 @@ class Mesh:
         """Gloo runs a collective of CUDA tensors through host memory."""
         return self.backend == "gloo" and t.device.type == "cuda"
 
+    @_collective
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum over ranks (a new tensor on ``t``'s device)."""
         if self._staged(t):
@@ -182,6 +196,7 @@ class Mesh:
         dist.all_reduce(t)
         return t
 
+    @_collective
     def sum_scalar(self, v: float) -> float:
         """A Python number summed over ranks, in float64."""
         t = torch.tensor([float(v)], dtype=torch.float64,
@@ -189,6 +204,7 @@ class Mesh:
         dist.all_reduce(t)
         return float(t.item())
 
+    @_collective
     def reduce_scatter(self, t: torch.Tensor, part: Optional[slice]) -> torch.Tensor:
         """The sum over ranks of ``t`` [D, ...], of which this rank keeps
         rows ``part`` (all of them when ``part`` is None)."""
@@ -203,6 +219,7 @@ class Mesh:
         # gloo has no reduce-scatter: reduce all, keep the slice
         return self.all_reduce(t)[part].contiguous()
 
+    @_collective
     def reduce_root(self, t: torch.Tensor) -> Optional[torch.Tensor]:
         """The sum over ranks on rank 0 (None elsewhere): rows that the
         ranks filled apart, gathered."""
@@ -211,6 +228,7 @@ class Mesh:
         dist.reduce(h, 0)
         return h.to(t.device) if self.is_root else None
 
+    @_collective
     def all_gather_rows(self, t: torch.Tensor) -> torch.Tensor:
         """The ranks' equal-shaped ``t`` [k, ...] stacked in rank order
         along dim 0 (a feature-sharded operand made whole)."""
@@ -225,11 +243,13 @@ class Mesh:
         dist.all_gather_into_tensor(out, t)
         return out
 
+    @_collective
     def all_gather_object(self, obj) -> list:
         out = [None] * self.size
         dist.all_gather_object(out, obj)
         return out
 
+    @_collective
     def broadcast(self, t: torch.Tensor) -> torch.Tensor:
         """Rank 0's ``t`` on every rank (shape and dtype known everywhere)."""
         t = t.contiguous()
@@ -240,6 +260,7 @@ class Mesh:
         dist.broadcast(t, 0)
         return t
 
+    @_collective
     def decide(self, value):
         """Rank 0's ``value`` (any picklable object) on every rank: the one
         place a decision is made, so that no two ranks diverge on a tie."""
@@ -247,6 +268,7 @@ class Mesh:
         dist.broadcast_object_list(box, src=0)
         return box[0]
 
+    @_collective
     def chan_merge(self, count: float, mean: torch.Tensor, m2: torch.Tensor):
         """Merge the ranks' ``(count, mean [D], M2)`` (M2 [D] of variances or
         [D, D] of a scatter) by the pairwise Chan update in rank order into
@@ -275,6 +297,7 @@ class Mesh:
             summed = summed + corr
         return n, mu, summed
 
+    @_collective
     def barrier(self) -> None:
         if self.backend == "nccl":
             dist.barrier(device_ids=[self.device.index])

@@ -8,7 +8,9 @@ repetition's stamps.  With ``GANSPACE_PHASE_TRACE=1``, which the tools set,
 ``decomposition._compute`` prints its phase trace on stderr.  When
 ``TRACE_DIR`` is set, the last repetition runs under
 ``tracing.trace(TRACE_DIR)`` and the tool prints the device's busy share of
-it and the host ops that take the most self CPU time.
+it (the union of its kernels' and copies' intervals), its longest idle
+stretches by the program span (``utils.tracing.annotate``) that launched the
+work ending each, and the host ops that take the most self CPU time.
 """
 
 from __future__ import annotations
@@ -19,9 +21,12 @@ import os
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 #: host ops printed from a traced repetition, by self CPU time
 TOP_HOST_OPS = 12
+#: idle chains printed from a traced repetition, by idle time
+TOP_IDLE = 10
 
 
 class Stamps:
@@ -72,6 +77,10 @@ def patched(cls, name: str, make):
 #: trace-event categories: the device's work, and the host's spans
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "cuda_runtime", "cuda_driver", "user_annotation")
+#: the host calls that launch device work (their ``args.correlation`` is
+#: the device operation's)
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+NO_SPAN = "(no program span)"
 
 
 def host_self_times(events) -> dict:
@@ -94,17 +103,85 @@ def host_self_times(events) -> dict:
     return out
 
 
+def _correlation(e) -> Optional[int]:
+    return e.get("args", {}).get("correlation")
+
+
+def device_idle(events) -> tuple:
+    """(busy microseconds, idle chains) of a chrome trace's device work.
+
+    Busy is the union of the kernel and copy intervals, so overlapping work
+    counts once.  Each idle stretch between two busy ones goes to the chain
+    "outermost > innermost" of the program spans (``user_annotation``
+    events) open on the host thread that launched the operation ending it,
+    at the launch (the runtime call with the operation's correlation id);
+    :data:`NO_SPAN` when none is open or the launch is not in the trace.
+    The chains are ``[chain, idle microseconds, stretches]``, longest first."""
+    device = sorted(((e["ts"], e["ts"] + e["dur"], _correlation(e))
+                     for e in events if e.get("cat") in DEVICE_CATS and "dur" in e),
+                    key=lambda d: d[:2])
+    launch = {_correlation(e): (e["pid"], e["tid"], e["ts"]) for e in events
+              if e.get("cat") in LAUNCH_CATS and _correlation(e) is not None}
+    spans = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and "dur" in e:
+            spans.setdefault((e["pid"], e["tid"]), []).append(
+                (e["ts"], e["ts"] + e["dur"], e["name"]))
+    for v in spans.values():
+        v.sort(key=lambda s: (s[0], -s[1]))
+
+    busy, ends = [], []          # merged intervals; the operation starting each
+    for a, b, corr in device:
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+            ends.append(corr)
+
+    # the chain at each launch, by one sweep of each thread's spans
+    at = {}
+    for corr in ends[1:]:
+        hit = launch.get(corr)
+        if hit is not None:
+            at.setdefault(hit[:2], []).append(hit[2])
+    chain_at = {}
+    for thread, times in at.items():
+        stack, j, ss = [], 0, spans.get(thread, [])
+        for t in sorted(times):
+            while j < len(ss) and ss[j][0] <= t:
+                while stack and stack[-1][1] < ss[j][0]:
+                    stack.pop()
+                stack.append(ss[j])
+                j += 1
+            live = [sp[2] for sp in stack if sp[1] >= t]
+            chain_at[thread + (t,)] = (NO_SPAN if not live else live[0] if len(live) == 1
+                                       else f"{live[0]} > {live[-1]}")
+
+    idle = {}
+    for (_, b0), (a1, _), corr in zip(busy, busy[1:], ends[1:]):
+        hit = launch.get(corr)
+        row = idle.setdefault(NO_SPAN if hit is None else chain_at[hit], [0.0, 0])
+        row[0] += a1 - b0
+        row[1] += 1
+    chains = sorted(([k, v[0], v[1]] for k, v in idle.items()), key=lambda r: -r[1])
+    return sum(b - a for a, b in busy), chains
+
+
 def print_trace_summary(path: Path, wall_s: float) -> None:
-    """From a trace file: the device's busy share of ``wall_s`` (its
-    kernels' and copies' summed time) and the host ops with the most self
-    time."""
+    """From a trace file: the device's busy share of ``wall_s`` (the union
+    of its kernels' and copies' intervals), its idle stretches by program
+    span, and the host ops with the most self time."""
     events = json.loads(Path(path).read_text())["traceEvents"]
-    device = [e for e in events if e.get("cat") in DEVICE_CATS]
+    n_device = sum(e.get("cat") in DEVICE_CATS for e in events)
     wall_ms = wall_s * 1e3
-    if device:
-        busy_ms = sum(e["dur"] for e in device) / 1e3
+    if n_device:
+        busy_us, chains = device_idle(events)
+        busy_ms = busy_us / 1e3
         print(f"traced rep: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-              f"({busy_ms / wall_ms:.1%}), {len(device)} kernels and copies")
+              f"({busy_ms / wall_ms:.1%}), {n_device} kernels and copies")
+        print(f"top {TOP_IDLE} device idle stretches by program span:")
+        for name, us, n in chains[:TOP_IDLE]:
+            print(f"  {us / 1e3:9.1f} ms {us / 1e3 / wall_ms:6.1%}  x{n:<6d} {name[:80]}")
     else:
         print(f"traced rep: wall {wall_ms:.1f} ms, device busy: not measured "
               f"(no CUDA activity in the trace)")

@@ -1,5 +1,5 @@
-"""Host utilities of the port: ``video``, ``tracing`` (``torch.profiler``
-traces and phase timers), and copies of the JAX package's host modules
+"""Host utilities of the port: ``video``, ``tracing`` (the program's spans,
+counters and request records, and ``torch.profiler`` traces), and copies of the JAX package's host modules
 ``jobs``, ``progress``, ``statedict`` and ``workerpool``."""
 
 from ganspace_tpu_torch.utils.jobs import (

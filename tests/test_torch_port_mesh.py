@@ -160,6 +160,24 @@ def test_sketch_tier_meshed_matches_single(ranks, single, shape):
     assert np.abs(got["act_mean"] - ref["act_mean"]).max() < SKETCH_TOL
 
 
+def test_each_rank_records_and_prints_its_fit(ranks):
+    """The sketch-tier fit is a ``fit`` request on each rank, with the
+    rank's share of the blocks and its wait at the merges; the phase trace
+    prints each rank's table, the other ranks' after their rank."""
+    reqs = [r["tap_request"] for r in ranks["2"]]
+    blocks = [r["spans"]["stream.block"][0] for r in reqs]
+    passes = [r["counters"]["stream.passes"] for r in reqs]
+    assert passes[0] == passes[1] == 2                  # GANSPACE_IPCA_REFINE=always
+    assert sum(blocks) == 2 * 2048 // 256 and blocks[0] == blocks[1]
+    assert all(r["spans"]["mesh.collective"][0] > 0 for r in reqs)
+    root, other = (r["tap_trace"] for r in ranks["2"])
+    assert "post-fit phase trace:" in root and "post-fit phase trace:" not in other
+    assert f"request fit #{reqs[0]['id']}: " in root
+    table = [line for line in other.splitlines() if line.startswith("rank 1: ")]
+    assert table[0].startswith(f"rank 1: request fit #{reqs[1]['id']}: ")
+    assert any(line.split()[2] == "mesh.collective" for line in table[2:])
+
+
 def test_rendering_meshed_matches_single(ranks, single):
     got, ref = ranks["2"][0]["render"], single["render"]
     for key in ("z", "w_plus", "edited"):

@@ -5,8 +5,9 @@ imports this module (torch and the port, never JAX) and returns a dict of
 numpy arrays.  The parent runs the same calls on one process and holds the
 two against each other."""
 
+import io
 import os
-from contextlib import contextmanager
+from contextlib import contextmanager, redirect_stderr
 
 import numpy as np
 import torch
@@ -18,6 +19,7 @@ from ganspace_tpu_torch.models import register_model
 from ganspace_tpu_torch.models import stylegan2 as sg2
 from ganspace_tpu_torch.models.base import InstrumentedModel
 from ganspace_tpu_torch.parallel import mesh as meshlib
+from ganspace_tpu_torch.utils import tracing
 
 CHANNELS = ((4, 64), (8, 64), (16, 32), (32, 32))
 #: the sketch-tier tap: 64 channels at 8 px, D = 4096, through the sketch
@@ -98,8 +100,12 @@ def data_axis(mesh, outdir: str) -> dict:
     RNG streams, the sketch tier at a conv tap, the render and the CLI."""
     out = {"helpers": helpers(mesh),
            "w_host": fit(mesh, f"{outdir}/w_host", W_CFG, GANSPACE_DEVICE_RNG="0"),
-           "w_device": fit(mesh, f"{outdir}/w_device", W_CFG, GANSPACE_DEVICE_RNG="1"),
-           "tap": fit(mesh, f"{outdir}/tap", TAP_CFG, **TAP_ENV)}
+           "w_device": fit(mesh, f"{outdir}/w_device", W_CFG, GANSPACE_DEVICE_RNG="1")}
+    err = io.StringIO()
+    with redirect_stderr(err):
+        out["tap"] = fit(mesh, f"{outdir}/tap", TAP_CFG, GANSPACE_PHASE_TRACE="1", **TAP_ENV)
+    # the rank's phase trace and its record of the fit
+    out["tap_trace"], out["tap_request"] = err.getvalue(), tracing.units("fit")[-1]
     model, z, zl, offset = render_inputs()
     model.place_on_mesh(mesh)
     out["render"] = render(model, z, zl, offset)
