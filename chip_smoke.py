@@ -94,6 +94,11 @@ Phases, each of which raises on failure:
    PCA: a rank-2048 stream at D = 131072 with a slowly decaying spectrum,
    whose exact sample PCA is a 2048-dimensional float64 problem; the
    single-pass sketch must miss the bar there and the refined one pass it;
+   then one sketch update (the kernel pair of ``csrc/sketch_update.cu``) at
+   gen_z's and ``convs.2``'s block shapes against float64, bit-identical,
+   timed beside the plain version and torch's IEEE products (every path
+   above counts the pair's launches exactly: one a block of each pass of
+   its sketch-tier fits);
 15. the sketch tier on the card against the same stream and Omega on the
    CPU (D = 32768);
 16. one 1024-px image, one batch of ``convs.2`` activations and the latent
@@ -343,6 +348,12 @@ UP_PER_TAP_FORWARD, UP_PER_FORWARD = 2, 8
 GATE_D, GATE_CPU_D, GATE_RANK, GATE_DECAY, GATE_C = 131072, 32768, 2048, 0.993, 80
 GATE_NB, GATE_BLOCKS, GATE_CPU_BLOCKS = 2000, 10, 4
 GATE_COS, GATE_CPU_COS, TAP_REL, REG_COS = 0.999, 0.9999, 1e-4, 0.9999
+# one sketch update at the fits' block shapes (n, D, l): BigGAN-512's gen_z
+# (-b 10000, c = 80) and StyleGAN2's convs.2 fused stream (128 rows); the
+# bar on the kernel pair's normwise error against float64 (3xTF32 products,
+# float32 sums: ~5e-7 there; a single TF32 pass ~1e-3)
+SKETCH_CASES = [(10000, 32768, 320), (128, 131072, 320)]
+SKETCH_REL = 1e-5
 NPZ_KEYS = {"act_comp", "act_mean", "act_stdev", "lat_comp", "lat_mean",
             "lat_stdev", "var_ratio", "random_stdevs", "_meta"}
 # (N, D, explicit mu): the main path's block, then tests/test_pallas_moments.py's
@@ -488,6 +499,9 @@ BG_STRIPS = 2 * 12 * 14                 # activation and latent mode, 12 grids o
 # at the heuristic batch 512 (256 MiB / (32768 * 16 B)); the flat-spectrum
 # gate's bar on act_stdev (check_flat_gate)
 BG_GATE_N, STDEV_BAR = 40960, 4.0
+BG_GATE_BATCH = 512                     # the heuristic's 256 MiB / (32768 * 16 B)
+BG_GATE_BLOCKS = -(-BG_GATE_N // 2000)  # the host stream's NB = 2000 blocks: 21
+BG_GATE_FUSED_BLOCKS = BG_GATE_N // BG_GATE_BATCH                # 80
 # a conv tap with kernel B and B-up inside the fused fit: generator.layers.1
 # (8 px, 2048 channels, D = 131072) at n = 20000, the fused stream forced
 # (156 blocks of the heuristic batch 128)
@@ -1488,12 +1502,21 @@ def check_launched_shape(gen: torch.Generator, kind: str, shape: list, mode: int
 def _wrappers() -> dict:
     from ganspace_tpu_torch.ops.modconv import conv3x3, modconv3x3, upsample_conv
     from ganspace_tpu_torch.ops.moments import centered_gram
+    from ganspace_tpu_torch.ops.sketch import sketch_update
     return {"centered_gram": centered_gram, "modconv3x3": modconv3x3,
-            "conv3x3": conv3x3, "upsample_conv": upsample_conv}
+            "conv3x3": conv3x3, "upsample_conv": upsample_conv,
+            "sketch_update": sketch_update}
 
 
 #: kernel B's and the stride-2 kernel's counts of the bf16 datapath
 BF16_COUNTS = ("modconv3x3", "conv3x3", "upsample_conv")
+
+
+def sketch_updates(blocks: int, refined: bool) -> int:
+    """The sketch's kernel-pair launches of a sketch-tier fit of ``blocks``
+    blocks a pass: one a block of the main pass and of the refine pass when
+    it ran."""
+    return blocks * (2 if refined else 1)
 
 
 def reset_launches() -> None:
@@ -1992,7 +2015,8 @@ def run_conv_tap_path(gpu: str) -> tuple[dict, dict]:
                      cli=True)
         expect_launches(launches, "conv-tap path", modconv3x3=conv_tap_launches(**shape),
                         upsample_conv=conv_tap_launches(**shape, per_tap=UP_PER_TAP_FORWARD,
-                                                        per_full=UP_PER_FORWARD))
+                                                        per_full=UP_PER_FORWARD),
+                        sketch_update=sketch_updates(CONV50_BLOCKS, shape["refined"]))
         if arrays["act_comp"].shape != CONV_ACT_SHAPE:
             raise AssertionError(f"act_comp shape {arrays['act_comp'].shape}")
         lat = arrays["lat_comp"].reshape(80, -1)
@@ -2074,7 +2098,9 @@ def run_conv_fit(gpu: str, inst, device_rng: bool, fused: bool = False,
                  fused_blocks=CONV20_FUSED_BLOCKS if fused else 0, cli=False)
     expect_launches(run["launches"], what, modconv3x3=conv_tap_launches(**shape),
                     upsample_conv=conv_tap_launches(**shape, per_tap=UP_PER_TAP_FORWARD,
-                                                    per_full=UP_PER_FORWARD))
+                                                    per_full=UP_PER_FORWARD),
+                    sketch_update=sketch_updates(CONV20_FUSED_BLOCKS if fused else CONV_BLOCKS,
+                                                 shape["refined"]))
     log(f"{what}: {run['seconds']:.3f} s, {CONV_N / run['seconds']:.1f} samples/s; "
         f"launches {run['launches']}; refine_skipped {meta['refine_skipped']}; "
         f"phases: {fmt_phases(run['phases'])} [{gpu}]")
@@ -2202,7 +2228,8 @@ def run_sg1_tap_fit(gpu: str, inst) -> dict:
     expect_meta(meta, "StyleGAN blocks.16x16 fit", device_rng=True, fused_linreg=True)
     forwards = 1 + SG1_TAP_BLOCKS * (1 + (not meta["refine_skipped"]))
     expect_launches(run["launches"], "StyleGAN blocks.16x16 fit",
-                    conv3x3=SG1_TAP_PLAIN * forwards)
+                    conv3x3=SG1_TAP_PLAIN * forwards,
+                    sketch_update=sketch_updates(SG1_TAP_BLOCKS, not meta["refine_skipped"]))
     if run["arrays"]["act_comp"].shape != (80, 1, 512, 16, 16):
         raise AssertionError(f"act_comp shape {run['arrays']['act_comp'].shape}")
     log(f"StyleGAN {SG1_TAP} fit at n = {SG1_TAP_N}: {run['seconds']:.3f} s, "
@@ -2362,11 +2389,13 @@ def run_biggan_cli(gpu: str) -> tuple[dict, dict]:
         result = visualize.main(list(BG_ARGS))
         launches = read_launches()
         log(f"BigGAN CLI launches: {launches}")
-        plain, up = bg_counts()
-        expect_launches(launches, "BigGAN CLI", conv3x3=plain * BG_STRIPS,
-                        upsample_conv=up * BG_STRIPS)
         bound = drawn.check("BigGAN CLI")
         arrays, meta = load_cache(result.cache)
+        plain, up = bg_counts()
+        expect_launches(launches, "BigGAN CLI", conv3x3=plain * BG_STRIPS,
+                        upsample_conv=up * BG_STRIPS,
+                        sketch_update=sketch_updates(BG_N // BG_BATCH,
+                                                     not meta["refine_skipped"]))
         if arrays["act_comp"].shape != (80, 1, BG_TAP_D) or arrays["lat_comp"].shape != (80, 1, 128):
             raise AssertionError(f"BigGAN cache shapes {arrays['act_comp'].shape}, "
                                  f"{arrays['lat_comp'].shape}")
@@ -2436,7 +2465,9 @@ def check_biggan_stream_gate(gpu: str, inst) -> dict:
     runs = {}
     for seed in (0, 7):
         run = fit_only(inst, "generator.gen_z", BG_GATE_N, seed=seed, GANSPACE_DEVICE_RNG=0)
-        expect_launches(run["launches"], "BigGAN host gen_z fit")
+        expect_launches(run["launches"], "BigGAN host gen_z fit",
+                        sketch_update=sketch_updates(BG_GATE_BLOCKS,
+                                                     not run["meta"]["refine_skipped"]))
         expect_meta(run["meta"], "BigGAN host gen_z fit", device_rng=False)
         log(f"BigGAN host-RNG gen_z fit, seed {seed or 1}: {run['seconds']:.3f} s, "
             f"{BG_GATE_N / run['seconds']:.1f} samples/s; phases: "
@@ -2444,7 +2475,9 @@ def check_biggan_stream_gate(gpu: str, inst) -> dict:
         runs[seed] = run
     with TruncationRecorder() as drawn:
         dev = fit_only(inst, "generator.gen_z", BG_GATE_N)
-    expect_launches(dev["launches"], "BigGAN device gen_z fit")
+    expect_launches(dev["launches"], "BigGAN device gen_z fit",
+                    sketch_update=sketch_updates(BG_GATE_FUSED_BLOCKS,
+                                                 not dev["meta"]["refine_skipped"]))
     expect_meta(dev["meta"], "BigGAN device gen_z fit", device_rng=True, fused_linreg=True)
     bound = drawn.check("BigGAN device gen_z fit")
     log(f"BigGAN device gen_z fit: {dev['seconds']:.3f} s, {BG_GATE_N / dev['seconds']:.1f} "
@@ -2468,7 +2501,8 @@ def run_biggan_tap_fit(gpu: str, inst) -> dict:
     forwards = 1 + BG_TAP_BLOCKS * (1 + (not meta["refine_skipped"]))
     plain, up = bg_counts(upto=1)
     expect_launches(run["launches"], "BigGAN layers.1 fit", conv3x3=plain * forwards,
-                    upsample_conv=up * forwards)
+                    upsample_conv=up * forwards,
+                    sketch_update=sketch_updates(BG_TAP_BLOCKS, not meta["refine_skipped"]))
     if run["arrays"]["act_comp"].shape != (80, 1, 2048, 8, 8):
         raise AssertionError(f"act_comp shape {run['arrays']['act_comp'].shape}")
     log(f"BigGAN {BG_TAP} fit at n = {BG_TAP_N} (fused, {BG_TAP_BLOCKS} blocks of "
@@ -2781,7 +2815,8 @@ def run_progan_tap_fits(gpu: str, inst) -> tuple[dict, dict]:
         forwards = 1 + PG_TAP_BLOCKS * (1 + (not meta["refine_skipped"]))
         plain, up = pg_counts(PG_TAP)
         expect_launches(run["launches"], "ProGAN layer6 fit", conv3x3=plain * forwards,
-                        upsample_conv=up * forwards)
+                        upsample_conv=up * forwards,
+                        sketch_update=sketch_updates(PG_TAP_BLOCKS, not meta["refine_skipped"]))
         if run["arrays"]["act_comp"].shape != (80, 1, 512, 16, 16):
             raise AssertionError(f"act_comp shape {run['arrays']['act_comp'].shape}")
         log(f"ProGAN {PG_TAP} fit at n = {PG_TAP_N} (fused, {PG_TAP_BLOCKS} blocks of "
@@ -2816,7 +2851,8 @@ def run_dcgan_cli(gpu: str) -> dict:
         tap_forwards = DC_BLOCKS * (1 + (not meta["refine_skipped"]))
         full_forwards = 2 + DC_STRIPS // 2 + DC_STRIPS
         expect_launches(launches, "DCGAN CLI",
-                        upsample_conv=tap_forwards + len(dc_shapes(1)) * full_forwards)
+                        upsample_conv=tap_forwards + len(dc_shapes(1)) * full_forwards,
+                        sketch_update=sketch_updates(DC_BLOCKS, not meta["refine_skipped"]))
         if arrays["act_comp"].shape != (80, 1, 256, 8, 8):
             raise AssertionError(f"DCGAN act_comp shape {arrays['act_comp'].shape}")
         grids = check_grids(Path(out, "out", "DCGAN", "deconv1", "ipca", "summ"), 64,
@@ -2865,8 +2901,8 @@ def check_progan_dcgan_vs_cpu() -> None:
 # -- the figure scripts and makesample (ganspace_tpu_torch/notebooks, tools) --
 
 # Each figure through its main, at its defaults but for the arguments
-# given: (module, arguments, forwards, frames, kernel-A fits, [(PNG, rows,
-# frames a row)]).  A forward renders one strip of 5 frames, or one frame
+# given: (module, arguments, forwards, frames, fits (StyleGAN2's through
+# kernel A, BigGAN's on the sketch tier), [(PNG, rows, frames a row)]).  A forward renders one strip of 5 frames, or one frame
 # in the teaser's chains and the BigGAN grids.  The StyleGAN2 figures (W,
 # --layer style, -n 2048) share one cache per c: c = 8 is fitted by the
 # teaser, first_20_pcs's by itself, each one block of 2048 W rows through
@@ -2874,9 +2910,10 @@ def check_progan_dcgan_vs_cpu() -> None:
 # for the phase's time, which the grids' PNG encoding holds (PIL, one
 # thread): at 20 rows the figure took 45 s of the phase's 155 s, at 10 rows
 # 23 s of 136 s, at 5 rows 14 s, so 3 rows now (PERF.md §4, §6).  The
-# BigGAN-128 figures (husky, generator.gen_z, -n 512, c = 8) fit gen_z
-# (D = 32768) on the sketch tier, no kernel there; style resampling keeps
-# 1, 5 and 10 of the 11 latent slots (3 rows of 4 frames).
+# BigGAN-128 figures (husky, generator.gen_z, -n 512, c = 8) share one
+# cache, fitted by style resampling: gen_z (D = 32768) on the sketch tier,
+# one NB = 2000 block a pass through the sketch's kernel pair; style
+# resampling keeps 1, 5 and 10 of the 11 latent slots (3 rows of 4 frames).
 FIRST_PCS_ROWS = 3
 FIG_SG2 = [
     ("figure_teaser", [], 8, 8, 1, [("teaser.png", 2, 4)]),
@@ -2891,7 +2928,7 @@ FIG_SG2 = [
 ]
 FIG_BG_RES = 128
 FIG_BG = [
-    ("figure_biggan_style_resampling", [], 12, 12, 0, [("biggan_style_resampling.png", 3, 4)]),
+    ("figure_biggan_style_resampling", [], 12, 12, 1, [("biggan_style_resampling.png", 3, 4)]),
     ("figure_biggan_style_mixing", [], 12, 12, 0, [("biggan_style_mixing.png", 4, 3)]),
     ("figure_biggan_edit_transferability", [], 3, 15, 0,
      [("biggan_edit_transferability.png", 3, 5)]),
@@ -3048,7 +3085,13 @@ def run_figures(gpu: str) -> dict:
                     upsample_conv=UP_PER_FORWARD * forwards)
 
     def bg(forwards, fits):
-        return dict(centered_gram=fits, conv3x3=plain * forwards, upsample_conv=up * forwards)
+        refined = False
+        if fits:        # the refine decision of the figures' gen_z cache
+            (npz,) = Path(out, "cache", "components").glob("*gen_z*.npz")
+            with np.load(npz, allow_pickle=False) as data:
+                refined = not json.loads(bytes(data["_meta"].item()).decode())["refine_skipped"]
+        return dict(conv3x3=plain * forwards, upsample_conv=up * forwards,
+                    sketch_update=fits and sketch_updates(1, refined))
 
     launches = {}
     t0 = time.perf_counter()
@@ -3969,15 +4012,17 @@ PROFILE_CONVTAP_N = CONV_N
 def qs_launches(family: str, regression_batch: int, refined: bool) -> dict:
     """Kernel launches of a quickstart run: the shape annotation and the
     fit's probe (one forward to the tap each), the block (and the refine
-    pass's), the regression sweep's forwards to the tap; the strip (one
+    pass's; one sketch update each), the regression sweep's forwards to the
+    tap; the strip (one
     5-frame forward), the dissection's stats and tally passes and the
     report (full forwards).  DCGAN's forward to a tap is a full forward."""
     tap = (2 + QS_BLOCK_FORWARDS * (1 + refined)
            + max(10_000, QS_N) // regression_batch)
     full = 1 + 2 * (QS_DISSECT_N // QS_DISSECT_BATCH) + QS_REPORT_UNITS
+    fit = dict(sketch_update=sketch_updates(1, refined))
     if family == "ProGAN":
-        return pg_forwards(full, tap)
-    return dict(upsample_conv=len(dc_shapes(1)) * (tap + full))
+        return {**pg_forwards(full, tap), **fit}
+    return dict(upsample_conv=len(dc_shapes(1)) * (tap + full), **fit)
 
 
 def check_quickstart_outputs(what: str, out: Path, c: int) -> tuple:
@@ -4103,12 +4148,14 @@ def run_profilers(gpu: str) -> dict:
     fitted = [e for e in made if e.refine_skipped is not None]
     if len(fitted) != 2:
         raise AssertionError(f"profile_convtap: {len(fitted)} fitted estimators")
-    want = {"modconv3x3": B_PER_TAP_FORWARD, "upsample_conv": UP_PER_TAP_FORWARD}
+    want = {"modconv3x3": B_PER_TAP_FORWARD, "upsample_conv": UP_PER_TAP_FORWARD,
+            "sketch_update": 0}
     for e in fitted:
         shape = dict(refined=not e.refine_skipped, fused_blocks=CONV20_FUSED_BLOCKS, cli=False)
         want["modconv3x3"] += conv_tap_launches(**shape)
         want["upsample_conv"] += conv_tap_launches(**shape, per_tap=UP_PER_TAP_FORWARD,
                                                    per_full=UP_PER_FORWARD)
+        want["sketch_update"] += sketch_updates(CONV20_FUSED_BLOCKS, shape["refined"])
     expect_launches(launches["profile_convtap"], "profile_convtap", **want)
     log(f"profile_convtap at n = {PROFILE_CONVTAP_N}: {seconds:.3f} s, launches "
         f"{launches['profile_convtap']}, refined {[not e.refine_skipped for e in fitted]}, "
@@ -4198,7 +4245,8 @@ def run_bf16_cli(gpu: str, f32_arrays: dict) -> dict:
                     modconv3x3=conv_tap_launches(cli=True, **shape) - fit_b,
                     upsample_conv_bf16=fit_up,
                     upsample_conv=conv_tap_launches(cli=True, per_tap=UP_PER_TAP_FORWARD,
-                                                    per_full=UP_PER_FORWARD, **shape) - fit_up)
+                                                    per_full=UP_PER_FORWARD, **shape) - fit_up,
+                    sketch_update=sketch_updates(CONV50_BLOCKS, shape["refined"]))
     cos = _min_abs_cos(*(torch.from_numpy(a["act_comp"].reshape(80, -1))
                          for a in (arrays, f32_arrays)))
     n_low = sum(b < 0.99 for b in bounds)
@@ -4234,7 +4282,8 @@ def run_bf16_pass1(gpu: str, inst) -> dict:
                     modconv3x3_bf16=b * CONV20_FUSED_BLOCKS,
                     modconv3x3=b * (1 + CONV20_FUSED_BLOCKS),
                     upsample_conv_bf16=up * CONV20_FUSED_BLOCKS,
-                    upsample_conv=up * (1 + CONV20_FUSED_BLOCKS))
+                    upsample_conv=up * (1 + CONV20_FUSED_BLOCKS),
+                    sketch_update=sketch_updates(CONV20_FUSED_BLOCKS, True))
     cos = _min_abs_cos(*(torch.from_numpy(r["arrays"]["act_comp"].reshape(80, -1))
                          for r in runs))
     log(f"bf16 first pass at convs.2, n = {CONV_N}: run 1 (float32) "
@@ -4508,7 +4557,8 @@ def run_progan_bf16_cli(gpu: str, f32_arrays: dict) -> dict:
     expect_launches(launches, "ProGAN --dtype bfloat16 CLI",
                     conv3x3_bf16=pv_plain * fit_fwd, upsample_conv_bf16=pv_up * fit_fwd,
                     conv3x3=tap_plain * tap_fwd + plain * PG_STRIPS,
-                    upsample_conv=tap_up * tap_fwd + up * PG_STRIPS)
+                    upsample_conv=tap_up * tap_fwd + up * PG_STRIPS,
+                    sketch_update=sketch_updates(PG_TAP_BLOCKS, not meta["refine_skipped"]))
     cos = _min_abs_cos(*(torch.from_numpy(a["act_comp"].reshape(80, -1))
                          for a in (arrays, f32_arrays)))
     n_low = sum(b < 0.99 for b in bounds)
@@ -4658,7 +4708,6 @@ def check_sketch_gate(gpu: str) -> None:
     the refined components against the exact sample PCA (a 2048 x 2048
     float64 eigh).  The single pass must miss the bar, or the stream could
     not tell a working refine from a broken one."""
-    from ganspace_tpu_torch.estimators.ipca import NystromState, nystrom_update
     q, blocks = _decay_stream(GATE_D, seed=1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4671,24 +4720,63 @@ def check_sketch_gate(gpu: str) -> None:
     exact = evecs[:, -GATE_C:].flip(1).T.cuda() @ q.double()
     cos_first, cos = _min_abs_cos(first, exact), _min_abs_cos(comp, exact)
     del g, exact
-    # one sketch update alone at this shape: x @ Omega and x^T (x Omega)
-    x = blocks[0] @ q
-    omega = torch.randn(GATE_D, 4 * GATE_C, device="cuda")
-    state = NystromState(0.0, torch.zeros(GATE_D, device="cuda"),
-                         torch.zeros((), device="cuda"),
-                         torch.zeros(GATE_D, 4 * GATE_C, device="cuda"))
-    upd_ms = median_ms(lambda: nystrom_update(state, x, omega), reps=10)
-    flop = 2 * 2.0 * GATE_NB * GATE_D * 4 * GATE_C
     log(f"sketch gate: rank {GATE_RANK}, stdev {GATE_DECAY}^i, at D={GATE_D}, "
         f"{GATE_BLOCKS} blocks of {GATE_NB}, c={GATE_C}, two passes {fit_s:.3f} s: "
         f"min |cos| vs exact PCA single pass {cos_first:.6f} (must miss the bar), "
-        f"refined {cos:.6f} (bar {GATE_COS}); one sketch update {upd_ms:.3f} ms "
-        f"({flop / upd_ms / 1e9:.1f} TFLOP/s IEEE f32) [{gpu}]")
+        f"refined {cos:.6f} (bar {GATE_COS}) [{gpu}]")
     if not cos > GATE_COS:
         raise AssertionError(f"sketch tier on the card: min |cos| {cos} <= {GATE_COS}")
     if not cos_first < GATE_COS:
         raise AssertionError(f"single-pass sketch already at {cos_first}: the "
                              f"stream cannot show what the refine pass does")
+
+
+def check_sketch_updates(gpu: str) -> dict:
+    """One sketch update (``nystrom_update``: the kernel pair of
+    ``csrc/sketch_update.cu``) at the fits' block shapes: against the float64
+    product and sums, two calls bit-identical, one launch a call; then timed
+    beside the plain version and torch's two IEEE products (the library
+    call), with its bound from ``benchmark/work.sketch_update``."""
+    from benchmark import work
+    from ganspace_tpu_torch.estimators.ipca import (
+        NystromState, nystrom_update, nystrom_update_plain)
+    from ganspace_tpu_torch.ops.sketch import sketch_update
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rows = []
+    for n, d, l in SKETCH_CASES:
+        x = torch.randn(n, d, generator=gen, device="cuda") + 0.25
+        omega = torch.randn(d, l, generator=gen, device="cuda")
+        state = NystromState(0.0, torch.randn(d, generator=gen, device="cuda"),
+                             torch.zeros((), device="cuda"),
+                             torch.randn(d, l, generator=gen, device="cuda"))
+        launches = sketch_update.launches
+        got, again = nystrom_update(state, x, omega), nystrom_update(state, x, omega)
+        if sketch_update.launches != launches + 2:
+            raise AssertionError(f"sketch update {n}x{d}x{l}: "
+                                 f"{sketch_update.launches - launches} launches, expected 2")
+        if not all(torch.equal(a, b) for a, b in zip(got[1:], again[1:])):
+            raise AssertionError(f"sketch update {n}x{d}x{l}: two launches differ")
+        xd = x.double()
+        prod = xd.T @ (xd @ omega.double())
+        err = float(((got.y - state.y).double() - prod).norm() / prod.norm())
+        s_err = float((got.s.double() - state.s - xd.sum(0)).norm() / xd.sum(0).norm())
+        plain = nystrom_update_plain(state, x, omega)
+        plain_err = float(((plain.y - state.y).double() - prod).norm() / prod.norm())
+        del xd, prod, got, again, plain
+        if not max(err, s_err) < SKETCH_REL:
+            raise AssertionError(f"sketch update {n}x{d}x{l}: y rel {err:.3e}, s rel "
+                                 f"{s_err:.3e} (bar {SKETCH_REL})")
+        row = timed(median_ms(lambda: nystrom_update(state, x, omega)),
+                    median_ms(lambda: nystrom_update_plain(state, x, omega)),
+                    median_ms(lambda: torch.addmm(state.y, x.T, x @ omega)),
+                    bound(*work.sketch_update(n, d, l)))
+        log(f"sketch update n={n} D={d} l={l}: y rel {err:.3e} (plain IEEE {plain_err:.3e}), "
+            f"s rel {s_err:.3e}; two launches bit-identical; kernel pair {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, torch's IEEE products {row['library_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}): {row['bound_share']:.1%} [{gpu}]")
+        rows.append({"shape": [n, d, l], **row, "rel_err": err})
+        del x, omega, state
+    return {"cases": rows}
 
 
 def check_sketch_vs_cpu() -> None:
@@ -5046,8 +5134,10 @@ def run_mesh(gpu: str, recorder: LaunchRecorder, w_fit_1m: dict, conv_fused: dic
         # once: rank 1's probe (2 + 2 launches) is the mesh's overhead.
         refined = not conv_fused["meta"]["refine_skipped"]
         per_rank_tap = 2 * (1 + (CONV20_FUSED_BLOCKS // 2) * (2 if refined else 1))
+        per_rank_sketch = sketch_updates(CONV20_FUSED_BLOCKS // 2, refined)
         want = {"w_fit_1m": [{"centered_gram": 10}, {"centered_gram": 9}],
-                "convs2_fit": [{"modconv3x3": per_rank_tap, "upsample_conv": per_rank_tap}] * 2,
+                "convs2_fit": [{"modconv3x3": per_rank_tap, "upsample_conv": per_rank_tap,
+                                "sketch_update": per_rank_sketch}] * 2,
                 "w_cli": [{"centered_gram": 4, "modconv3x3": N_CONV_LAUNCHES,
                            "upsample_conv": N_UP_LAUNCHES}, {"centered_gram": 4}]}
         for job, by_rank in want.items():
@@ -5304,6 +5394,7 @@ def main() -> int:
     with ieee_f32():
         profile_conv_tap_blocks(gpu)
         check_sketch_gate(gpu)
+        sketch = check_sketch_updates(gpu)
         check_sketch_vs_cpu()
         check_vs_cpu(conv_npz)
         check_sg1_vs_cpu()
@@ -5358,6 +5449,11 @@ def main() -> int:
              source="ganspace_tpu_torch/csrc/upconv2x_bf16.cu",
              replaces="ganspace_tpu/models/stylegan.py:164",
              **counts("upsample_conv_bf16"), **preview["upsample_conv"]),
+        # the sketch tier's block update: every sketch-tier fit on the card
+        dict(name="sketch_update", route="cuda",
+             source="ganspace_tpu_torch/csrc/sketch_update.cu",
+             replaces="none: XLA's products at HIGHEST (ganspace_tpu/estimators/ipca.py)",
+             **counts("sketch_update"), **sketch),
     ]
     for row in kernels:
         if row["launches"] == 0:

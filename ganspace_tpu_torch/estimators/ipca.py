@@ -6,17 +6,19 @@ block (``mode="auto"``) or pinned by ``mode``:
 * **exact moments** (D <= ``MOMENTS_MAX_D``, the W/Z latent spaces):
   Chan-merged count, mean and centered scatter M2, one centered Gram per
   block (the CUDA kernel of ``ops/moments.py``), one eigh at the end.
-* **Nystrom sketch** (larger D, the conv taps): per block two plain GEMMs,
+* **Nystrom sketch** (larger D, the conv taps): per block two products,
   ``x @ Omega`` and ``x^T (x Omega)`` with Omega a [D, l] Gaussian test
-  matrix; at the end the [D, l] products run on the device and the l x l
-  factorizations on the host in float64.  An optional second data pass
+  matrix, on the card one 3xTF32 kernel pair (``ops/sketch.py``); at the
+  end the [D, l] products run on the device and the l x l factorizations
+  on the host in float64.  An optional second data pass
   (``should_refine`` / ``begin_refine``) is one power iteration against the
   first pass's orthonormal range.
 * **sklearn mirror** (``mode="sklearn"``): sklearn ``IncrementalPCA``'s
   per-block update, an eigh of a (c + n + 1)-row Gram per block.
 
-Every product runs under the caller's ``ops/precision.ieee_f32`` (TF32 off),
-the counterpart of the JAX package's ``Precision.HIGHEST``.
+Every stock product runs under the caller's ``ops/precision.ieee_f32`` (TF32
+off), the counterpart of the JAX package's ``Precision.HIGHEST``; the
+sketch's kernel pair computes its products in 3xTF32, which matches it.
 
 On a mesh (``parallel/mesh.py``) each rank streams its own blocks into its
 own state; the first read of a statistic after a pass merges the ranks'
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 import math
 import os
+import weakref
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -41,6 +44,7 @@ import torch
 
 from ganspace_tpu_torch.estimators.utils import gram_svd, svd_flip_vt, topk_eigh_desc
 from ganspace_tpu_torch.ops.moments import centered_gram
+from ganspace_tpu_torch.ops.sketch import omega_image, sketch_update
 from ganspace_tpu_torch.utils.tracing import annotate, count
 
 _NOT_FINITE = ("non-finite moment statistics: the activation stream contains "
@@ -132,16 +136,71 @@ def sketch_test_matrix(d: int, l: int) -> torch.Tensor:
     return torch.randn(d, l, generator=gen, dtype=torch.float32)
 
 
-def nystrom_update(state: NystromState, x: torch.Tensor,
-                   omega: torch.Tensor) -> NystromState:
-    """One block of the single-pass sketch: two GEMMs and two sums, no
-    factorization.  Out of place: every update makes a new ``y``, which is
-    what the factor memo of :class:`IPCAEstimator` keys on."""
+def nystrom_update_plain(state: NystromState, x: torch.Tensor,
+                         omega: torch.Tensor) -> NystromState:
+    """Plain PyTorch version of :func:`nystrom_update`: the CPU path and the
+    kernel pair's oracle."""
     xo = x @ omega
     return NystromState(state.count + float(x.shape[0]),
                         state.s + torch.sum(x, dim=0),
                         state.sq + torch.sum(torch.square(x)),
                         torch.addmm(state.y, x.T, xo))
+
+
+#: Omega's operand images of the kernel pair, newest first: (a weak
+#: reference to the Omega it was made from, image).  An image dies with its
+#: Omega, and the referent's identity guards against a recycled id; two
+#: entries hold a pass's Omega and its refine pass's.
+_omega_images: list = []
+
+
+def _omega_image(omega: torch.Tensor) -> torch.Tensor:
+    """``ops/sketch.omega_image`` of ``omega``, made once per Omega."""
+    _omega_images[:] = [(ref, image) for ref, image in _omega_images if ref() is not None]
+    for ref, image in _omega_images:
+        if ref() is omega:
+            return image
+    image = omega_image(omega)
+    _omega_images.insert(0, (weakref.ref(omega), image))
+    del _omega_images[2:]
+    _omega_image.builds += 1
+    return image
+
+
+#: images made since the last reset
+_omega_image.builds = 0
+
+
+def nystrom_update(state: NystromState, x: torch.Tensor,
+                   omega: torch.Tensor) -> NystromState:
+    """One block of the single-pass sketch: ``y += x^T (x Omega)`` and the
+    sums of x and x^2, no factorization.  Out of place: every update makes a
+    new ``y``, which is what the factor memo of :class:`IPCAEstimator` keys
+    on.  A CPU tensor takes :func:`nystrom_update_plain`; a CUDA tensor the
+    kernel pair of ``ops/sketch.py`` (3xTF32 products), or it raises."""
+    d = x.shape[1] if x.ndim == 2 else None
+    tensors = (x, omega, state.y, state.s, state.sq)
+    if (x.ndim != 2 or omega.ndim != 2 or omega.shape[0] != d
+            or state.y.shape != omega.shape or state.s.shape != (d,) or state.sq.shape != ()):
+        raise ValueError(f"nystrom_update: x must be [n, D], omega and y [D, l], s [D] and "
+                         f"sq a scalar; got x {tuple(x.shape)}, omega {tuple(omega.shape)}, "
+                         f"y {tuple(state.y.shape)}, s {tuple(state.s.shape)}, "
+                         f"sq {tuple(state.sq.shape)}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"nystrom_update: every tensor must be float32, got "
+                        f"{[str(t.dtype) for t in tensors]}")
+    if any(t.device != x.device for t in tensors):
+        raise ValueError(f"nystrom_update: the tensors lie on "
+                         f"{sorted({str(t.device) for t in tensors})}, not on one device")
+    if x.device.type == "cpu":
+        return nystrom_update_plain(state, x, omega)
+    if x.device.type != "cuda":
+        raise ValueError(f"nystrom_update: unsupported device {x.device}")
+    if x.shape[0] < 1:
+        raise ValueError("nystrom_update: a block on the card needs at least one row")
+    y, s, sq = sketch_update(x.contiguous(), _omega_image(omega), state.y.contiguous(),
+                             state.s.contiguous(), state.sq.contiguous())
+    return NystromState(state.count + float(x.shape[0]), s, sq, y)
 
 
 def sketch_grams(state: NystromState, omega: torch.Tensor, fsum=_same):

@@ -46,6 +46,8 @@ _SIGNATURES = {
     "ganspace_tf32x3_tile": [_P, _P, _P, _P],
     "ganspace_wgmma_tile": [_P, _P, _P, _P, _I, _P],
     "ganspace_wgmma_tile_bf16": [_P, _P, _P, _I, _P],
+    "ganspace_sketch_update": [_P] * 11 + [_I] * 5 + [_P],
+    "ganspace_sketch_omega_image": [_P, _P, _I, _I, _P],
 }
 
 

@@ -299,13 +299,16 @@ def test_device_streams_agree_on_card(gen):
     assert torch.equal(again, acts)
 
 
-# -- the sketch tier of the IPCA estimator (plain cuBLAS GEMMs) ---------------
+# -- the sketch tier of the IPCA estimator (the kernel pair of ops/sketch.py) --
 
 def test_sketch_tier_on_card_matches_cpu(gen):
     """The same blocks and Omega through the sketch tier with its refine pass
-    on the card and on the CPU; numpy blocks follow the state to the card."""
+    on the card (one kernel-pair launch a block) and on the CPU; numpy
+    blocks follow the state to the card."""
     import numpy as np
     from ganspace_tpu_torch.estimators.ipca import IPCAEstimator
+    from ganspace_tpu_torch.ops.sketch import sketch_update
+    launches = sketch_update.launches
     rs = np.random.RandomState(0)
     spec = (0.97 ** np.arange(4096)).astype(np.float32)
     blocks = [rs.randn(1000, 4096).astype(np.float32) * spec + 0.5 for _ in range(4)]
@@ -320,6 +323,7 @@ def test_sketch_tier_on_card_matches_cpu(gen):
                 assert est.fit_partial(b)
             comps.append(est.get_components(device=True)[0])
     assert comps[0].device.type == "cuda" and comps[1].device.type == "cpu"
+    assert sketch_update.launches == launches + 2 * len(blocks)
     cos = (comps[0].cpu() * comps[1]).sum(1).abs()
     assert float(cos.min()) > 0.9999
 

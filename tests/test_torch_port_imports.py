@@ -33,6 +33,7 @@ MODULES = [
     "ganspace_tpu_torch.ops.upfirdn",
     "ganspace_tpu_torch.ops.tf32x3",
     "ganspace_tpu_torch.ops.prroi",
+    "ganspace_tpu_torch.ops.sketch",
     "ganspace_tpu_torch.estimators",
     "ganspace_tpu_torch.estimators.utils",
     "ganspace_tpu_torch.estimators.ipca",
