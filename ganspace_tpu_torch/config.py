@@ -18,7 +18,8 @@ from copy import deepcopy
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="GAN component analysis config (PyTorch)")
     p.add_argument("--model", dest="model", type=str, default="StyleGAN",
-                   help="The network to analyze (StyleGAN, StyleGAN2, ProGAN, BigGAN-XYZ)")
+                   help="The network to analyze (StyleGAN, StyleGAN2, StyleGAN3, ProGAN, "
+                        "BigGAN-XYZ)")
     p.add_argument("--layer", dest="layer", type=str, default="g_mapping",
                    help="The layer to analyze")
     p.add_argument("--class", dest="output_class", type=str, default=None,
@@ -38,7 +39,7 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("-n", type=int, default=300_000,
                    help="Number of examples to use in decomposition")
     p.add_argument("--use_w", action="store_true",
-                   help="Use W latent space (StyleGAN(2))")
+                   help="Use W latent space (StyleGAN, StyleGAN2, StyleGAN3)")
     p.add_argument("--sigma", type=float, default=2.0,
                    help="Number of stdevs to walk in visualize")
     p.add_argument("--inputs", type=str, default=None,

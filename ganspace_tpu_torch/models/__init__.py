@@ -2,10 +2,10 @@
 (``ganspace_tpu/models/__init__.py``, reference ``models/wrappers.py:651-735``).
 
 StyleGAN, StyleGAN2, BigGAN-deep (128, 256 and 512 px), ProGAN and the
-pytorch_GAN_zoo DCGAN: every family of the JAX package.  Custom generators
-can be registered under any name.  Every entry point builds its model on
-the card unless ``device`` names another device; it never falls back to
-the CPU.
+pytorch_GAN_zoo DCGAN: every family of the JAX package; and StyleGAN3-T,
+which the JAX package does not have.  Custom generators can be registered
+under any name.  Every entry point builds its model on the card unless
+``device`` names another device; it never falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from ganspace_tpu_torch.models.dcgan import GANZooModel
 from ganspace_tpu_torch.models.proggan import ProGAN
 from ganspace_tpu_torch.models.stylegan import StyleGAN
 from ganspace_tpu_torch.models.stylegan2 import StyleGAN2
+from ganspace_tpu_torch.models.stylegan3 import StyleGAN3
 from ganspace_tpu_torch.utils.tracing import annotate
 
 #: user-registered model factories: name -> callable(output_class, device=, **kwargs)
@@ -70,6 +71,9 @@ def get_model(name, output_class=None, device="cuda", **kwargs) -> BaseGenerator
         return StyleGAN2(class_name=output_class, device=device,
                          **_only(kwargs, ("truncation", "use_w", "cfg", "params",
                                           "latent_avg", "init_seed")))
+    if name == "StyleGAN3":
+        return StyleGAN3(class_name=output_class, device=device,
+                         **_only(kwargs, ("truncation", "use_w", "cfg", "params", "init_seed")))
     if "BigGAN" in name:
         if "-" not in name:
             raise ValueError("Please specify BigGAN resolution, e.g. BigGAN-512")
@@ -140,4 +144,5 @@ __all__ = [
     "ProGAN",
     "StyleGAN",
     "StyleGAN2",
+    "StyleGAN3",
 ]

@@ -31,6 +31,7 @@ MODULES = [
     "ganspace_tpu_torch.ops.modconv",
     "ganspace_tpu_torch.ops.linear",
     "ganspace_tpu_torch.ops.upfirdn",
+    "ganspace_tpu_torch.ops.filtered_lrelu",
     "ganspace_tpu_torch.ops.tf32x3",
     "ganspace_tpu_torch.ops.prroi",
     "ganspace_tpu_torch.ops.sketch",
@@ -48,6 +49,7 @@ MODULES = [
     "ganspace_tpu_torch.models.tf_import",
     "ganspace_tpu_torch.models.stylegan",
     "ganspace_tpu_torch.models.stylegan2",
+    "ganspace_tpu_torch.models.stylegan3",
     "ganspace_tpu_torch.models.biggan",
     "ganspace_tpu_torch.models.proggan",
     "ganspace_tpu_torch.models.dcgan",
